@@ -7,19 +7,29 @@ repository's ``src/`` beside this file; it builds every kernel of
 ``src/repro_torch/csrc`` itself.  Without a card it exits non-zero before
 printing any result.  Phases (each raises on failure; none is skipped):
 
-  1. environment: card name and power limit, versions, kernel build;
+  1. environment: card name and power limit, versions, kernel builds
+     (one ``nvcc`` per source, all started together);
   2. every kernel against its plain PyTorch version at the reference test
-     shapes (f32/bf16/f16, ragged edges), ``block=`` variants and
-     sub-blocks bit for bit;
-  3. the main path, MMOOC: ``ooc_gemm`` host backend at
+     shapes: the block GEMM (f32/bf16/f16, ragged edges, ``block=``
+     variants and sub-blocks bit for bit) and the flash-decoding pair
+     (f32/bf16/f16 KV, q in f32 and in the KV dtype, ragged lengths, a
+     fully masked split, a row of length 0, two runs bit for bit);
+  3. the first path, MMOOC: ``ooc_gemm`` host backend at
      M = N = K = 24576 f32 under a 2 GiB device budget (3.4x out of core),
      in both executor modes, checked bit for bit across modes and against
      the in-core path, against float64 on sampled rows, byte counters
      against ``schedule_stats``, launch counts and peak device memory;
   4. the vmem backend at the same size and ``ooc_syrk`` host at
      n = 16384, K = 8192 under 1 GiB;
-  5. kernel timing at the main path's block shape beside its bound, the
-     plain version and one library call.
+  5. the second path, decode attention: ``ooc_attention`` at llama3.2-3b's
+     attention widths (H = 24, Hkv = 8, d = 128) over a long_500k cache
+     (S = 524288, bf16, 2 GiB) under a 512 MiB budget, in both executor
+     modes, cold and warm: bit for bit across modes, against float64 on the
+     card and the kernel on the whole cache, byte counters, launches, peak
+     device memory, and the warm runs' transfer and idle times; then f32 KV
+     at S = 131072 under 256 MiB with the same checks;
+  6. kernel timing at each path's shapes beside its bound, the plain
+     version and one library call.
 
 The line before the last is a JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -33,6 +43,7 @@ import os
 import subprocess
 import sys
 import time
+from concurrent.futures import ThreadPoolExecutor
 
 import torch
 
@@ -45,6 +56,7 @@ U32 = 2.0 ** -24          # float32 unit roundoff
 # FLOP/s on the CUDA cores and HBM3 bytes/s.  torch names the card
 # "NVIDIA H100 80GB HBM3"; any other card raises.
 H100_SXM = ("H100 80GB HBM3", 67e12, 3.35e12)
+SPIN_CYCLES = 2 * 10**8   # ~0.1 s at the H100's 1.98 GHz boost clock
 
 
 def say(phase: str, msg: str) -> None:
@@ -76,12 +88,16 @@ def rand(shape, gen, dtype=torch.float32, device="cuda"):
 
 
 def time_ms(fn, reps: int = 5, warmup: int = 1) -> float:
-    """Mean device time per call from CUDA events, after warm-up."""
+    """Mean device time per call from CUDA events, after warm-up.  A spin
+    kernel (~0.1 s) holds the stream while the host enqueues the timed
+    calls, so a call that is shorter than its Python overhead is timed on
+    the device and not at the pace of a busy host."""
     for _ in range(warmup):
         fn()
     t0 = torch.cuda.Event(enable_timing=True)
     t1 = torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
     t0.record()
     for _ in range(reps):
         fn()
@@ -111,13 +127,17 @@ def phase_env():
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels import _build
 
-    log = _build.build("block_matmul")
-    say("env", f"block_matmul: {log['path']} built in "
-               f"{log['seconds']:.2f} s"
-               + (" (already built)" if log["cached"] else ""))
-    for ln in log["ptxas"].splitlines():
-        if "registers" in ln or "spill" in ln:
-            say("env", f"  ptxas {ln.strip()}")
+    names = ("block_matmul", "flash_attention")
+    with ThreadPoolExecutor(len(names)) as pool:
+        logs = list(pool.map(_build.build, names))
+    for name, log in zip(names, logs):
+        say("env", f"{name}: {log['path']} built in {log['seconds']:.2f} s"
+                   + (" (already built)" if log["cached"] else ""))
+        for ln in log["ptxas"].splitlines():
+            if "Compiling entry" in ln:
+                say("env", f"  ptxas {ln.split(chr(39))[1][:120]}")
+            elif "registers" in ln or "spill" in ln:
+                say("env", f"  ptxas {ln.strip()}")
     return line
 
 
@@ -154,6 +174,79 @@ def phase_kernels(gen):
                           f"max err {err.max().item():.3g} "
                           f"(rtol=atol={tol}); {len(blocks)} block= "
                           f"variants and a sub-block bitwise equal")
+
+
+# the cases of tests/test_kernels.py's flash-decoding tests:
+# (B, H, Hkv, d, S, block_s, lengths)
+ATTN_CASES = [(1, 8, 2, 64, 512, 128, "random"),
+              (2, 16, 16, 64, 1000, 256, "random"),
+              (3, 8, 1, 128, 384, 128, "random"),
+              (2, 4, 4, 80, 300, 128, "random"),
+              (2, 8, 2, 64, 512, 128, "full"),
+              (1, 4, 4, 64, 1024, 128, "short")]
+ATTN_TOL = {torch.float32: 2e-4, torch.bfloat16: 3e-2, torch.float16: 3e-2}
+
+
+def phase_kernels_attention(gen):
+    from repro_torch.kernels import flash_attention as kfa
+
+    neg_inf = torch.tensor(kfa.NEG_INF, dtype=torch.float32)
+    for dt, tol in ATTN_TOL.items():
+        worst = 0.0
+        for B, H, hkv, d, S, bs, lens in ATTN_CASES:
+            k, v = (rand((B, S, hkv, d), gen, dt) for _ in range(2))
+            length = {"random": torch.randint(1, S + 1, (B,), generator=gen,
+                                              device="cuda"),
+                      "full": torch.full((B,), S, device="cuda"),
+                      "short": torch.full((B,), 100, device="cuda")}[lens]
+            length = length.to(torch.int32)
+            q32 = rand((B, H, d), gen)
+            for q in (q32,) if dt == torch.float32 else (q32, q32.to(dt)):
+                outs = [kfa.flash_decode_attention(q, k, v, length,
+                                                   block_s=bs)
+                        for _ in range(2)]
+                ref = kfa.flash_decode_attention_plain(q, k, v, length,
+                                                       block_s=bs)
+                torch.cuda.synchronize()
+                err = (outs[0].float() - ref.float()).abs()
+                require(outs[0].dtype == q.dtype
+                        and bool((err <= tol + tol * ref.float().abs())
+                                 .all()),
+                        f"flash_attention {dt} q {q.dtype} "
+                        f"{(B, H, hkv, d, S, bs)}: max err "
+                        f"{err.max().item()} beyond rtol=atol={tol}")
+                require(torch.equal(outs[0], outs[1]),
+                        f"flash_attention {dt} {(B, H, hkv, d, S, bs)}: two "
+                        f"runs differ")
+                worst = max(worst, err.max().item())
+                if lens == "short":
+                    m, l, acc = kfa.flash_partial(q, k, v, length,
+                                                  block_s=bs)
+                    require(bool((m[:, :, 1:].cpu() == neg_inf).all())
+                            and not bool(l[:, :, 1:].any())
+                            and not bool(acc[:, :, 1:].any()),
+                            f"flash_attention {dt}: a fully masked split is "
+                            f"not exactly (NEG_INF, 0, 0)")
+                    trunc = kfa.flash_decode_attention_plain(
+                        q, k[:, :100], v[:, :100], length, block_s=bs)
+                    terr = (outs[0].float() - trunc.float()).abs().max()
+                    require(terr.item() <= tol,
+                            f"flash_attention {dt}: masked cache differs from "
+                            f"the truncated one by {terr.item()}")
+        # a row of length 0 gives zeros
+        q = rand((2, 8, 64), gen)
+        k, v = rand((2, 512, 2, 64), gen, dt), rand((2, 512, 2, 64), gen, dt)
+        out = kfa.flash_decode_attention(
+            q, k, v, torch.tensor([300, 0], dtype=torch.int32,
+                                  device="cuda"), block_s=128)
+        require(not bool(out[1].any()) and bool(torch.isfinite(out).all()),
+                f"flash_attention {dt}: a row of length 0 is not all zeros")
+        say("kernel", f"flash_attention KV {str(dt)[6:]:8s}: "
+                      f"{len(ATTN_CASES)} shapes x q in f32 and "
+                      f"{str(dt)[6:]}, max err vs plain {worst:.3g} "
+                      f"(rtol=atol={tol}); ragged lengths, masked split "
+                      f"exactly (NEG_INF, 0, 0) and == truncated cache, "
+                      f"length 0 -> zeros, two runs bitwise equal")
 
 
 def dgemm_ops(sched) -> int:
@@ -332,6 +425,249 @@ def phase_vmem_syrk(gen, report, A, B, C, host_out, params):
                 f"P @ P^T bitwise")
 
 
+def attn_oracle(q, Kd, Vd):
+    """Float64 attention on the card, one kv head at a time."""
+    H, d = q.shape
+    hkv = Kd.shape[1]
+    G = H // hkv
+    exact = torch.empty((H, d), dtype=torch.float64, device=Kd.device)
+    qd = q.to(Kd.device).double()
+    for kh in range(hkv):
+        rows = slice(kh * G, (kh + 1) * G)
+        s = (qd[rows] @ Kd[:, kh].double().T) / math.sqrt(d)
+        exact[rows] = torch.softmax(s, dim=-1) @ Vd[:, kh].double()
+    return exact
+
+
+def attention_case(gen, report, S, dt, budget, tag):
+    """``ooc_attention`` at llama3.2-3b's attention widths over an S-position
+    cache in ``dt`` under ``budget``: both modes, cold and warm, all
+    checks.  Returns the launches of both passes over the runs."""
+    from repro_torch.core import (OpKind, ScheduleExecutor,
+                                  build_attention_schedule, ooc_attention,
+                                  plan_attention_partition, schedule_stats)
+    from repro_torch.kernels import flash_attention as kfa
+
+    H, hkv, d = 24, 8, 128
+    t0 = time.perf_counter()
+    K = rand((S, hkv, d), gen, dt, device="cpu")
+    V = rand((S, hkv, d), gen, dt, device="cpu")
+    q = rand((H, d), gen, device="cpu")
+    bpe = K.element_size()
+    kv_bytes = 2 * K.numel() * bpe
+    part = plan_attention_partition(S, hkv, d, budget, bpe)
+    sched = build_attention_schedule(part, hkv, d, H, nstreams=2, nbuf=2)
+    stats = schedule_stats(sched)
+    h2d = [op.bytes for op in sched.ops if op.kind == OpKind.H2D]
+    n_attn = sum(1 for op in sched.ops if op.kind == OpKind.COMPUTE)
+    blk = part.bs * hkv * d * bpe
+    require(h2d == [blk] * (2 * part.nblocks) and n_attn == part.nblocks
+            and stats["h2d_bytes"] == kv_bytes
+            and stats["d2h_bytes"] == H * d * bpe,
+            f"{tag}: schedule has H2D {h2d[:3]}..., {n_attn} attn ops, "
+            f"stats {stats}")
+    nsplit = kfa.nsplits(part.bs, 512)
+    scratch = (2 * H + H * d + H * d + H * d          # carry, q, final
+               + nsplit * H * (d + 2)) * 4             # partials
+    parity = 4 * blk
+    slack = 2 * 2**20                                  # allocator rounding
+    say("attn", f"{tag}: K, V {S}x{hkv}x{d} {str(dt)[6:]} "
+                f"({kv_bytes / 2**30:.2f} GiB, {kv_bytes / budget:.1f}x the "
+                f"{budget / 2**20:.0f} MiB budget) and q {H}x{d} f32 made "
+                f"from seed {SEED} in {time.perf_counter() - t0:.1f} s; "
+                f"{part.nblocks} blocks of {part.bs}; {len(h2d)} H2D ops of "
+                f"{blk} B, {n_attn} attn ops, one {stats['d2h_bytes']} B "
+                f"finalize; schedule_stats {json.dumps(stats)}")
+
+    outs = {}
+    launches = {"partial": 0, "combine": 0}
+    for mode in ("issue_order", "concurrent"):
+        ex = ScheduleExecutor(mode=mode)
+        for rep in ("cold", "warm"):
+            ex.record_spans = rep == "warm"
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            mallocs = torch.cuda.memory_stats()["num_device_alloc"]
+            kfa.flash_partial.launches = 0
+            kfa.flash_combine.launches = 0
+            out = ooc_attention(q, K, V, budget_bytes=budget, nstreams=2,
+                                nbuf=2, executor=ex)
+            n_part = kfa.flash_partial.launches
+            n_comb = kfa.flash_combine.launches
+            peak = torch.cuda.max_memory_allocated() - base
+            mallocs = torch.cuda.memory_stats()["num_device_alloc"] - mallocs
+            launches["partial"] += n_part
+            launches["combine"] += n_comb
+            require(n_part == part.nblocks and n_comb == part.nblocks + 1,
+                    f"{tag} {mode}: {n_part} partial / {n_comb} combine "
+                    f"launches, expected {part.nblocks} / "
+                    f"{part.nblocks + 1}")
+            require(ex.last_h2d_bytes == stats["h2d_bytes"]
+                    and ex.last_d2h_bytes == stats["d2h_bytes"],
+                    f"{tag} {mode}: moved {ex.last_h2d_bytes}/"
+                    f"{ex.last_d2h_bytes} B, schedule_stats says "
+                    f"{stats['h2d_bytes']}/{stats['d2h_bytes']}")
+            require(peak <= parity + scratch + slack,
+                    f"{tag} {mode}: peak device memory {peak} B above "
+                    f"{parity} + {scratch} + {slack} B")
+            require(out.dtype == torch.float32 and out.shape == (H, d)
+                    and bool(torch.isfinite(out).all()),
+                    f"{tag} {mode}: result {out.dtype} {tuple(out.shape)} "
+                    f"not finite f32 ({H}, {d})")
+            wall = ex.last_wall_seconds
+            row = {"path": "attention", "case": tag, "mode": mode,
+                   "run": rep, "wall_s": wall, "launches": n_part + n_comb,
+                   "peak_bytes": peak, "h2d_bytes": ex.last_h2d_bytes,
+                   "d2h_bytes": ex.last_d2h_bytes,
+                   "stage_s": ex.last_stage_seconds,
+                   "stage_wait_s": ex.last_stage_wait_seconds,
+                   "cuda_mallocs": mallocs}
+            if ex.last_spans:
+                busy = {}
+                for op, span in zip(sched.ops, ex.last_spans):
+                    busy[op.kind] = busy.get(op.kind, 0.0) \
+                        + span[3] - span[2]
+                covered, reach = 0.0, 0.0   # union of the op spans
+                for _, _, a, b in sorted(ex.last_spans, key=lambda x: x[2]):
+                    covered += max(0.0, b - max(a, reach))
+                    reach = max(reach, b)
+                row["device_busy_s"] = {k.name: v for k, v in busy.items()}
+                row["longest_attn_s"] = max(
+                    b - a for op_tag, _, a, b in ex.last_spans
+                    if op_tag.startswith("ATTN"))
+                row["h2d_gbps"] = stats["h2d_bytes"] / busy[OpKind.H2D] / 1e9
+                row["device_idle_share"] = 1.0 - covered / wall
+            report["attention"].append(row)
+            say("attn", f"{tag} {mode:11s} {rep}: {wall:.4f} s wall "
+                        f"({kv_bytes / wall / 1e9:.1f} GB/s of KV end to "
+                        f"end), {n_part} partial + {n_comb} combine "
+                        f"launches, bytes = schedule_stats, peak "
+                        f"{peak} B <= 4 x {blk} B parity buffers + {scratch} "
+                        f"B carry/q/partials/final + {slack} B slack; "
+                        f"{mallocs} cudaMalloc; host staging fill "
+                        f"{ex.last_stage_seconds:.4f} s, staging wait "
+                        f"{ex.last_stage_wait_seconds:.4f} s"
+                        + (f"; compute busy "
+                           f"{row['device_busy_s']['COMPUTE'] * 1e3:.3f} ms"
+                           f" (longest attn op "
+                           f"{row['longest_attn_s'] * 1e3:.3f} ms), H2D busy "
+                           f"{row['device_busy_s']['H2D'] * 1e3:.2f} ms "
+                           f"({row['h2d_gbps']:.1f} GB/s), device idle "
+                           f"{100 * row['device_idle_share']:.1f} % of the "
+                           f"wall" if "h2d_gbps" in row else ""))
+            if rep == "cold":
+                outs[mode] = out
+    require(torch.equal(outs["issue_order"], outs["concurrent"]),
+            f"{tag}: issue_order and concurrent results differ")
+    out = outs["issue_order"].cuda()
+    Kd, Vd = K.cuda(), V.cuda()
+    exact = attn_oracle(q, Kd, Vd)
+    err = (out.double() - exact).abs().max().item()
+    mag = exact.abs().max().item()
+    require(err <= 2e-4, f"{tag}: max err {err} vs float64 beyond 2e-4")
+    whole = kfa.flash_decode_attention(q.cuda()[None], Kd[None], Vd[None],
+                                       S)[0]
+    werr = (out - whole).abs().max().item()
+    require(werr <= 1e-5, f"{tag}: differs from the kernel on the whole "
+                          f"cache by {werr}")
+    say("attn", f"{tag}: issue_order == concurrent, bitwise; vs float64 "
+                f"on the card: max abs err {err:.3g} (limit 2e-4) beside "
+                f"max |out| {mag:.3g} (relative {err / mag:.3g}); vs "
+                f"flash_decode_attention on the whole cache at B = 1: max "
+                f"abs diff {werr:.3g} (limit 1e-5)")
+    return launches
+
+
+def phase_attention(gen, report):
+    report["launches"]["attention"] = attention_case(
+        gen, report, 524288, torch.bfloat16, 512 * 2**20,
+        "long_500k bf16")
+    report["launches"]["attention_f32"] = attention_case(
+        gen, report, 131072, torch.float32, 256 * 2**20, "S=131072 f32")
+
+
+def phase_timing_attention(gen, report, card):
+    from repro_torch.kernels import flash_attention as kfa
+
+    peak_flops, peak_bw = datasheet(torch.cuda.get_device_name(0))
+    hkv, G, d = 8, 3, 128
+    H = hkv * G
+    shapes = []
+    saved = (kfa.flash_partial.launches, kfa.flash_combine.launches)
+    for name, B, S in (("main path block", 1, 65536),
+                       ("decode_32k at B/4", 32, 32768)):
+        q = rand((B, H, d), gen)
+        k, v = (rand((B, S, hkv, d), gen, torch.bfloat16) for _ in range(2))
+        length = torch.full((B,), S, dtype=torch.int32, device="cuda")
+        out = kfa.flash_decode_attention(q, k, v, length)
+        ms = time_ms(lambda: kfa.flash_decode_attention(q, k, v, length),
+                     reps=20, warmup=2)
+        partial_ms = time_ms(lambda: kfa.flash_partial(q, k, v, length),
+                             reps=20, warmup=2)
+        ref = kfa.flash_decode_attention_plain(q, k, v, length)
+        err = (out - ref).abs().max().item()
+        require(err <= 2e-4, f"timing {name}: kernel vs plain max err {err}")
+        plain_ms = time_ms(lambda: kfa.flash_decode_attention_plain(
+            q, k, v, length), reps=3)
+        del ref
+        # the library yardstick: SDPA with GQA on the same K/V (as views in
+        # its (B, heads, S, d) layout) and q in their dtype
+        qs = q.to(torch.bfloat16)[:, :, None]
+        ks, vs = k.transpose(1, 2), v.transpose(1, 2)
+        sdpa = torch.nn.functional.scaled_dot_product_attention
+        choice = getattr(torch, "_fused_sdp_choice", None)
+        backend = "not reported"
+        if choice is not None:
+            from torch.nn.attention import SDPBackend
+            backend = SDPBackend(choice(qs, ks, vs, enable_gqa=True)).name
+        lib_out = sdpa(qs, ks, vs, enable_gqa=True)[:, :, 0]
+        lib_err = (lib_out.float() - out).abs().max().item()
+        library_ms = time_ms(lambda: sdpa(qs, ks, vs, enable_gqa=True),
+                             reps=20, warmup=2)
+        del lib_out
+        nbytes = 2 * k.numel() * k.element_size() + q.numel() * 4 \
+            + out.numel() * 4 + length.numel() * 4
+        flops = 4 * B * H * S * d
+        t_bytes = nbytes / peak_bw * 1e3
+        t_ops = flops / peak_flops * 1e3
+        row = {"shape": name, "B": B, "S": S, "Hkv": hkv, "G": G, "d": d,
+               "kv_dtype": "bfloat16", "ms": ms, "partial_ms": partial_ms,
+               "plain_ms": plain_ms, "library_ms": library_ms,
+               "library_backend": backend, "library_max_diff": lib_err,
+               "bytes": nbytes, "bound_ms": max(t_bytes, t_ops),
+               "bound_by": "bytes" if t_bytes >= t_ops else "operations",
+               "max_abs_err": err}
+        shapes.append(row)
+        say("timing", f"flash_attention {name} (B={B}, S={S}, Hkv={hkv}, "
+                      f"G={G}, d={d}, bf16 KV): {ms:.4f} ms/call (partial "
+                      f"pass {partial_ms:.4f} ms), "
+                      f"{nbytes / ms / 1e6:.0f} GB/s; bound "
+                      f"{row['bound_ms']:.4f} ms ({row['bound_by']}: "
+                      f"{nbytes} B at {peak_bw / 1e12:.2f} TB/s, data "
+                      f"sheet); plain {plain_ms:.3f} ms; SDPA enable_gqa "
+                      f"({backend}) {library_ms:.4f} ms, its max diff "
+                      f"{lib_err:.3g} (q in bf16); kernel vs plain max "
+                      f"err {err:.3g}; card {card}")
+        del q, k, v, qs, ks, vs, out
+    kfa.flash_partial.launches, kfa.flash_combine.launches = saved
+    a = shapes[0]
+    la = report["launches"]
+    return {
+        "name": "flash_attention", "route": "cuda",
+        "source": "src/repro_torch/csrc/flash_attention.cu",
+        "replaces": "src/repro/kernels/flash_attention.py:33",
+        "launches": sum(la[c]["partial"] + la[c]["combine"]
+                        for c in ("attention", "attention_f32")),
+        "launches_by_pass": {c: la[c] for c in ("attention",
+                                                "attention_f32")},
+        "max_abs_err": a["max_abs_err"], "ms": a["ms"],
+        "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
+        "bound_by": a["bound_by"], "library_ms": a["library_ms"],
+        "shapes": shapes,
+    }
+
+
 def phase_timing(gen, report, card):
     from repro_torch.kernels.block_matmul import block_matmul, \
         block_matmul_plain
@@ -388,16 +724,20 @@ def main() -> int:
     card = phase_env()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     phase_kernels(gen)
-    report = {"main_path": [], "launches": {}}
+    phase_kernels_attention(gen)
+    report = {"main_path": [], "attention": [], "launches": {}}
     A, B, C, host_out, params = phase_main(gen, report)
     phase_vmem_syrk(gen, report, A, B, C, host_out, params)
     del A, B, C, host_out
-    entry = phase_timing(gen, report, card)
+    phase_attention(gen, report)
+    entries = [phase_timing(gen, report, card),
+               phase_timing_attention(gen, report, card)]
     say("done", f"launches by path {json.dumps(report['launches'])}; "
                 f"total {time.perf_counter() - t_start:.1f} s")
-    print(json.dumps({"main_path": report["main_path"], "card": card}))
+    print(json.dumps({"main_path": report["main_path"],
+                      "attention": report["attention"], "card": card}))
     print(card)
-    print(json.dumps({"kernels": [entry]}))
+    print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),
         "count": torch.cuda.device_count()}}))

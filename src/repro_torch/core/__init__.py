@@ -7,6 +7,8 @@ Port of ``src/repro/core/__init__.py`` for this slice's modules:
     syrk / vendor / factor) and their build_*_schedule wrappers
   * validate_schedule, simulate, hardware models
   * ooc_gemm / ooc_syrk                              (MMOOC)
+  * ooc_attention                                    (attention over an
+    out-of-core KV cache; importing it registers ``attn``/``attn_out``)
   * ScheduleExecutor / register_op_handler           (the one interpreter)
   * HostOocRuntime / VmemOocRuntime                  (hclRuntime hierarchy)
   * from_reference                                   (state carried across)
@@ -16,6 +18,7 @@ Port of ``src/repro/core/__init__.py`` for this slice's modules:
 from repro_torch.core.convert import from_reference
 from repro_torch.core.oocgemm import (is_in_core, ooc_gemm, ooc_syrk,
                                       plan_for_device)
+from repro_torch.core.ooc_attention import ooc_attention
 from repro_torch.core.partitioner import (
     TRAVERSALS,
     AttentionPartition,
@@ -103,8 +106,9 @@ __all__ = [
     "chrome_trace", "chrome_trace_groups", "compile_executable",
     "compile_factor_pipeline", "compile_pipeline", "factor_pipeline_spec",
     "from_reference", "gemm_pipeline_spec", "gpu_like", "is_in_core",
-    "ooc_gemm", "ooc_syrk", "phi_like", "plan_attention_partition",
-    "plan_cache_stats", "plan_for_device", "plan_gemm_partition",
+    "ooc_attention", "ooc_gemm", "ooc_syrk", "phi_like",
+    "plan_attention_partition", "plan_cache_stats", "plan_for_device",
+    "plan_gemm_partition",
     "register_op_handler", "register_runtime", "resolve_device",
     "schedule_stats", "simulate", "simulate_reference",
     "syrk_pipeline_spec", "tier_bytes", "traversal_order",

@@ -12,14 +12,17 @@ On an H100 the reference's tiers are the paper's own GPU case:
     block GEMM (``csrc/block_matmul.cu``), the analogue of the reference's
     HBM -> VMEM Pallas kernel.
 
-Every compute op of the slice (the ``dgemm`` handler, the in-core path and
-the vmem tier) runs that one kernel, so all three sum each output element
-in the same order and agree bit for bit.
+Every GEMM compute op (the ``dgemm`` handler, the in-core path and the
+vmem tier) runs that one kernel, so all three sum each output element in
+the same order and agree bit for bit.  The ``attn``/``attn_out`` handlers
+of out-of-core attention (``core/ooc_attention.py``, registered when
+``repro_torch.core`` is imported) run the hand-written flash-decoding
+kernel pair (``csrc/flash_attention.cu``).
 
 Not in this slice, and asking for them raises ``NotImplementedError``
 naming the ROADMAP module item: ``MeshOocRuntime`` (item 10), the hybrid
-composite (item 8), the factorization panel handlers (item 5), the
-attention handlers (item 4) and the fault-injected executor path (item 6).
+composite (item 8), the factorization panel handlers (item 5) and the
+fault-injected executor path (item 6).
 
 Every entry point takes ``torch_device`` (default: CUDA).  Without a card
 and without ``torch_device="cpu"`` from the caller they raise; on the CPU
@@ -54,14 +57,9 @@ NOT_PORTED = {
 
 
 # op-handler kernels of the reference that this slice does not have
-KERNELS_NOT_PORTED = {
-    **dict.fromkeys(("panel_chol", "panel_trsm", "panel_lu", "lu_trsm",
-                     "lu_writeback"),
-                    "the factorization panel handlers are ROADMAP module "
-                    "item 5"),
-    **dict.fromkeys(("attn", "attn_out"),
-                    "the attention handlers are ROADMAP module item 4"),
-}
+KERNELS_NOT_PORTED = dict.fromkeys(
+    ("panel_chol", "panel_trsm", "panel_lu", "lu_trsm", "lu_writeback"),
+    "the factorization panel handlers are ROADMAP module item 5")
 
 
 def not_ported(what: str) -> NotImplementedError:
@@ -311,8 +309,12 @@ class ScheduleExecutor:
     ``last_h2d_bytes``/``last_d2h_bytes`` count the bytes of the transfer
     ops performed in the most recent :meth:`run` (they equal
     ``schedule_stats``); ``last_wall_seconds`` brackets the run, ending
-    with a device synchronize.  ``record_spans=True`` fills ``last_spans``
-    with ``(tag, stream, start_s, end_s)``: on a card from CUDA events
+    with a device synchronize.  On a card, ``last_stage_seconds`` is the
+    host time spent filling pinned H2D staging from the host operands, and
+    ``last_stage_wait_seconds`` the host time spent waiting for a staging
+    buffer's previous copy to finish before refilling it.
+    ``record_spans=True`` fills ``last_spans`` with
+    ``(tag, stream, start_s, end_s)``: on a card from CUDA events
     around each op's device work (H2D spans exclude the host staging
     copy), on the CPU from the host clock.  When observability is enabled,
     every run publishes its aggregates as ``repro_executor_*`` metrics and
@@ -343,6 +345,8 @@ class ScheduleExecutor:
         self.last_h2d_bytes = 0
         self.last_d2h_bytes = 0
         self.last_wall_seconds = 0.0
+        self.last_stage_seconds = 0.0
+        self.last_stage_wait_seconds = 0.0
         # pinned host staging, (direction, parity key) -> flat tensor
         self._staging: Dict[Tuple[str, Hashable], torch.Tensor] = {}
 
@@ -433,6 +437,8 @@ class ScheduleExecutor:
         self.last_completion_order = []
         self.last_h2d_bytes = 0
         self.last_d2h_bytes = 0
+        self.last_stage_seconds = 0.0
+        self.last_stage_wait_seconds = 0.0
         obs = get_observability()
         tracer = obs.tracer
         trace = self.record_spans or tracer is not None
@@ -492,11 +498,15 @@ class ScheduleExecutor:
             if not cuda:
                 view.copy_(src)
                 return
+            t0 = time.perf_counter()
             prev = h2d_copied.get(key)
             if prev is not None:          # staging still being read
                 prev.synchronize()
+            t1 = time.perf_counter()
             stage = self._stage("h2d", key, view)
             stage.copy_(src)
+            self.last_stage_wait_seconds += t1 - t0
+            self.last_stage_seconds += time.perf_counter() - t1
             device_work()
             view.copy_(stage, non_blocking=True)
             ev = torch.cuda.Event()

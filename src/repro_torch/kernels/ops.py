@@ -2,12 +2,12 @@
 
 Port of ``src/repro/kernels/ops.py``.  There is no ``auto_interpret``: the
 tensors' device decides — a CPU tensor runs the plain PyTorch version, a
-CUDA tensor launches the hand-written kernel or raises.  Decode attention
-(``flash_decode_attention``) waits for ROADMAP kernel item 2.
+CUDA tensor launches the hand-written kernel or raises.
 """
 
 from __future__ import annotations
 
 from repro_torch.kernels.block_matmul import block_matmul
+from repro_torch.kernels.flash_attention import flash_decode_attention
 
-__all__ = ["block_matmul"]
+__all__ = ["block_matmul", "flash_decode_attention"]

@@ -1,10 +1,12 @@
 """Plain PyTorch oracles for the port's kernels (ground truth in tests).
 
-Port of ``src/repro/kernels/ref.py`` for the kernels of this slice; the
-attention oracles come with ROADMAP kernel item 2.
+Port of ``src/repro/kernels/ref.py`` for the kernels of this slice;
+``causal_attention_ref`` waits for ROADMAP module item 12.
 """
 
 from __future__ import annotations
+
+import math
 
 import torch
 
@@ -17,3 +19,24 @@ def gemm_ref(a: torch.Tensor, b: torch.Tensor, c=None, alpha: float = 1.0,
         out = out + beta * c.float()
     dtype = a.dtype if c is None else c.dtype
     return out.to(dtype)
+
+
+def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                         length=None) -> torch.Tensor:
+    """Single-token GQA attention oracle.
+
+    q: (B, H, d); k, v: (B, S, Hkv, d); length: (B,) valid cache length
+    (positions >= length are masked).  Returns (B, H, d) in q's dtype.
+    """
+    B, H, d = q.shape
+    S, hkv = k.shape[1], k.shape[2]
+    group = H // hkv
+    kb = k.float().repeat_interleave(group, dim=2)   # (B, S, H, d)
+    vb = v.float().repeat_interleave(group, dim=2)
+    s = torch.einsum("bhd,bshd->bhs", q.float(), kb) / math.sqrt(d)
+    if length is not None:
+        lens = torch.as_tensor(length, device=q.device).reshape(B, 1, 1)
+        s = torch.where(torch.arange(S, device=q.device)[None, None] < lens,
+                        s, -torch.inf)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhs,bshd->bhd", p, vb).to(q.dtype)

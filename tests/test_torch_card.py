@@ -1,4 +1,4 @@
-"""The port on a card: the hand-written kernel and the executor's CUDA
+"""The port on a card: the hand-written kernels and the executor's CUDA
 streams, events and pinned staging.
 
 Every test here needs an NVIDIA card and skips without one.  The file
@@ -7,9 +7,9 @@ machine with the card::
 
     python -m pytest -q -m cuda tests/test_torch_card.py
 
-Oracles are the kernel's plain PyTorch version and float64 products; within
-the card, results that the kernel's fixed K order makes identical are
-compared bit for bit.
+Oracles are the kernels' plain PyTorch versions and float64 products;
+within the card, results that the kernels' fixed summation orders make
+identical are compared bit for bit.
 """
 
 import numpy as np
@@ -17,6 +17,7 @@ import pytest
 import torch
 
 import repro_torch.core as T
+from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels.block_matmul import block_matmul, block_matmul_plain
 from _torch_helpers import overlap_schedule
 
@@ -147,3 +148,77 @@ def test_syrk_matches_in_core_bitwise(card, backend):
     incore = block_matmul(Pd, Pd.T.contiguous(),
                           torch.from_numpy(C).to(card), alpha=-1.0, beta=0.5)
     assert torch.equal(out.cpu(), incore.cpu())
+
+
+@pytest.mark.parametrize("B,H,hkv,d,S,block_s", [
+    (1, 8, 2, 64, 512, 128), (2, 16, 16, 64, 1000, 256),
+    (3, 8, 1, 128, 384, 128), (2, 4, 4, 80, 300, 128),
+    (1, 24, 8, 128, 8192, 512)])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_flash_attention_matches_plain_version(card, dtype, B, H, hkv, d, S,
+                                               block_s):
+    tol = 2e-4 if dtype == torch.float32 else 3e-2
+    rng = np.random.default_rng(B + H + d + S)
+    q = torch.from_numpy(rng.standard_normal((B, H, d)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((B, S, hkv, d))
+                             .astype(np.float32)).to(card, dtype)
+            for _ in range(2))
+    length = torch.from_numpy(rng.integers(1, S + 1, (B,)).astype(np.int32))
+    for qd in (q.to(card), q.to(card, dtype)):
+        before = (kfa.flash_partial.launches, kfa.flash_combine.launches)
+        outs = [kfa.flash_decode_attention(qd, k, v, length.to(card),
+                                           block_s=block_s)
+                for _ in range(2)]
+        assert (kfa.flash_partial.launches, kfa.flash_combine.launches) \
+            == (before[0] + 2, before[1] + 2)
+        plain = kfa.flash_decode_attention_plain(qd, k, v, length.to(card),
+                                                 block_s=block_s)
+        assert outs[0].dtype == qd.dtype
+        torch.testing.assert_close(outs[0].float(), plain.float(), rtol=tol,
+                                   atol=tol)
+        assert torch.equal(outs[0], outs[1])
+
+
+def test_flash_partial_masked_split_is_exact(card):
+    rng = np.random.default_rng(4)
+    q, k, v = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+               .to(card) for s in ((2, 4, 64), (2, 1024, 4, 64),
+                                   (2, 1024, 4, 64)))
+    length = torch.tensor([100, 0], dtype=torch.int32, device=card)
+    m, l, acc = kfa.flash_partial(q, k, v, length, block_s=128)
+    assert bool((m[0, :, 1:] == np.float32(kfa.NEG_INF)).all())
+    assert bool((m[1] == np.float32(kfa.NEG_INF)).all())
+    assert not bool(l[:, :, 1:].any()) and not bool(acc[:, :, 1:].any())
+    out = kfa.flash_decode_attention(q, k, v, length, block_s=128)
+    assert not bool(out[1].any())
+    trunc = kfa.flash_decode_attention_plain(q[:1], k[:1, :100], v[:1, :100],
+                                             100, block_s=128)
+    torch.testing.assert_close(out[:1], trunc, rtol=2e-4, atol=2e-4)
+
+
+@pytest.mark.parametrize("kv_dtype", [np.float32, np.float16])
+def test_ooc_attention_modes_agree_on_card(card, kv_dtype):
+    rng = np.random.default_rng(9)
+    S, H, hkv, d = 8192, 24, 8, 128
+    q = rng.standard_normal((H, d)).astype(np.float32)
+    k, v = (rng.standard_normal((S, hkv, d)).astype(kv_dtype)
+            for _ in range(2))
+    budget = S * hkv * d * k.itemsize
+    part = T.plan_attention_partition(S, hkv, d, budget, k.itemsize)
+    stats = T.schedule_stats(T.build_attention_schedule(part, hkv, d, H))
+    outs = []
+    for mode in ("issue_order", "concurrent"):
+        ex = T.ScheduleExecutor(mode=mode, record_spans=True)
+        before = kfa.flash_partial.launches
+        outs.append(T.ooc_attention(q, k, v, budget_bytes=budget,
+                                    executor=ex))
+        assert kfa.flash_partial.launches - before == part.nblocks
+        assert (ex.last_h2d_bytes, ex.last_d2h_bytes) \
+            == (stats["h2d_bytes"], stats["d2h_bytes"])
+    assert part.nblocks == 4
+    assert torch.equal(outs[0], outs[1])
+    expect = kfa.flash_decode_attention_plain(
+        torch.from_numpy(q)[None], torch.from_numpy(k)[None].float(),
+        torch.from_numpy(v)[None].float(), S)[0]
+    torch.testing.assert_close(outs[0], expect, rtol=1e-5, atol=1e-5)

@@ -158,17 +158,11 @@ def test_unknown_kernel_raises(mode):
 
 
 @pytest.mark.parametrize("kind,item", [("cholesky", "item 5"),
-                                       ("attention", "item 4")])
+                                       ("lu", "item 5")])
 def test_handlers_outside_the_slice_raise(kind, item):
-    if kind == "cholesky":
-        spec = T.factor_pipeline_spec(256, 128, 3 * 256 * 256 * 4, 4)
-        sched = T.compile_factor_pipeline(spec)
-        operands, outputs = {}, {"A": np.eye(256, dtype=np.float32)}
-    else:
-        part = T.plan_attention_partition(512, 2, 64, 2**19, 4)
-        sched = T.build_attention_schedule(part, 2, 64, 8)
-        kv = np.zeros((512, 2, 64), np.float32)
-        operands, outputs = {"K": kv, "V": kv}, {"out": np.zeros((8, 64))}
+    spec = T.factor_pipeline_spec(256, 128, 3 * 256 * 256 * 4, 4, kind=kind)
+    sched = T.compile_factor_pipeline(spec)
+    operands, outputs = {}, {"A": np.eye(256, dtype=np.float32)}
     with pytest.raises(NotImplementedError, match=item):
         T.ScheduleExecutor(torch_device=CPU).run(sched, operands, outputs)
 

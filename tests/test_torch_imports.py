@@ -55,9 +55,9 @@ def no_card():
         pytest.skip("a card is present: the default device is valid")
 
 
-@pytest.mark.parametrize("entry", ["ooc_gemm", "ooc_syrk", "executor",
-                                   "host_runtime", "vmem_runtime",
-                                   "tier_size"])
+@pytest.mark.parametrize("entry", ["ooc_gemm", "ooc_syrk", "ooc_attention",
+                                   "executor", "host_runtime",
+                                   "vmem_runtime", "tier_size"])
 def test_default_device_raises_without_a_card(no_card, entry):
     import numpy as np
 
@@ -68,6 +68,9 @@ def test_default_device_raises_without_a_card(no_card, entry):
     calls = {
         "ooc_gemm": lambda: T.ooc_gemm(A, A, budget_bytes=1 << 12),
         "ooc_syrk": lambda: T.ooc_syrk(A, budget_bytes=1 << 12),
+        "ooc_attention": lambda: T.ooc_attention(
+            A, A.reshape(64, 1, 64), A.reshape(64, 1, 64),
+            budget_bytes=1 << 16),
         "executor": lambda: T.ScheduleExecutor(),
         "host_runtime": lambda: T.HostOocRuntime(),
         "vmem_runtime": lambda: T.VmemOocRuntime(),
