@@ -11,9 +11,12 @@ printing any result.  Phases (each raises on failure; none is skipped):
      (one ``nvcc`` per source, all started together);
   2. every kernel against its plain PyTorch version at the reference test
      shapes: the block GEMM (f32/bf16/f16, ragged edges, ``block=``
-     variants and sub-blocks bit for bit) and the flash-decoding pair
+     variants and sub-blocks bit for bit), the flash-decoding pair
      (f32/bf16/f16 KV, q in f32 and in the KV dtype, ragged lengths, a
-     fully masked split, a row of length 0, two runs bit for bit);
+     fully masked split, a row of length 0, two runs bit for bit) and the
+     direct GEMM, kernel 3 (``direct_vmem_ooc_gemm``: f32/bf16/f16,
+     ``block=`` variants and two launches bit for bit, C unchanged, the
+     difference from kernel 1 printed; ``[direct]`` lines);
   3. the first path, MMOOC: ``ooc_gemm`` host backend at
      M = N = K = 24576 f32 under a 2 GiB device budget (3.4x out of core),
      in both executor modes, checked bit for bit across modes and against
@@ -21,14 +24,24 @@ printing any result.  Phases (each raises on failure; none is skipped):
      against ``schedule_stats``, launch counts and peak device memory;
   4. the vmem backend at the same size and ``ooc_syrk`` host at
      n = 16384, K = 8192 under 1 GiB;
-  5. the second path, decode attention: ``ooc_attention`` at llama3.2-3b's
+  5. the third path, the paper's direct baselines and claim C1
+     (``[c1]`` lines), on phase 3's operands: ``direct_host_ooc_gemm``
+     checked (launches, bytes, bit for bit equal to phase 3's result),
+     then ``ooc_gemm`` (API), ``HostOocRuntime.gemm`` on a prebuilt
+     schedule (floor) and ``direct_host_ooc_gemm`` (direct), warm and
+     interleaved, plus the API in ``concurrent`` mode, at 24576^3 under
+     2 GiB and at the reference's largest size, 1536x1024x512 under a
+     fifth of the operands; then the vmem tier, ``ooc_gemm(backend=
+     "vmem")`` against ``direct_vmem_ooc_gemm`` on 8192^3 f32 operands on
+     the card;
+  6. the second path, decode attention: ``ooc_attention`` at llama3.2-3b's
      attention widths (H = 24, Hkv = 8, d = 128) over a long_500k cache
      (S = 524288, bf16, 2 GiB) under a 512 MiB budget, in both executor
      modes, cold and warm: bit for bit across modes, against float64 on the
      card and the kernel on the whole cache, byte counters, launches, peak
      device memory, and the warm runs' transfer and idle times; then f32 KV
      at S = 131072 under 256 MiB with the same checks;
-  6. kernel timing at each path's shapes beside its bound, the plain
+  7. kernel timing at each path's shapes beside its bound, the plain
      version and one library call.
 
 The line before the last is a JSON object describing each kernel; the
@@ -40,6 +53,7 @@ from __future__ import annotations
 import json
 import math
 import os
+import statistics
 import subprocess
 import sys
 import time
@@ -127,7 +141,7 @@ def phase_env():
     torch.backends.cudnn.allow_tf32 = False
     from repro_torch.kernels import _build
 
-    names = ("block_matmul", "flash_attention")
+    names = ("block_matmul", "flash_attention", "direct_vmem_gemm")
     with ThreadPoolExecutor(len(names)) as pool:
         logs = list(pool.map(_build.build, names))
     for name, log in zip(names, logs):
@@ -247,6 +261,50 @@ def phase_kernels_attention(gen):
                       f"(rtol=atol={tol}); ragged lengths, masked split "
                       f"exactly (NEG_INF, 0, 0) and == truncated cache, "
                       f"length 0 -> zeros, two runs bitwise equal")
+
+
+# tests/test_kernels.py's block GEMM shapes, a ragged one, 256-multiples
+DIRECT_SHAPES = [(128, 128, 128), (256, 384, 512), (300, 200, 150),
+                 (512, 128, 257), (64, 64, 64), (1000, 999, 1001),
+                 (512, 768, 256)]
+
+
+def phase_kernels_direct(gen):
+    from repro_torch import direct_impls as D
+    from repro_torch.kernels.block_matmul import block_matmul
+
+    tols = {torch.float32: 2e-4, torch.bfloat16: 2e-2, torch.float16: 2e-2}
+    blocks = [(256, 256, 256), (128, 64, 32), (64, 128, 16), (64, 64, 64)]
+    saved = (D.direct_vmem_ooc_gemm.launches, block_matmul.launches)
+    for dt, tol in tols.items():
+        worst, k1_diff = 0.0, 0.0
+        for M, N, K in DIRECT_SHAPES:
+            A, B, C = (rand(s, gen, dt) for s in ((M, K), (K, N), (M, N)))
+            C0 = C.clone()
+            outs = [D.direct_vmem_ooc_gemm(A, B, C, 1.25, 0.5, block=blk)
+                    for blk in blocks]
+            again = D.direct_vmem_ooc_gemm(A, B, C, 1.25, 0.5)
+            ref = D.direct_vmem_ooc_gemm_plain(A, B, C, 1.25, 0.5)
+            k1 = block_matmul(A, B, C, alpha=1.25, beta=0.5)
+            torch.cuda.synchronize()
+            err = (outs[0].float() - ref.float()).abs()
+            require(outs[0].dtype == dt
+                    and bool((err <= tol + tol * ref.float().abs()).all()),
+                    f"direct_vmem_gemm {dt} {(M, N, K)}: max err "
+                    f"{err.max().item()} beyond rtol=atol={tol}")
+            require(all(torch.equal(outs[0], o) for o in outs[1:] + [again]),
+                    f"direct_vmem_gemm {dt} {(M, N, K)}: block= variants or "
+                    f"two launches differ")
+            require(torch.equal(C, C0), f"direct_vmem_gemm {dt}: C changed")
+            worst = max(worst, err.max().item())
+            k1_diff = max(k1_diff,
+                          (outs[0].float() - k1.float()).abs().max().item())
+        say("direct", f"direct_vmem_gemm {str(dt)[6:]:8s}: "
+                      f"{len(DIRECT_SHAPES)} shapes, max err vs plain "
+                      f"{worst:.3g} (rtol=atol={tol}); {len(blocks)} block= "
+                      f"variants and a second launch bitwise equal; C "
+                      f"unchanged; max |kernel 3 - kernel 1| {k1_diff:.3g}")
+    D.direct_vmem_ooc_gemm.launches, block_matmul.launches = saved
 
 
 def dgemm_ops(sched) -> int:
@@ -423,6 +481,155 @@ def phase_vmem_syrk(gen, report, A, B, C, host_out, params):
                 f"{part.h}x{part.w}, {report['launches']['syrk_host']} "
                 f"launches, {ex.last_wall_seconds:.3f} s wall, == in-core "
                 f"P @ P^T bitwise")
+
+
+def interleaved(fns, reps):
+    """Warm walls (s) of each named call, run in turns A B C A B C ...;
+    each call ends with its result on the host or a device synchronize."""
+    walls = {name: [] for name in fns}
+    for _ in range(reps):
+        for name, fn in fns.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = fn()
+            torch.cuda.synchronize()
+            walls[name].append(time.perf_counter() - t0)
+            del out
+    return walls
+
+
+def c1_rows(size, walls, report, floor=None):
+    """Median and min-max of each variant, (API - floor) / floor and
+    direct / API, printed and kept; with the floor's runtime, also its
+    executor's own wall in its last run (the call's wall less planning,
+    the copy of C and the result's allocation)."""
+    med = {k: statistics.median(v) for k, v in walls.items()}
+    for name, v in walls.items():
+        say("c1", f"{size} {name:15s}: median {med[name]:.4f} s, min "
+                  f"{min(v):.4f}, max {max(v):.4f} over {len(v)} warm runs "
+                  f"({', '.join(f'{x:.4f}' for x in v)})")
+    row = {"size": size, "walls_s": walls, "median_s": med}
+    if "floor" in med:
+        row["api_overhead"] = (med["api"] - med["floor"]) / med["floor"]
+        row["direct_over_api"] = med["direct"] / med["api"]
+        say("c1", f"{size}: (API - floor) / floor = "
+                  f"{100 * row['api_overhead']:+.2f} %, direct / API = "
+                  f"{row['direct_over_api']:.4f}")
+    if floor is not None:
+        row["floor_executor_s"] = floor.executor.last_wall_seconds
+        say("c1", f"{size}: the floor's last call took "
+                  f"{walls['floor'][-1]:.4f} s, its executor run "
+                  f"{row['floor_executor_s']:.4f} s of it")
+    report["c1"].append(row)
+
+
+def phase_c1(gen, report, A, B, C, host_out, params):
+    """Claim C1 on the card: the library path against its zero-abstraction
+    floor and the hand-written direct baseline, interleaved in one call."""
+    from repro_torch import direct_impls as D
+    from repro_torch.core import (HostOocRuntime, ScheduleExecutor,
+                                  build_gemm_schedule, ooc_gemm,
+                                  plan_gemm_partition, schedule_stats)
+    from repro_torch.kernels.block_matmul import block_matmul
+
+    alpha, beta, budget = params
+    M, K = A.shape
+    N = B.shape[1]
+    part = plan_gemm_partition(M, N, K, budget, 4)
+    stats = schedule_stats(build_gemm_schedule(part, nstreams=2, nbuf=2))
+    ex = ScheduleExecutor()
+    block_matmul.launches = 0
+    out = D.direct_host_ooc_gemm(A, B, C, alpha, beta, budget, executor=ex)
+    report["launches"]["direct_host"] = block_matmul.launches
+    require(block_matmul.launches == part.h * part.w,
+            f"direct host: {block_matmul.launches} launches, expected "
+            f"{part.h * part.w}")
+    require((ex.last_h2d_bytes, ex.last_d2h_bytes)
+            == (14_495_514_624, 2_415_919_104)
+            == (stats["h2d_bytes"], stats["d2h_bytes"]),
+            f"direct host moved {ex.last_h2d_bytes}/{ex.last_d2h_bytes} B")
+    require(torch.equal(out, host_out),
+            "direct_host_ooc_gemm differs from ooc_gemm's host result")
+    del out
+    say("c1", f"direct_host_ooc_gemm {M}^3 under {budget / 2**30:.0f} GiB: "
+              f"{report['launches']['direct_host']} kernel-1 launches, "
+              f"{ex.last_h2d_bytes} B H2D and {ex.last_d2h_bytes} B D2H (= "
+              f"ooc_gemm's schedule_stats), == phase 3's host result bitwise")
+
+    floor = None
+
+    def variants(A, B, C, budget, part):
+        nonlocal floor
+        sched = build_gemm_schedule(part, nstreams=2, nbuf=2)
+        floor = HostOocRuntime()
+        conc = HostOocRuntime(executor=ScheduleExecutor(mode="concurrent"))
+        return {
+            "api": lambda: ooc_gemm(A, B, C, alpha, beta, budget_bytes=budget,
+                                    backend="host", validate=False),
+            "floor": lambda: floor.gemm(A, B, C, alpha, beta, part,
+                                        schedule=sched),
+            "direct": lambda: D.direct_host_ooc_gemm(A, B, C, alpha, beta,
+                                                     budget),
+            "api_concurrent": lambda: ooc_gemm(
+                A, B, C, alpha, beta, budget_bytes=budget, backend="host",
+                validate=False, runtime=conc),
+        }
+
+    fns = variants(A, B, C, budget, part)
+    for name, fn in fns.items():          # warm-up, checked
+        require(torch.equal(fn(), host_out),
+                f"C1 {name} differs from phase 3's host result")
+    c1_rows(f"{M}^3", interleaved(fns, reps=3), report, floor)
+    say("c1", f"{M}^3: warm-ups of api, floor, direct, api_concurrent == "
+              f"phase 3's host result bitwise")
+
+    m, n, k = 1536, 1024, 512
+    a, b, c = (rand(s, gen, device="cpu") for s in ((m, k), (k, n), (m, n)))
+    small = (a.nbytes + b.nbytes + c.nbytes) // 5
+    spart = plan_gemm_partition(m, n, k, small, 4)
+    incore = block_matmul(a.cuda(), b.cuda(), c.cuda(), alpha=alpha,
+                          beta=beta).cpu()
+    fns = variants(a, b, c, small, spart)
+    for name, fn in fns.items():
+        require(torch.equal(fn(), incore),
+                f"C1 {m}x{n}x{k} {name} differs from the in-core launch")
+    c1_rows(f"{m}x{n}x{k}", interleaved(fns, reps=15), report, floor)
+    say("c1", f"{m}x{n}x{k} under {small} B ({spart.h}x{spart.w} blocks of "
+              f"{spart.bm}x{spart.bn}): every variant == the in-core launch "
+              f"bitwise")
+
+    n3 = 8192
+    Ad, Bd, Cd = (rand((n3, n3), gen) for _ in range(3))
+    vbudget = 3 * Ad.nbytes // 5
+    D.direct_vmem_ooc_gemm.launches = 0
+    dout = D.direct_vmem_ooc_gemm(Ad, Bd, Cd, alpha, beta)
+    torch.cuda.synchronize()
+    report["launches"]["direct_vmem"] = D.direct_vmem_ooc_gemm.launches
+    require(D.direct_vmem_ooc_gemm.launches == 1,
+            "direct_vmem_ooc_gemm is not one launch")
+    saved = (D.direct_vmem_ooc_gemm.launches, block_matmul.launches)
+    lout = ooc_gemm(Ad, Bd, Cd, alpha, beta, budget_bytes=vbudget,
+                    backend="vmem")
+    tol = 2 * sum_tol(Ad, Bd, Cd, alpha, beta)
+    ref = D.direct_vmem_ooc_gemm_plain(Ad, Bd, Cd, alpha, beta)
+    err = (dout - ref).abs()
+    require(bool((err.double() <= tol).all()),
+            f"direct_vmem {n3}^3: max err vs plain {err.max().item()}")
+    diff = (dout - lout).abs().max().item()
+    del ref, err, tol, lout, dout
+    walls = interleaved({
+        "api_vmem": lambda: ooc_gemm(Ad, Bd, Cd, alpha, beta,
+                                     budget_bytes=vbudget, backend="vmem"),
+        "direct_vmem": lambda: D.direct_vmem_ooc_gemm(Ad, Bd, Cd, alpha,
+                                                      beta)}, reps=5)
+    D.direct_vmem_ooc_gemm.launches, block_matmul.launches = saved
+    c1_rows(f"vmem {n3}^3", walls, report)
+    med = report["c1"][-1]["median_s"]
+    say("c1", f"vmem {n3}^3 f32 on the card: direct (kernel 3) / API "
+              f"(kernel 1) = {med['direct_vmem'] / med['api_vmem']:.4f}; "
+              f"kernel 3 vs plain within 2*sqrt(K)*u*sum|terms|; max "
+              f"|kernel 3 - kernel 1| {diff:.3g}; 1 launch")
+    del Ad, Bd, Cd
 
 
 def attn_oracle(q, Kd, Vd):
@@ -700,7 +907,10 @@ def phase_timing(gen, report, card):
         "source": "src/repro_torch/csrc/block_matmul.cu",
         "replaces": "src/repro/kernels/block_matmul.py:36",
         "launches": sum(report["launches"][k]
-                        for k in ("host", "in_core", "vmem")),
+                        for k in ("host", "in_core", "vmem", "direct_host")),
+        "launches_by_path": {k: report["launches"][k]
+                             for k in ("host", "in_core", "vmem",
+                                       "direct_host")},
         "max_abs_err": err.max().item(), "ms": ms, "plain_ms": plain_ms,
         "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
@@ -716,6 +926,65 @@ def phase_timing(gen, report, card):
     return entry
 
 
+def phase_timing_direct(gen, report, card):
+    """Kernel 3 at kernel 1's timing shape, beside its bound, its plain
+    version, torch.addmm and kernel 1, timed in turns."""
+    from repro_torch import direct_impls as D
+    from repro_torch.kernels.block_matmul import block_matmul
+
+    M = N = 6144
+    K = 24576
+    alpha, beta = 1.5, 0.5
+    A, B, C = (rand(s, gen) for s in ((M, K), (K, N), (M, N)))
+    saved = (D.direct_vmem_ooc_gemm.launches, block_matmul.launches)
+    out = D.direct_vmem_ooc_gemm(A, B, C, alpha, beta)
+    k1 = block_matmul(A, B, C, alpha=alpha, beta=beta)
+    ref = D.direct_vmem_ooc_gemm_plain(A, B, C, alpha, beta)
+    err = (out - ref).abs()
+    tol = 2 * sum_tol(A, B, C, alpha, beta)
+    require(bool((err.double() <= tol).all()),
+            f"timing shape: kernel 3 vs plain max err {err.max().item()}")
+    k1_diff = (out - k1).abs().max().item()
+    del ref, tol, k1
+    runs = {"direct": lambda: D.direct_vmem_ooc_gemm(A, B, C, alpha, beta),
+            "block_matmul": lambda: block_matmul(A, B, C, alpha=alpha,
+                                                 beta=beta),
+            "plain": lambda: D.direct_vmem_ooc_gemm_plain(A, B, C, alpha,
+                                                          beta),
+            "addmm": lambda: torch.addmm(C, A, B, beta=beta, alpha=alpha)}
+    ms = {k: [] for k in runs}
+    for order in (list(runs), list(runs)[::-1]):
+        for k in order:
+            ms[k].append(time_ms(runs[k], reps=3))
+    D.direct_vmem_ooc_gemm.launches, block_matmul.launches = saved
+    t = {k: statistics.mean(v) for k, v in ms.items()}
+    flops = 2 * M * N * K + 3 * M * N
+    nbytes = (M * K + K * N + 2 * M * N) * 4
+    peak_flops, peak_bw = datasheet(torch.cuda.get_device_name(0))
+    t_ops = flops / peak_flops * 1e3
+    t_bytes = nbytes / peak_bw * 1e3
+    entry = {
+        "name": "direct_vmem_gemm", "route": "cuda",
+        "source": "src/repro_torch/csrc/direct_vmem_gemm.cu",
+        "replaces": "benchmarks/direct_impls.py:119",
+        "launches": report["launches"]["direct_vmem"],
+        "max_abs_err": err.max().item(), "ms": t["direct"],
+        "plain_ms": t["plain"], "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "library_ms": t["addmm"], "block_matmul_ms": t["block_matmul"],
+        "max_abs_diff_from_block_matmul": k1_diff,
+    }
+    say("timing", f"direct_vmem_gemm {M}x{N}x{K} f32: {t['direct']:.3f} "
+                  f"ms/launch ({flops / t['direct'] / 1e9:.2f} TFLOP/s), "
+                  f"bound {entry['bound_ms']:.3f} ms ({entry['bound_by']}), "
+                  f"plain {t['plain']:.3f} ms, torch.addmm {t['addmm']:.3f} "
+                  f"ms, kernel 1 in the same turns {t['block_matmul']:.3f} "
+                  f"ms; runs {json.dumps(ms)}; kernel 3 vs plain max err "
+                  f"{entry['max_abs_err']:.3g}, max |kernel 3 - kernel 1| "
+                  f"{k1_diff:.3g}; card {card}")
+    return entry
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
@@ -725,17 +994,21 @@ def main() -> int:
     gen = torch.Generator(device="cuda").manual_seed(SEED)
     phase_kernels(gen)
     phase_kernels_attention(gen)
-    report = {"main_path": [], "attention": [], "launches": {}}
+    phase_kernels_direct(gen)
+    report = {"main_path": [], "attention": [], "c1": [], "launches": {}}
     A, B, C, host_out, params = phase_main(gen, report)
     phase_vmem_syrk(gen, report, A, B, C, host_out, params)
+    phase_c1(gen, report, A, B, C, host_out, params)
     del A, B, C, host_out
     phase_attention(gen, report)
     entries = [phase_timing(gen, report, card),
-               phase_timing_attention(gen, report, card)]
+               phase_timing_attention(gen, report, card),
+               phase_timing_direct(gen, report, card)]
     say("done", f"launches by path {json.dumps(report['launches'])}; "
                 f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"main_path": report["main_path"],
-                      "attention": report["attention"], "card": card}))
+                      "attention": report["attention"], "c1": report["c1"],
+                      "card": card}))
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

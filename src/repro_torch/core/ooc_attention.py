@@ -49,12 +49,14 @@ def _step0(st: ExecState, kb: torch.Tensor) -> None:
     block of a schedule is ragged).
 
     On a card the buffers come from the default stream's pool, whose freed
-    blocks every run reuses: a ``concurrent`` run's compute streams are
-    new, so allocating on them made the caching allocator call cudaMalloc
-    in the run's first ``attn`` op, which with H2D copies in flight stalled
-    that op by up to ~0.1 s.  The current stream first waits for the
-    default stream, so no work still queued there can touch a reused
-    block; the buffers are initialised on the current stream."""
+    blocks every run reuses.  A ``concurrent`` executor keeps its engine
+    streams across runs, but its first run's streams are new, and
+    :func:`ooc_attention` makes a new executor per call unless the caller
+    passes one: allocating on such a stream makes the caching allocator
+    call cudaMalloc in the run's first ``attn`` op, which with H2D copies
+    in flight stalled that op by up to ~0.1 s.  The current stream first
+    waits for the default stream, so no work still queued there can touch
+    a reused block; the buffers are initialised on the current stream."""
     rows, _, d = kb.shape
     dev = kb.device
     q = torch.as_tensor(st.ctx["q"]).to(device=dev, dtype=torch.float32)

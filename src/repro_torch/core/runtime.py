@@ -295,7 +295,12 @@ class ScheduleExecutor:
         differential oracle.
       * ``"concurrent"`` — the same single host thread issues each op onto
         its engine's stream: one H2D stream, one D2H stream and one compute
-        stream per schedule stream (``ExecutablePlan.engines``).  Each
+        stream per schedule stream (``ExecutablePlan.engines``).  The
+        engine streams live as long as the executor (the list grows when a
+        plan has more engines than earlier ones), so a handler that
+        allocates on its op's stream reuses that stream's cached blocks
+        from the executor's second run on instead of calling cudaMalloc
+        with copies in flight.  Each
         cross-engine edge of ``ExecutablePlan.preds`` becomes a
         ``torch.cuda.Event`` the op's stream waits on — the paper's
         ``hclEvent`` program realised on the device, with no host threads.
@@ -349,6 +354,8 @@ class ScheduleExecutor:
         self.last_stage_wait_seconds = 0.0
         # pinned host staging, (direction, parity key) -> flat tensor
         self._staging: Dict[Tuple[str, Hashable], torch.Tensor] = {}
+        # concurrent mode's engine streams on self.torch_device, by engine
+        self._engine_streams: List[torch.cuda.Stream] = []
 
     def _handler(self, ref: BlockRef) -> HandlerFn:
         fn = self.handlers.get(ref.kernel) or _OP_HANDLERS.get(ref.kernel)
@@ -453,8 +460,9 @@ class ScheduleExecutor:
         if cuda:
             main = torch.cuda.current_stream(dev)
             if concurrent:
-                engine_streams = [torch.cuda.Stream(dev)
-                                  for _ in plan.engines]
+                while len(self._engine_streams) < len(plan.engines):
+                    self._engine_streams.append(torch.cuda.Stream(dev))
+                engine_streams = self._engine_streams[:len(plan.engines)]
                 start = torch.cuda.Event()
                 start.record(main)
                 for s in engine_streams:

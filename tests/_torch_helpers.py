@@ -1,6 +1,8 @@
-"""Helpers shared by the port's tests: a fixture and a hand-built schedule
-written against either package (``mod`` is ``repro.core`` or
+"""Helpers shared by the port's tests: a fixture, an op's comparable
+fields and a hand-built schedule written against either package (``mod`` is ``repro.core`` or
 ``repro_torch.core``)."""
+
+import dataclasses
 
 import pytest
 import torch
@@ -20,6 +22,19 @@ def one_torch_thread():
         yield
     finally:
         torch.set_num_threads(n)
+
+
+def op_key(op):
+    """Everything an op says, as plain values comparable across the two
+    packages (their enum and payload classes differ)."""
+    p = op.payload
+    payload = None if p is None else (type(p).__name__,) + tuple(
+        getattr(p, f.name) for f in dataclasses.fields(p))
+    return (op.kind.name, op.tag, op.stream,
+            tuple(e.name for e in op.waits),
+            op.records.name if op.records is not None else None,
+            tuple(op.buffers_read), tuple(op.buffers_written),
+            op.bytes, op.flops, payload)
 
 
 def overlap_schedule(mod):

@@ -17,6 +17,8 @@ import pytest
 import torch
 
 import repro_torch.core as T
+from repro_torch import direct_impls as D
+from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.kernels.block_matmul import block_matmul, block_matmul_plain
 from _torch_helpers import overlap_schedule
@@ -222,3 +224,119 @@ def test_ooc_attention_modes_agree_on_card(card, kv_dtype):
         torch.from_numpy(q)[None], torch.from_numpy(k)[None].float(),
         torch.from_numpy(v)[None].float(), S)[0]
     torch.testing.assert_close(outs[0], expect, rtol=1e-5, atol=1e-5)
+
+
+# the shapes of tests/test_kernels.py's block GEMM tests, a ragged one and
+# one of 256-multiples
+DIRECT_SHAPES = [(128, 128, 128), (256, 384, 512), (300, 200, 150),
+                 (512, 128, 257), (64, 64, 64), (1000, 999, 1001),
+                 (512, 768, 256)]
+
+
+@pytest.mark.parametrize("M,N,K", DIRECT_SHAPES)
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_direct_vmem_kernel_matches_plain_version(card, dtype, M, N, K):
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    A, B, C = (torch.from_numpy(x).to(card, dtype)
+               for x in _inputs(M * N + K, M, N, K))
+    C_before = C.clone()
+    before = D.direct_vmem_ooc_gemm.launches
+    blocks = ((256, 256, 256), (128, 64, 32), (64, 128, 16), (64, 64, 64))
+    outs = [D.direct_vmem_ooc_gemm(A, B, C, 1.25, 0.5, block=blk)
+            for blk in blocks]
+    again = D.direct_vmem_ooc_gemm(A, B, C, 1.25, 0.5)
+    assert D.direct_vmem_ooc_gemm.launches == before + len(blocks) + 1
+    plain = D.direct_vmem_ooc_gemm_plain(A, B, C, 1.25, 0.5)
+    assert outs[0].dtype == dtype and tuple(outs[0].shape) == (M, N)
+    torch.testing.assert_close(outs[0].float(), plain.float(), rtol=tol,
+                               atol=tol)
+    assert all(torch.equal(outs[0], o) for o in outs[1:] + [again])
+    assert torch.equal(C, C_before)
+
+
+def test_direct_vmem_takes_row_strided_views(card):
+    A, B, C = (torch.from_numpy(x).to(card) for x in _inputs(8, 200, 136, 72))
+    wide = torch.zeros(200, 100, device=card)
+    wide[:, 20:92] = A
+    assert torch.equal(D.direct_vmem_ooc_gemm(wide[:, 20:92], B, C, 1.5, 0.5),
+                       D.direct_vmem_ooc_gemm(A, B, C, 1.5, 0.5))
+    with pytest.raises(ValueError, match="column stride"):
+        D.direct_vmem_ooc_gemm(A.T.contiguous().T, B, C, 1.5, 0.5)
+
+
+def test_direct_vmem_failures_raise(card, monkeypatch):
+    A, B, C = (torch.from_numpy(x).to(card) for x in _inputs(2, 64, 64, 64))
+    before = D.direct_vmem_ooc_gemm.launches
+
+    def no_nvcc(name):
+        raise RuntimeError(f"nvcc failed for {name}")
+
+    monkeypatch.setattr(_build, "load", no_nvcc)
+    with pytest.raises(RuntimeError, match="nvcc failed"):
+        D.direct_vmem_ooc_gemm(A, B, C, 1.0, 0.0)
+
+    class Refused:                  # a launch CUDA refuses
+        argtypes = ()
+
+        def __call__(self, *args):
+            return 9                # cudaErrorInvalidConfiguration
+
+    lib = type("Lib", (), {"repro_direct_vmem_gemm": Refused()})()
+    monkeypatch.setattr(_build, "load", lambda name: lib)
+    with pytest.raises(RuntimeError, match="launch failed"):
+        D.direct_vmem_ooc_gemm(A, B, C, 1.0, 0.0)
+    assert D.direct_vmem_ooc_gemm.launches == before
+
+
+def test_direct_host_equals_ooc_gemm_bitwise(card):
+    """At 1536x1024x512 under a fifth of the operands both partitions are
+    8x4 blocks of 192x256: the same blocks through kernel 1, the same bits
+    and the same bytes."""
+    M, N, K = 1536, 1024, 512
+    A, B, C = _inputs(6, M, N, K)
+    budget = (A.nbytes + B.nbytes + C.nbytes) // 5
+    ex_lib = T.ScheduleExecutor()
+    lib = T.ooc_gemm(A, B, C, 1.5, 0.5, budget_bytes=budget,
+                     runtime=T.HostOocRuntime(executor=ex_lib))
+    ex = T.ScheduleExecutor()
+    before = block_matmul.launches
+    out = D.direct_host_ooc_gemm(A, B, C, 1.5, 0.5, budget, executor=ex)
+    assert block_matmul.launches - before == 32
+    assert torch.equal(out, lib)
+    assert (ex.last_h2d_bytes, ex.last_d2h_bytes) \
+        == (ex_lib.last_h2d_bytes, ex_lib.last_d2h_bytes)
+
+
+def test_engine_streams_persist_across_concurrent_runs(card):
+    """A handler that allocates on its op's stream reuses that stream's
+    cached blocks from the executor's second run on: the same engine
+    streams, no cudaMalloc."""
+    def dgemm_with_scratch(st, op, ref):
+        c = st.bufs[op.buffers_written[0]]
+        scratch = torch.empty_like(c)
+        block_matmul(st.bufs[op.buffers_read[0]],
+                     st.bufs[op.buffers_read[1]], c,
+                     alpha=st.ctx["alpha"], beta=st.ctx["beta"], out=scratch)
+        c.copy_(scratch)
+
+    A, B, C = _inputs(11, 640, 512, 256)
+    part = T.plan_gemm_partition(640, 512, 256,
+                                 (A.nbytes + B.nbytes + C.nbytes) // 4, 4)
+    sched = T.build_gemm_schedule(part, nstreams=2, nbuf=2)
+    ex = T.ScheduleExecutor(mode="concurrent",
+                            handlers={"dgemm": dgemm_with_scratch})
+    outs, streams, mallocs = [], [], []
+    for _ in range(2):
+        out = torch.from_numpy(C.copy())
+        torch.cuda.synchronize()
+        n0 = torch.cuda.memory_stats()["num_device_alloc"]
+        ex.run(sched, {"A": A, "B": B}, {"C": out},
+               {"alpha": 1.5, "beta": 0.5})
+        mallocs.append(torch.cuda.memory_stats()["num_device_alloc"] - n0)
+        streams.append([s.cuda_stream for s in ex._engine_streams])
+        outs.append(out)
+    assert len(streams[0]) == len(T.compile_executable(sched).engines)
+    assert streams[0] == streams[1]
+    assert mallocs[1] == 0, mallocs
+    assert torch.equal(outs[0], outs[1])

@@ -49,6 +49,22 @@ def test_no_jax_or_reference_import(path):
     assert not hits, f"{path} imports {hits}"
 
 
+def test_direct_impls_import_no_kernel_but_build():
+    """The direct baselines carry their own kernel: ``direct_impls.py``
+    imports nothing of ``repro_torch.kernels`` but the build helper."""
+    import ast
+
+    src = (ROOT / "src" / "repro_torch" / "direct_impls.py").read_text()
+    names = []
+    for node in ast.walk(ast.parse(src)):
+        if isinstance(node, ast.Import):
+            names += [a.name for a in node.names]
+        elif isinstance(node, ast.ImportFrom):
+            names += [f"{node.module}.{a.name}" for a in node.names]
+    kernels = [n for n in names if n.startswith("repro_torch.kernels")]
+    assert kernels == ["repro_torch.kernels._build"], kernels
+
+
 @pytest.fixture
 def no_card():
     if torch.cuda.is_available():
@@ -57,12 +73,15 @@ def no_card():
 
 @pytest.mark.parametrize("entry", ["ooc_gemm", "ooc_syrk", "ooc_attention",
                                    "executor", "host_runtime",
-                                   "vmem_runtime", "tier_size"])
+                                   "vmem_runtime", "tier_size",
+                                   "direct_host", "direct_vmem", "mmooc"])
 def test_default_device_raises_without_a_card(no_card, entry):
     import numpy as np
 
     import repro_torch.core as T
+    from repro_torch import direct_impls as D
     from repro_torch.core.api import hclDeviceFactory
+    from repro_torch.examples.mmooc_via_api import mmooc
 
     A = np.ones((64, 64), np.float32)
     calls = {
@@ -75,6 +94,10 @@ def test_default_device_raises_without_a_card(no_card, entry):
         "host_runtime": lambda: T.HostOocRuntime(),
         "vmem_runtime": lambda: T.VmemOocRuntime(),
         "tier_size": lambda: hclDeviceFactory.create("HBM"),
+        "direct_host": lambda: D.direct_host_ooc_gemm(A, A, A, 1.0, 0.0,
+                                                      1 << 12),
+        "direct_vmem": lambda: D.direct_vmem_ooc_gemm(A, A, A, 1.0, 0.0),
+        "mmooc": lambda: mmooc(A, A, A, 1.0, 0.0, mem_bytes=1 << 12),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

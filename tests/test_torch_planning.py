@@ -18,22 +18,9 @@ import repro_torch.core as T
 from repro_torch.core import exec_plan as T_xplan
 from repro_torch.core.convert import from_reference
 
+from _torch_helpers import op_key
+
 SHAPES = [(640, 384, 256, 4), (512, 512, 128, 6)]   # M, N, K, budget frac
-
-
-def _payload(p):
-    if p is None:
-        return None
-    return (type(p).__name__,) + tuple(
-        getattr(p, f.name) for f in dataclasses.fields(p))
-
-
-def _op(op):
-    return (op.kind.name, op.tag, op.stream,
-            tuple(e.name for e in op.waits),
-            op.records.name if op.records is not None else None,
-            tuple(op.buffers_read), tuple(op.buffers_written),
-            op.bytes, op.flops, _payload(op.payload))
 
 
 def _models(mod, v5e):
@@ -41,9 +28,9 @@ def _models(mod, v5e):
 
 
 def _assert_same_schedule(ref, port):
-    assert [_op(o) for o in ref.ops] == [_op(o) for o in port.ops]
-    assert [[_op(o) for o in s.ops] for s in ref.streams] \
-        == [[_op(o) for o in s.ops] for s in port.streams]
+    assert [op_key(o) for o in ref.ops] == [op_key(o) for o in port.ops]
+    assert [[op_key(o) for o in s.ops] for s in ref.streams] \
+        == [[op_key(o) for o in s.ops] for s in port.streams]
     assert ref.reuse == port.reuse and ref.meta == port.meta
     assert R.schedule_stats(ref) == T.schedule_stats(port)
     assert from_reference(ref) == port
