@@ -15,8 +15,8 @@ printing any result.  Phases (each raises on failure; none is skipped):
      (f32/bf16/f16 KV, q in f32 and in the KV dtype, ragged lengths, a
      fully masked split, a row of length 0, two runs bit for bit) and the
      direct GEMM, kernel 3 (``direct_vmem_ooc_gemm``: f32/bf16/f16,
-     ``block=`` variants and two launches bit for bit, C unchanged, the
-     difference from kernel 1 printed; ``[direct]`` lines);
+     ``block=`` variants and two launches bit for bit, C unchanged, and
+     bit for bit equal to kernel 1; ``[direct]`` lines);
   3. the first path, MMOOC: ``ooc_gemm`` host backend at
      M = N = K = 24576 f32 under a 2 GiB device budget (3.4x out of core),
      in both executor modes, checked bit for bit across modes and against
@@ -42,7 +42,15 @@ printing any result.  Phases (each raises on failure; none is skipped):
      device memory, and the warm runs' transfer and idle times; then f32 KV
      at S = 131072 under 256 MiB with the same checks;
   7. kernel timing at each path's shapes beside its bound, the plain
-     version and one library call.
+     version and one library call: kernel 1 in f32 and in bf16 (beside
+     ``torch.addmm`` in bf16), kernel 2's partial and combine passes apart.
+
+With ``--baseline DIR`` (another checkout, e.g. ``git archive`` of the
+parent commit unpacked into a directory ``.gitignore`` lists), phase 5 is
+followed by ``[base]`` lines: that tree's kernels 1 and 2, built from its
+``csrc``, timed in turns with this tree's at the timing shapes, kernel 1's
+outputs compared bit for bit, and the MMOOC walls of both in both executor
+modes.  Without arguments it needs one card and nothing else.
 
 The line before the last is a JSON object describing each kernel; the
 last line is ``{"ok": true, "device": {...}}``.
@@ -67,9 +75,10 @@ sys.path.insert(0, os.path.join(os.path.dirname(os.path.abspath(__file__)),
 SEED = 0
 U32 = 2.0 ** -24          # float32 unit roundoff
 # NVIDIA H100 SXM5 data sheet, dense, at the full power limit: float32
-# FLOP/s on the CUDA cores and HBM3 bytes/s.  torch names the card
-# "NVIDIA H100 80GB HBM3"; any other card raises.
-H100_SXM = ("H100 80GB HBM3", 67e12, 3.35e12)
+# FLOP/s on the CUDA cores, HBM3 bytes/s and bf16 FLOP/s on the tensor
+# cores.  torch names the card "NVIDIA H100 80GB HBM3"; any other card
+# raises.
+H100_SXM = ("H100 80GB HBM3", 67e12, 3.35e12, 989e12)
 SPIN_CYCLES = 2 * 10**8   # ~0.1 s at the H100's 1.98 GHz boost clock
 
 
@@ -89,11 +98,12 @@ def card_line() -> str:
         check=True).stdout.strip().splitlines()[0]
 
 
-def datasheet(name: str):
-    key, peak_flops, peak_bw = H100_SXM
+def datasheet(name: str, dtype=torch.float32):
+    """(peak FLOP/s for ``dtype``, peak bytes/s) of the card."""
+    key, f32_flops, peak_bw, bf16_flops = H100_SXM
     if key not in name:
         raise RuntimeError(f"no data-sheet peaks for card {name!r}")
-    return peak_flops, peak_bw
+    return (f32_flops if dtype == torch.float32 else bf16_flops), peak_bw
 
 
 def rand(shape, gen, dtype=torch.float32, device="cuda"):
@@ -277,7 +287,7 @@ def phase_kernels_direct(gen):
     blocks = [(256, 256, 256), (128, 64, 32), (64, 128, 16), (64, 64, 64)]
     saved = (D.direct_vmem_ooc_gemm.launches, block_matmul.launches)
     for dt, tol in tols.items():
-        worst, k1_diff = 0.0, 0.0
+        worst = 0.0
         for M, N, K in DIRECT_SHAPES:
             A, B, C = (rand(s, gen, dt) for s in ((M, K), (K, N), (M, N)))
             C0 = C.clone()
@@ -297,13 +307,15 @@ def phase_kernels_direct(gen):
                     f"two launches differ")
             require(torch.equal(C, C0), f"direct_vmem_gemm {dt}: C changed")
             worst = max(worst, err.max().item())
-            k1_diff = max(k1_diff,
-                          (outs[0].float() - k1.float()).abs().max().item())
+            require(torch.equal(outs[0], k1),
+                    f"direct_vmem_gemm {dt} {(M, N, K)}: kernel 3 differs "
+                    f"from kernel 1 (max "
+                    f"{(outs[0].float() - k1.float()).abs().max().item()})")
         say("direct", f"direct_vmem_gemm {str(dt)[6:]:8s}: "
                       f"{len(DIRECT_SHAPES)} shapes, max err vs plain "
                       f"{worst:.3g} (rtol=atol={tol}); {len(blocks)} block= "
                       f"variants and a second launch bitwise equal; C "
-                      f"unchanged; max |kernel 3 - kernel 1| {k1_diff:.3g}")
+                      f"unchanged; kernel 3 == kernel 1 bitwise")
     D.direct_vmem_ooc_gemm.launches, block_matmul.launches = saved
 
 
@@ -615,7 +627,9 @@ def phase_c1(gen, report, A, B, C, host_out, params):
     err = (dout - ref).abs()
     require(bool((err.double() <= tol).all()),
             f"direct_vmem {n3}^3: max err vs plain {err.max().item()}")
-    diff = (dout - lout).abs().max().item()
+    require(torch.equal(dout, lout),
+            f"vmem {n3}^3: kernel 3 differs from kernel 1 (max "
+            f"{(dout - lout).abs().max().item()})")
     del ref, err, tol, lout, dout
     walls = interleaved({
         "api_vmem": lambda: ooc_gemm(Ad, Bd, Cd, alpha, beta,
@@ -627,8 +641,8 @@ def phase_c1(gen, report, A, B, C, host_out, params):
     med = report["c1"][-1]["median_s"]
     say("c1", f"vmem {n3}^3 f32 on the card: direct (kernel 3) / API "
               f"(kernel 1) = {med['direct_vmem'] / med['api_vmem']:.4f}; "
-              f"kernel 3 vs plain within 2*sqrt(K)*u*sum|terms|; max "
-              f"|kernel 3 - kernel 1| {diff:.3g}; 1 launch")
+              f"kernel 3 vs plain within 2*sqrt(K)*u*sum|terms|; kernel 3 "
+              f"== kernel 1 bitwise; 1 launch")
     del Ad, Bd, Cd
 
 
@@ -838,8 +852,12 @@ def phase_timing_attention(gen, report, card):
         flops = 4 * B * H * S * d
         t_bytes = nbytes / peak_bw * 1e3
         t_ops = flops / peak_flops * 1e3
+        kv_bytes = 2 * k.numel() * k.element_size()
         row = {"shape": name, "B": B, "S": S, "Hkv": hkv, "G": G, "d": d,
                "kv_dtype": "bfloat16", "ms": ms, "partial_ms": partial_ms,
+               "combine_ms": ms - partial_ms,
+               "gbps": nbytes / ms / 1e6,
+               "partial_kv_gbps": kv_bytes / partial_ms / 1e6,
                "plain_ms": plain_ms, "library_ms": library_ms,
                "library_backend": backend, "library_max_diff": lib_err,
                "bytes": nbytes, "bound_ms": max(t_bytes, t_ops),
@@ -848,8 +866,10 @@ def phase_timing_attention(gen, report, card):
         shapes.append(row)
         say("timing", f"flash_attention {name} (B={B}, S={S}, Hkv={hkv}, "
                       f"G={G}, d={d}, bf16 KV): {ms:.4f} ms/call (partial "
-                      f"pass {partial_ms:.4f} ms), "
-                      f"{nbytes / ms / 1e6:.0f} GB/s; bound "
+                      f"pass {partial_ms:.4f} ms at "
+                      f"{row['partial_kv_gbps']:.0f} GB/s of K and V, "
+                      f"combine {row['combine_ms']:.4f} ms), "
+                      f"{row['gbps']:.0f} GB/s; bound "
                       f"{row['bound_ms']:.4f} ms ({row['bound_by']}: "
                       f"{nbytes} B at {peak_bw / 1e12:.2f} TB/s, data "
                       f"sheet); plain {plain_ms:.3f} ms; SDPA enable_gqa "
@@ -923,6 +943,41 @@ def phase_timing(gen, report, card):
                   f"torch.addmm {library_ms:.3f} ms; kernel vs plain max "
                   f"err {entry['max_abs_err']:.3g} (bound 2*sqrt(K)*u*"
                   f"sum|terms|); card {card}")
+    del A, B, C, out, ref, err, tol
+
+    # the bf16 instance: the same CUDA-core pipeline, beside torch.addmm in
+    # bf16 (tensor cores); its bound is the bf16 tensor-core rate
+    dt = torch.bfloat16
+    A, B, C = (rand(s, gen, dt) for s in ((M, K), (K, N), (M, N)))
+    out = torch.empty_like(C)
+    launches = block_matmul.launches
+    ms = time_ms(lambda: block_matmul(A, B, C, alpha=alpha, beta=beta,
+                                      out=out), reps=3)
+    block_matmul.launches = launches
+    plain_ms = time_ms(lambda: block_matmul_plain(A, B, C, alpha=alpha,
+                                                  beta=beta), reps=3)
+    library_ms = time_ms(lambda: torch.addmm(C, A, B, beta=beta,
+                                             alpha=alpha), reps=3)
+    ref = block_matmul_plain(A, B, C, alpha=alpha, beta=beta).float()
+    err = (out.float() - ref).abs()
+    require(bool((err <= 2e-2 + 2e-2 * ref.abs()).all()),
+            f"timing shape bf16: kernel vs plain max err {err.max().item()}")
+    peak_flops, peak_bw = datasheet(torch.cuda.get_device_name(0), dt)
+    t_ops = flops / peak_flops * 1e3
+    t_bytes = nbytes // 2 / peak_bw * 1e3
+    entry["bf16"] = {
+        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
+        "bound_ms": max(t_ops, t_bytes),
+        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
+        "max_abs_err": err.max().item()}
+    say("timing", f"block_matmul {M}x{N}x{K} bf16 (CUDA cores): {ms:.3f} "
+                  f"ms/launch ({flops / ms / 1e9:.2f} TFLOP/s), bound "
+                  f"{entry['bf16']['bound_ms']:.3f} ms "
+                  f"({entry['bf16']['bound_by']}: {peak_flops / 1e12:.0f} "
+                  f"TFLOP/s bf16 tensor cores, data sheet), plain "
+                  f"{plain_ms:.3f} ms, torch.addmm bf16 {library_ms:.3f} ms; "
+                  f"kernel vs plain max err {err.max().item():.3g} "
+                  f"(rtol=atol=2e-2); card {card}")
     return entry
 
 
@@ -944,7 +999,9 @@ def phase_timing_direct(gen, report, card):
     tol = 2 * sum_tol(A, B, C, alpha, beta)
     require(bool((err.double() <= tol).all()),
             f"timing shape: kernel 3 vs plain max err {err.max().item()}")
-    k1_diff = (out - k1).abs().max().item()
+    require(torch.equal(out, k1),
+            f"timing shape: kernel 3 differs from kernel 1 (max "
+            f"{(out - k1).abs().max().item()})")
     del ref, tol, k1
     runs = {"direct": lambda: D.direct_vmem_ooc_gemm(A, B, C, alpha, beta),
             "block_matmul": lambda: block_matmul(A, B, C, alpha=alpha,
@@ -972,7 +1029,7 @@ def phase_timing_direct(gen, report, card):
         "plain_ms": t["plain"], "bound_ms": max(t_ops, t_bytes),
         "bound_by": "operations" if t_ops >= t_bytes else "bytes",
         "library_ms": t["addmm"], "block_matmul_ms": t["block_matmul"],
-        "max_abs_diff_from_block_matmul": k1_diff,
+        "max_abs_diff_from_block_matmul": 0.0,
     }
     say("timing", f"direct_vmem_gemm {M}x{N}x{K} f32: {t['direct']:.3f} "
                   f"ms/launch ({flops / t['direct'] / 1e9:.2f} TFLOP/s), "
@@ -980,12 +1037,156 @@ def phase_timing_direct(gen, report, card):
                   f"plain {t['plain']:.3f} ms, torch.addmm {t['addmm']:.3f} "
                   f"ms, kernel 1 in the same turns {t['block_matmul']:.3f} "
                   f"ms; runs {json.dumps(ms)}; kernel 3 vs plain max err "
-                  f"{entry['max_abs_err']:.3g}, max |kernel 3 - kernel 1| "
-                  f"{k1_diff:.3g}; card {card}")
+                  f"{entry['max_abs_err']:.3g}, kernel 3 == kernel 1 "
+                  f"bitwise; card {card}")
     return entry
 
 
-def main() -> int:
+class kernels_from:
+    """Within the block, the kernel wrappers launch the libraries built from
+    ``csrc`` (another checkout's sources of the same C interface) instead
+    of this tree's."""
+
+    def __init__(self, csrc):
+        self.csrc = csrc
+
+    def __enter__(self):
+        from repro_torch.kernels import _build
+
+        self.build, self.load = _build, _build.load
+        _build.load = lambda name: self.load(name, self.csrc)
+
+    def __exit__(self, *exc):
+        self.build.load = self.load
+
+
+def phase_baseline(gen, report, card, base, A, B, C, params):
+    """Kernels 1 and 2 of another checkout (``base``, e.g. a ``git archive``
+    of the parent commit) against this tree's, in one call on one card, in
+    turns (this, base, base, this): kernel 1 at its timing shape in f32 and
+    bf16 (outputs compared bit for bit), kernel 2 at its two timing shapes,
+    and the MMOOC walls of phase 3 in both executor modes."""
+    from repro_torch.core import HostOocRuntime, ScheduleExecutor, ooc_gemm
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.kernels.block_matmul import block_matmul
+
+    csrc = os.path.join(os.path.abspath(base), "src", "repro_torch", "csrc")
+    names = ("block_matmul", "flash_attention")
+    with ThreadPoolExecutor(len(names)) as pool:
+        logs = list(pool.map(lambda n: _build.build(n, csrc), names))
+    for name, log in zip(names, logs):
+        say("base", f"{name} from {csrc} built in {log['seconds']:.2f} s")
+    saved = (block_matmul.launches, kfa.flash_partial.launches,
+             kfa.flash_combine.launches)
+
+    def turns(fn_new, fn_base, reps, warmup=1):
+        ms = {"this": [], "base": []}
+        for who in ("this", "base", "base", "this"):
+            if who == "this":
+                ms[who].append(time_ms(fn_new, reps=reps, warmup=warmup))
+            else:
+                with kernels_from(csrc):
+                    ms[who].append(time_ms(fn_base, reps=reps,
+                                           warmup=warmup))
+        return ms
+
+    rows = []
+    M = N = 6144
+    K = 24576
+    alpha, beta = 1.5, 0.5
+    for dt in (torch.float32, torch.bfloat16):
+        a, b, c = (rand(sh, gen, dt) for sh in ((M, K), (K, N), (M, N)))
+        o_new, o_base = torch.empty_like(c), torch.empty_like(c)
+        block_matmul(a, b, c, alpha=alpha, beta=beta, out=o_new)
+        with kernels_from(csrc):
+            block_matmul(a, b, c, alpha=alpha, beta=beta, out=o_base)
+        torch.cuda.synchronize()
+        require(torch.equal(o_new, o_base),
+                f"kernel 1 {dt} at {M}x{N}x{K} differs from the base's")
+        ms = turns(lambda: block_matmul(a, b, c, alpha=alpha, beta=beta,
+                                        out=o_new),
+                   lambda: block_matmul(a, b, c, alpha=alpha, beta=beta,
+                                        out=o_base), reps=3)
+        rows.append({"kernel": "block_matmul", "dtype": str(dt)[6:],
+                     "shape": f"{M}x{N}x{K}", "ms": ms})
+        say("base", f"block_matmul {str(dt)[6:]} {M}x{N}x{K}: this "
+                    f"{statistics.mean(ms['this']):.3f} ms, base "
+                    f"{statistics.mean(ms['base']):.3f} ms (turns "
+                    f"{json.dumps(ms)}); outputs bitwise equal")
+        del a, b, c, o_new, o_base
+
+    hkv, G, d = 8, 3, 128
+    for name, Bq, S in (("main path block", 1, 65536),
+                        ("decode_32k at B/4", 32, 32768)):
+        q = rand((Bq, hkv * G, d), gen)
+        k, v = (rand((Bq, S, hkv, d), gen, torch.bfloat16) for _ in range(2))
+        length = torch.full((Bq,), S, dtype=torch.int32, device="cuda")
+        ref = kfa.flash_decode_attention_plain(q, k, v, length)
+        with kernels_from(csrc):
+            err_base = (kfa.flash_decode_attention(q, k, v, length)
+                        - ref).abs().max().item()
+        err = (kfa.flash_decode_attention(q, k, v, length)
+               - ref).abs().max().item()
+        require(err <= 2e-4 and err_base <= 2e-4,
+                f"kernel 2 {name}: max err {err} (this), {err_base} (base)")
+        del ref
+        whole = turns(lambda: kfa.flash_decode_attention(q, k, v, length),
+                      lambda: kfa.flash_decode_attention(q, k, v, length),
+                      reps=20, warmup=2)
+        part = turns(lambda: kfa.flash_partial(q, k, v, length),
+                     lambda: kfa.flash_partial(q, k, v, length),
+                     reps=20, warmup=2)
+        rows.append({"kernel": "flash_attention", "shape": name, "B": Bq,
+                     "S": S, "ms": whole, "partial_ms": part,
+                     "max_abs_err": {"this": err, "base": err_base}})
+        say("base", f"flash_attention {name} (B={Bq}, S={S}): this "
+                    f"{statistics.mean(whole['this']):.4f} ms (partial "
+                    f"{statistics.mean(part['this']):.4f}), base "
+                    f"{statistics.mean(whole['base']):.4f} ms (partial "
+                    f"{statistics.mean(part['base']):.4f}); turns "
+                    f"{json.dumps(whole)} / {json.dumps(part)}; max err vs "
+                    f"plain {err:.3g} / {err_base:.3g}")
+        del q, k, v
+
+    alpha, beta, budget = params
+    for mode in ("issue_order", "concurrent"):
+        walls = {"this": [], "base": []}
+        exes = {w: ScheduleExecutor(mode=mode) for w in walls}
+        for who in ("this", "base", "this", "base", "base", "this"):
+            rt = HostOocRuntime(executor=exes[who])
+            if who == "this":
+                ooc_gemm(A, B, C, alpha, beta, budget_bytes=budget,
+                         backend="host", runtime=rt)
+            else:
+                with kernels_from(csrc):
+                    ooc_gemm(A, B, C, alpha, beta, budget_bytes=budget,
+                             backend="host", runtime=rt)
+            walls[who].append(exes[who].last_wall_seconds)
+        # the first run of each is its cold run (pinned staging is new)
+        warm = {w: v[1:] for w, v in walls.items()}
+        rows.append({"kernel": "mmooc", "mode": mode, "walls_s": walls})
+        say("base", f"MMOOC {mode} executor walls (first of each cold): "
+                    f"this {', '.join(f'{x:.3f}' for x in walls['this'])} "
+                    f"s, base {', '.join(f'{x:.3f}' for x in walls['base'])}"
+                    f" s; warm means this "
+                    f"{statistics.mean(warm['this']):.3f} s, base "
+                    f"{statistics.mean(warm['base']):.3f} s")
+    (block_matmul.launches, kfa.flash_partial.launches,
+     kfa.flash_combine.launches) = saved
+    report["baseline"] = {"base": os.path.abspath(base), "card": card,
+                          "rows": rows}
+
+
+def main(argv=None) -> int:
+    import argparse
+
+    ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    ap.add_argument("--baseline", metavar="DIR",
+                    help="another checkout of the repository (e.g. a git "
+                         "archive of the parent commit): time its kernels "
+                         "1 and 2 and MMOOC walls beside this tree's")
+    args = ap.parse_args(argv)
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device available", file=sys.stderr)
         return 1
@@ -999,6 +1200,8 @@ def main() -> int:
     A, B, C, host_out, params = phase_main(gen, report)
     phase_vmem_syrk(gen, report, A, B, C, host_out, params)
     phase_c1(gen, report, A, B, C, host_out, params)
+    if args.baseline:
+        phase_baseline(gen, report, card, args.baseline, A, B, C, params)
     del A, B, C, host_out
     phase_attention(gen, report)
     entries = [phase_timing(gen, report, card),
@@ -1008,7 +1211,7 @@ def main() -> int:
                 f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"main_path": report["main_path"],
                       "attention": report["attention"], "c1": report["c1"],
-                      "card": card}))
+                      "baseline": report.get("baseline"), "card": card}))
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

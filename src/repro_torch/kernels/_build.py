@@ -23,7 +23,7 @@ import shutil
 import subprocess
 import threading
 import time
-from typing import Dict
+from typing import Dict, Tuple
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_ROOT = pathlib.Path(__file__).resolve().parents[3] / "build" / "repro_torch"
@@ -31,7 +31,7 @@ NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v"]
 
 _lock = threading.Lock()
-_loaded: Dict[str, ctypes.CDLL] = {}
+_loaded: Dict[Tuple[str, str], ctypes.CDLL] = {}
 
 
 def _nvcc() -> str:
@@ -47,27 +47,30 @@ def _nvcc() -> str:
     return found
 
 
-def _library_path(name: str) -> pathlib.Path:
-    src = CSRC / f"{name}.cu"
+def _library_path(name: str, csrc: pathlib.Path) -> pathlib.Path:
+    src = csrc / f"{name}.cu"
     digest = hashlib.sha256(
         src.read_bytes() + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
     return BUILD_ROOT / f"{name}-{digest}" / f"lib{name}.so"
 
 
-def build(name: str) -> dict:
-    """Compile ``csrc/<name>.cu`` unless its library already exists.
+def build(name: str, csrc: pathlib.Path = CSRC) -> dict:
+    """Compile ``<csrc>/<name>.cu`` unless its library already exists.
 
-    Returns ``{"path", "seconds", "ptxas", "cached"}``; ``ptxas`` is the
-    compiler's output (register and spill counts).  Raises with that output
-    if ``nvcc`` fails."""
-    so = _library_path(name)
+    ``csrc`` defaults to the package's own sources; another directory
+    builds that tree's kernel of the same name (to time two versions side
+    by side).  Returns ``{"path", "seconds", "ptxas", "cached"}``;
+    ``ptxas`` is the compiler's output (register and spill counts).  Raises
+    with that output if ``nvcc`` fails."""
+    csrc = pathlib.Path(csrc)
+    so = _library_path(name, csrc)
     if so.exists():
         return {"path": str(so), "seconds": 0.0, "ptxas": "", "cached": True}
     so.parent.mkdir(parents=True, exist_ok=True)
     tmp = so.with_name(f".{so.name}.{os.getpid()}.tmp")
     t0 = time.perf_counter()
     proc = subprocess.run(
-        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")],
+        [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(csrc / f"{name}.cu")],
         stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
     if proc.returncode != 0:
         raise RuntimeError(f"nvcc failed for {name} (rc {proc.returncode}):"
@@ -77,11 +80,13 @@ def build(name: str) -> dict:
             "ptxas": proc.stdout, "cached": False}
 
 
-def load(name: str) -> ctypes.CDLL:
-    """The loaded library of kernel ``name``, built first if needed."""
+def load(name: str, csrc: pathlib.Path = CSRC) -> ctypes.CDLL:
+    """The loaded library of kernel ``name`` (from ``csrc``), built first if
+    needed."""
+    key = (name, str(pathlib.Path(csrc).resolve()))
     with _lock:
-        lib = _loaded.get(name)
+        lib = _loaded.get(key)
         if lib is None:
-            lib = ctypes.CDLL(build(name)["path"])
-            _loaded[name] = lib
+            lib = ctypes.CDLL(build(name, csrc)["path"])
+            _loaded[key] = lib
         return lib

@@ -11,7 +11,8 @@ What differs from the Pallas version, and why:
   * No host padding: the kernel masks ragged M/N/K edges itself and takes
     row strides, so a parity buffer view can be passed as it is.
   * ``block=`` is kept in the signature and validated, but the kernel has
-    one CTA tile (128 x 128 x 8) and ignores it.  The result could not
+    one CTA tile (128 x 256, k tiles of 16 in a 4-stage cp.async ring) and
+    ignores it.  The result could not
     depend on it anyway: every output element is summed over k = 0..K-1
     in one fixed order.
   * ``out=`` lets the caller update a buffer in place (the executor's

@@ -17,11 +17,13 @@ all float32:
     ``p = exp(s - m)`` and ``acc`` the sum of ``p * v``.  Positions at or
     beyond ``length[b]`` add exactly nothing; a split wholly beyond it is
     exactly ``(NEG_INF, 0, 0)``.
-  * :func:`flash_combine` — folds the splits in ascending order, optionally
+  * :func:`flash_combine` — folds the splits in a fixed order, optionally
     starting from an incoming ``(m, l, acc)`` carry of shapes (B, H) and
     (B, H, d): it writes the carry back in place, or normalises
     (``acc / max(l, 1e-20)``) into an output dtype.  Its arithmetic is
-    ``merge_attention_partials``'s.
+    ``merge_attention_partials``'s; the plain version adds the splits one
+    after another, the kernel in chunks that its warps then add in order,
+    so the two agree to rounding.
 
 :func:`flash_decode_attention` is the reference contract built from the
 two.  Every entry point has a plain PyTorch version with the same contract
@@ -45,8 +47,6 @@ import torch
 NEG_INF = -1e30
 L_FLOOR = 1e-20            # normalisation clamps l here (reference :65)
 MAX_HEAD_DIM = 256
-_SHARED_BYTES = 232448     # dynamic shared memory one CTA may use (H100)
-_WARPS, _ROWS = 4, 4       # partial-pass CTA shape (csrc kWarps, kRows)
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _c_void_p = ctypes.c_void_p
 _c_ll = ctypes.c_longlong
@@ -104,20 +104,10 @@ def _check(q, k, v, block_s: int) -> Tuple[int, int, int, int, int, int]:
                         f"{q.dtype}")
     if any(t.device != q.device for t in (k, v)):
         raise ValueError("q, k and v must share one device")
-    G = H // hkv
-    _check_block_s(block_s, G, d)
-    return B, H, d, S, hkv, G
-
-
-def _check_block_s(block_s: int, G: int, d: int) -> None:
     if isinstance(block_s, bool) or not isinstance(block_s, int) \
             or block_s < 1:
         raise ValueError(f"block_s must be a positive int, got {block_s!r}")
-    smem = (G * block_s + _WARPS * _ROWS * d + 2 * G) * 4
-    if smem > _SHARED_BYTES:
-        raise ValueError(f"block_s={block_s} with {G} query rows per kv head "
-                         f"needs {smem} B of shared memory (at most "
-                         f"{_SHARED_BYTES})")
+    return B, H, d, S, hkv, H // hkv
 
 
 # ---------------------------------------------------------------------------
@@ -252,7 +242,7 @@ def flash_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise ValueError(f"flash_partial runs on cpu or cuda, not {q.device}")
     if k.stride(3) != 1 or v.stride(3) != 1:
         raise ValueError("k and v need unit stride on head_dim")
-    if B > 65535 or hkv > 65535 or n >= 2**31:
+    if B > 65535 or n * hkv >= 2**31:
         raise ValueError(f"grid too large: B={B}, Hkv={hkv}, splits={n}")
     if out is None:
         out = empty_partials(B, H, n, d, q.device)

@@ -62,6 +62,75 @@ def test_kernel_matches_plain_version(card, dtype, M, N, K):
     assert torch.equal(sub, outs[0][7:M - 3, 5:N - 9])
 
 
+# kernel 1's pipeline: k tiles of 16 in a ring of 4 stages, so K = 64 +- 1
+# straddles a full ring; ragged M and N cut both edge tiles
+PIPE_K = [1, 7, 17, 33, 63, 64, 65]
+GEMM_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
+
+
+@pytest.mark.parametrize("K", PIPE_K)
+@pytest.mark.parametrize("dtype", GEMM_DTYPES)
+def test_kernel_pipeline_edges(card, dtype, K):
+    tol = 2e-4 if dtype == torch.float32 else 2e-2
+    M, N = 200, 136
+    A, B, C = (torch.from_numpy(x).to(card, dtype)
+               for x in _inputs(K, M, N, K))
+    out = block_matmul(A, B, C, alpha=1.25, beta=0.5)
+    plain = block_matmul_plain(A, B, C, alpha=1.25, beta=0.5)
+    torch.testing.assert_close(out.float(), plain.float(), rtol=tol,
+                               atol=tol)
+    sub = block_matmul(A[3:M - 70], B[:, 9:N - 1], C[3:M - 70, 9:N - 1],
+                       alpha=1.25, beta=0.5)
+    assert torch.equal(sub, out[3:M - 70, 9:N - 1])
+    # kernel 3 sums in the same order: the same bits
+    assert torch.equal(D.direct_vmem_ooc_gemm(A, B, C, 1.25, 0.5), out)
+
+
+@pytest.mark.parametrize("dtype", GEMM_DTYPES)
+@pytest.mark.parametrize("pad", [1, 3])
+def test_kernel_unaligned_row_strides(card, dtype, pad):
+    """Row strides that are not multiples of 16 bytes, and base pointers
+    off a 16-byte boundary, take the element-wise copies: the same bits as
+    the 16-byte copies take on contiguous copies of the operands (rows of
+    152 and 256 elements)."""
+    M, N, K = 150, 256, 152
+    A, B, C = (torch.from_numpy(x).to(card, dtype)
+               for x in _inputs(pad, M, N, K))
+    wa = torch.zeros(M, K + pad, device=card, dtype=dtype)
+    wb = torch.zeros(K, N + pad, device=card, dtype=dtype)
+    wa[:, pad:] = A
+    wb[:, pad:] = B
+    av, bv = wa[:, pad:], wb[:, pad:]
+    assert av.stride(0) % 4 != 0 or av.data_ptr() % 16 != 0
+    out = block_matmul(av, bv, C, alpha=-0.75, beta=1.5)
+    assert torch.equal(out, block_matmul(A, B, C, alpha=-0.75, beta=1.5))
+    sub = block_matmul(av[5:M - 2], bv[:, 1:N - 30], C[5:M - 2, 1:N - 30],
+                       alpha=-0.75, beta=1.5)
+    assert torch.equal(sub, out[5:M - 2, 1:N - 30])
+
+
+@pytest.mark.parametrize("dtype", GEMM_DTYPES)
+def test_kernel_out_aliases_strided_c(card, dtype):
+    """The executor's use: ``out`` is ``c``, a row-strided view; nothing
+    outside it is written, and the result is the one into a new tensor."""
+    M, N, K = 131, 77, 65
+    A, B, C = (torch.from_numpy(x).to(card, dtype)
+               for x in _inputs(17, M, N, K))
+    big = torch.full((M + 9, N + 11), 7.0, device=card, dtype=dtype)
+    c = big[4:4 + M, 6:6 + N]
+    c.copy_(C)
+    fresh = block_matmul(A, B, C, alpha=1.5, beta=-0.5)
+    assert block_matmul(A, B, c, alpha=1.5, beta=-0.5, out=c) is c
+    assert torch.equal(c, fresh)
+    rest = big.clone()
+    rest[4:4 + M, 6:6 + N] = 7.0
+    assert bool((rest == 7.0).all())
+    sub_c = C[10:M - 1, 2:N - 5].clone()
+    sub = block_matmul(A[10:M - 1], B[:, 2:N - 5], sub_c, alpha=1.5,
+                       beta=-0.5, out=sub_c)
+    assert torch.equal(sub, fresh[10:M - 1, 2:N - 5])
+
+
 def test_kernel_rejects_float64(card):
     a = torch.ones(8, 8, device=card, dtype=torch.float64)
     with pytest.raises(TypeError):
@@ -197,6 +266,127 @@ def test_flash_partial_masked_split_is_exact(card):
     trunc = kfa.flash_decode_attention_plain(q[:1], k[:1, :100], v[:1, :100],
                                              100, block_s=128)
     torch.testing.assert_close(out[:1], trunc, rtol=2e-4, atol=2e-4)
+
+
+def _attention_inputs(seed, B, H, hkv, d, S, dtype, card):
+    rng = np.random.default_rng(seed)
+    q = torch.from_numpy(rng.standard_normal((B, H, d)).astype(np.float32))
+    k, v = (torch.from_numpy(rng.standard_normal((B, S, hkv, d))
+                             .astype(np.float32)).to(card, dtype)
+            for _ in range(2))
+    return q.to(card), k, v
+
+
+# kernel 2's partial pass at block_s = 512: a warp's tile is 8 positions at
+# d = 128 in 16-bit types (4 in f32), tile t goes to warp t % 8, and each
+# warp's ring has 3 slots; these lengths end mid-tile, mid-ring and one
+# position either side of a split
+PIPE_LENGTHS = [1, 5, 9, 31, 33, 95, 97, 100, 511, 513, 1021]
+
+
+@pytest.mark.parametrize("G", [1, 3, 8, 12])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
+                                   torch.float16])
+def test_flash_attention_pipeline_edges(card, dtype, G):
+    tol = 2e-4 if dtype == torch.float32 else 3e-2
+    hkv, d, S = 2, 128, 1024
+    B = len(PIPE_LENGTHS) + 1
+    q, k, v = _attention_inputs(G, B, hkv * G, hkv, d, S, dtype, card)
+    length = torch.tensor(PIPE_LENGTHS + [0], dtype=torch.int32,
+                          device=card)
+    outs = [kfa.flash_decode_attention(q, k, v, length) for _ in range(2)]
+    plain = kfa.flash_decode_attention_plain(q, k, v, length)
+    torch.testing.assert_close(outs[0], plain, rtol=tol, atol=tol)
+    assert torch.equal(outs[0], outs[1])
+    assert not bool(outs[0][-1].any())            # a row of length 0
+    m, l, acc = kfa.flash_partial(q, k, v, length)
+    pm, pl, pacc = kfa.flash_partial_plain(q, k, v, length)
+    torch.testing.assert_close(m, pm, rtol=tol, atol=tol)
+    torch.testing.assert_close(l, pl, rtol=tol, atol=tol)
+    torch.testing.assert_close(acc, pacc, rtol=tol, atol=tol)
+    assert bool((m[-1] == np.float32(kfa.NEG_INF)).all())
+    assert not bool(l[-1].any()) and not bool(acc[-1].any())
+
+
+@pytest.mark.parametrize("S", [1, 3, 7])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_cache_shorter_than_a_tile(card, dtype, S):
+    tol = 2e-4 if dtype == torch.float32 else 3e-2
+    q, k, v = _attention_inputs(S, 2, 6, 2, 64, S, dtype, card)
+    length = torch.tensor([S, S - 1], dtype=torch.int32, device=card)
+    out = kfa.flash_decode_attention(q, k, v, length)
+    plain = kfa.flash_decode_attention_plain(q, k, v, length)
+    torch.testing.assert_close(out, plain, rtol=tol, atol=tol)
+    assert torch.equal(out, kfa.flash_decode_attention(q, k, v, length))
+
+
+@pytest.mark.parametrize("d", [80, 256])
+@pytest.mark.parametrize("G", [1, 3, 8])
+def test_flash_attention_head_dims_f32(card, d, G):
+    hkv, S = 2, 1500
+    q, k, v = _attention_inputs(d + G, 3, hkv * G, hkv, d, S, torch.float32,
+                                card)
+    length = torch.tensor([S, 700, 37], dtype=torch.int32, device=card)
+    outs = [kfa.flash_decode_attention(q, k, v, length, block_s=256)
+            for _ in range(2)]
+    plain = kfa.flash_decode_attention_plain(q, k, v, length, block_s=256)
+    torch.testing.assert_close(outs[0], plain, rtol=2e-4, atol=2e-4)
+    assert torch.equal(outs[0], outs[1])
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_flash_attention_unaligned_rows(card, dtype):
+    """K and V whose rows are not 16-byte aligned take the element-wise
+    copies (one element per lane, 8 query rows a pass)."""
+    B, H, hkv, d, S = 2, 6, 2, 64, 700
+    q, k, v = _attention_inputs(31, B, H, hkv, d, S, dtype, card)
+    wide = [torch.zeros(B, S, hkv, d + 1, device=card, dtype=dtype)
+            for _ in range(2)]
+    wide[0][..., 1:] = k
+    wide[1][..., 1:] = v
+    ku, vu = (w[..., 1:] for w in wide)
+    length = torch.tensor([S, 333], dtype=torch.int32, device=card)
+    tol = 2e-4 if dtype == torch.float32 else 3e-2
+    out = kfa.flash_decode_attention(q, ku, vu, length, block_s=128)
+    plain = kfa.flash_decode_attention_plain(q, k, v, length, block_s=128)
+    torch.testing.assert_close(out, plain, rtol=tol, atol=tol)
+    torch.testing.assert_close(
+        out, kfa.flash_decode_attention(q, k, v, length, block_s=128),
+        rtol=tol, atol=tol)
+
+
+@pytest.mark.parametrize("d", [64, 300])
+def test_flash_combine_carry_on_card(card, d):
+    """The combine pass with a carry, folding in place and normalising, at
+    a head_dim within and beyond one 256-element chunk."""
+    rng = np.random.default_rng(d)
+    B, H, n = 2, 5, 37
+    parts = (torch.from_numpy(rng.standard_normal((B, H, n)).astype(
+                 np.float32) * 3),
+             torch.from_numpy(rng.uniform(0.5, 50, (B, H, n)).astype(
+                 np.float32)),
+             torch.from_numpy(rng.standard_normal((B, H, n, d)).astype(
+                 np.float32)))
+    parts[0][:, :, 5] = kfa.NEG_INF                  # a masked split
+    parts[1][:, :, 5] = 0.0
+    parts[2][:, :, 5] = 0.0
+    carry = (torch.from_numpy(rng.standard_normal((B, H)).astype(
+                 np.float32)),
+             torch.from_numpy(rng.uniform(1, 9, (B, H)).astype(np.float32)),
+             torch.from_numpy(rng.standard_normal((B, H, d)).astype(
+                 np.float32)))
+    expect = kfa.flash_combine_plain(parts, carry=carry)
+    dparts = tuple(t.to(card) for t in parts)
+    dcarry = tuple(t.to(card) for t in carry)
+    assert kfa.flash_combine(dparts, carry=dcarry) is dcarry
+    for got, want in zip(dcarry, expect):
+        torch.testing.assert_close(got.cpu(), want, rtol=1e-5, atol=1e-5)
+    out = kfa.flash_combine(None, carry=dcarry, normalise=True,
+                            out_dtype=torch.bfloat16)
+    want = kfa.flash_combine_plain(None, carry=expect, normalise=True,
+                                   out_dtype=torch.bfloat16)
+    torch.testing.assert_close(out.cpu().float(), want.float(), rtol=1e-2,
+                               atol=1e-2)
 
 
 @pytest.mark.parametrize("kv_dtype", [np.float32, np.float16])
