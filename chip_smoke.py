@@ -41,26 +41,42 @@ printing any result.  Phases (each raises on failure; none is skipped):
      card and the kernel on the whole cache, byte counters, launches, peak
      device memory, and the warm runs' transfer and idle times; then f32 KV
      at S = 131072 under 256 MiB with the same checks;
-  7. kernel timing at each path's shapes beside its bound, the plain
-     version and one library call: kernel 1 in f32 and in bf16 (beside
-     ``torch.addmm`` in bf16), kernel 2's partial and combine passes apart.
+  7. the 16-bit path, MMOOC in bf16 (``[bf16]`` lines): ``ooc_gemm`` host
+     backend at 24576^3 bf16 under 1 GiB (the f32 cell's 4x4 plan at half
+     the bytes, so kernel 1 on the tensor cores leaves the transfers as the
+     bound), in both executor modes: launches, bytes against
+     ``schedule_stats``, peak device memory, the modes and one in-core
+     launch bit for bit, and a float32 ``torch.addmm`` on the card as the
+     oracle;
+  8. kernel timing at each path's shapes beside its bound, the plain
+     version and one library call in the same dtype: kernel 1 in f32, bf16
+     and f16 (beside ``torch.addmm``; in bf16 also with A off 16 bytes, the
+     element-copy route, bit for bit equal to the TMA route), kernel 2's
+     partial and combine passes apart, kernel 3 in f32 and bf16 in turns
+     with kernel 1.
 
 With ``--baseline DIR`` (another checkout, e.g. ``git archive`` of the
 parent commit unpacked into a directory ``.gitignore`` lists), phase 5 is
 followed by ``[base]`` lines: that tree's kernels 1 and 2, built from its
-``csrc``, timed in turns with this tree's at the timing shapes, kernel 1's
-outputs compared bit for bit, and the MMOOC walls of both in both executor
-modes.  Without arguments it needs one card and nothing else.
+``csrc``, timed in turns with this tree's at the timing shapes (kernel 1's
+f32 outputs compared bit for bit; in bf16, where the parent may sum on
+the CUDA cores and this tree on the tensor cores, each within 2e-2 of the
+plain version and this tree's equal to kernel 3's), and the MMOOC walls of
+both in both executor modes; phase 7 adds both trees' bf16 MMOOC walls.
+Without arguments it needs one card and nothing else.
 
-The line before the last is a JSON object describing each kernel; the
-last line is ``{"ok": true, "device": {...}}``.
+The line before the last is a JSON object describing each kernel, with
+each instance's launches counted by dtype on the paths above; the last
+line is ``{"ok": true, "device": {...}}``.
 """
 
 from __future__ import annotations
 
 import json
+import contextlib
 import math
 import os
+import shutil
 import statistics
 import subprocess
 import sys
@@ -157,12 +173,34 @@ def phase_env():
     for name, log in zip(names, logs):
         say("env", f"{name}: {log['path']} built in {log['seconds']:.2f} s"
                    + (" (already built)" if log["cached"] else ""))
-        for ln in log["ptxas"].splitlines():
-            if "Compiling entry" in ln:
-                say("env", f"  ptxas {ln.split(chr(39))[1][:120]}")
-            elif "registers" in ln or "spill" in ln:
-                say("env", f"  ptxas {ln.strip()}")
+        for entry, usage in ptxas_usage(log["ptxas"]):
+            say("build", f"{name} {entry}: {usage}")
     return line
+
+
+def demangle(name: str) -> str:
+    """A C++ symbol as ``c++filt`` prints it (as it is without c++filt)."""
+    tool = shutil.which("c++filt")
+    if tool is None:
+        return name
+    return subprocess.run([tool, name], capture_output=True,
+                          text=True).stdout.strip() or name
+
+
+def ptxas_usage(text: str):
+    """(kernel instance, "registers, spills, shared memory") per entry of
+    ``ptxas -v``'s report."""
+    rows, entry, spill = [], None, ""
+    for ln in text.splitlines():
+        if "Compiling entry" in ln:
+            entry = demangle(ln.split(chr(39))[1]).replace(
+                "(anonymous namespace)::", "").split("(")[0]
+        elif "spill" in ln:
+            spill = ln.strip()
+        elif "Used" in ln and entry is not None:
+            rows.append((entry, f"{ln.split('Used', 1)[1].strip()}; {spill}"))
+            entry = None
+    return rows
 
 
 def phase_kernels(gen):
@@ -194,10 +232,18 @@ def phase_kernels(gen):
             require(torch.equal(sub, outs[0][r0:r1, c0:c1]),
                     f"block_matmul {dt} {(M, N, K)}: sub-block differs "
                     f"from the slice of the full product")
+            # operands one element off a 16-byte boundary take the element
+            # copies (in 16 bits, into TMA's swizzled layout): the same bits
+            pad = torch.zeros(M, K + 1, dtype=dt, device="cuda")
+            pad[:, 1:] = A
+            require(torch.equal(block_matmul(pad[:, 1:], B, C, alpha=1.25,
+                                             beta=0.5), outs[0]),
+                    f"block_matmul {dt} {(M, N, K)}: unaligned A differs")
             say("kernel", f"block_matmul {str(dt)[6:]:8s} {M}x{N}x{K}: "
                           f"max err {err.max().item():.3g} "
                           f"(rtol=atol={tol}); {len(blocks)} block= "
-                          f"variants and a sub-block bitwise equal")
+                          f"variants, a sub-block and an unaligned A "
+                          f"bitwise equal")
 
 
 # the cases of tests/test_kernels.py's flash-decoding tests:
@@ -327,31 +373,36 @@ def dgemm_ops(sched) -> int:
                and op.payload.kernel == "dgemm")
 
 
-def phase_main(gen, report):
+def zero_counts(*wrappers):
+    """Sets kernel wrappers' launch counts, total and by dtype, to 0."""
+    for w in wrappers:
+        w.launches, w.launches_by_dtype = 0, {}
+
+
+def read_counts(wrapper, report, key):
+    """Keeps the launches of ``wrapper`` on one path (total and by dtype)
+    under ``key`` and returns the total."""
+    report["launches"][key] = wrapper.launches
+    report["launches_by_dtype"][key] = dict(wrapper.launches_by_dtype)
+    return wrapper.launches
+
+
+def mmooc_modes(A, B, C, params, sched, report, phase, key):
+    """``ooc_gemm`` host backend on host operands in both executor modes,
+    cold then warm: launches, bytes against ``schedule_stats`` and peak
+    device memory checked, each run's row kept in ``report["main_path"]``
+    (the warm one with device busy by engine, H2D/D2H GB/s over copy time
+    and the device's idle share).  The cold issue_order run's launches are
+    kept under ``key``.  Returns the cold results by mode."""
     from repro_torch.core import (HostOocRuntime, OpKind, ScheduleExecutor,
-                                  build_gemm_schedule, ooc_gemm,
-                                  plan_gemm_partition, schedule_stats)
+                                  ooc_gemm, schedule_stats)
     from repro_torch.kernels.block_matmul import block_matmul
 
-    M = N = K = 24576
-    budget = 2 * 2**30
-    alpha, beta = 1.5, 0.5
-    t0 = time.perf_counter()
-    A, B, C = (rand(s, gen, device="cpu") for s in ((M, K), (K, N), (M, N)))
-    say("main", f"host operands {M}x{K}, {K}x{N}, {M}x{N} f32 made on the "
-                f"card from seed {SEED} in {time.perf_counter() - t0:.1f} s; "
-                f"{3 * M * K * 4 / budget:.2f}x the {budget / 2**30:.0f} GiB "
-                f"budget")
-    part = plan_gemm_partition(M, N, K, budget, 4)
-    sched = build_gemm_schedule(part, nstreams=2, nbuf=2)
+    alpha, beta, budget, part = params
     stats = schedule_stats(sched)
     n_dgemm = dgemm_ops(sched)
     ws = part.working_set_bytes(nbuf=2, nstreams=2)
     slack = 64 * 2**20
-    say("main", f"partition {part.h}x{part.w} of {part.bm}x{part.bn} blocks; "
-                f"schedule_stats {json.dumps(stats)}; {n_dgemm} dgemm ops; "
-                f"working set (nbuf=2) {ws} B")
-
     outs = {}
     for mode in ("issue_order", "concurrent"):
         ex = ScheduleExecutor(mode=mode)
@@ -361,28 +412,31 @@ def phase_main(gen, report):
             torch.cuda.synchronize()
             torch.cuda.reset_peak_memory_stats()
             base = torch.cuda.memory_allocated()
-            block_matmul.launches = 0
+            zero_counts(block_matmul)
             out = ooc_gemm(A, B, C, alpha, beta, budget_bytes=budget,
                            backend="host", nstreams=2, nbuf=2, runtime=rt)
             launches = block_matmul.launches
+            if (mode, rep) == ("issue_order", "cold"):
+                read_counts(block_matmul, report, key)
             peak = torch.cuda.max_memory_allocated() - base
             require(launches == n_dgemm,
-                    f"{mode}: {launches} kernel launches, expected "
+                    f"{phase} {mode}: {launches} kernel launches, expected "
                     f"{n_dgemm} (one per dgemm op)")
             require(ex.last_h2d_bytes == stats["h2d_bytes"]
                     and ex.last_d2h_bytes == stats["d2h_bytes"],
-                    f"{mode}: moved {ex.last_h2d_bytes}/{ex.last_d2h_bytes} "
-                    f"B, schedule_stats says {stats['h2d_bytes']}/"
-                    f"{stats['d2h_bytes']}")
+                    f"{phase} {mode}: moved {ex.last_h2d_bytes}/"
+                    f"{ex.last_d2h_bytes} B, schedule_stats says "
+                    f"{stats['h2d_bytes']}/{stats['d2h_bytes']}")
             require(peak <= ws + slack,
-                    f"{mode}: peak device memory {peak} B above the working "
-                    f"set {ws} B + {slack} B slack")
+                    f"{phase} {mode}: peak device memory {peak} B above the "
+                    f"working set {ws} B + {slack} B slack")
             wall = ex.last_wall_seconds
-            row = {"mode": mode, "run": rep, "wall_s": wall,
-                   "tflops": stats["flops"] / wall / 1e12,
+            row = {"dtype": str(A.dtype)[6:], "mode": mode, "run": rep,
+                   "wall_s": wall, "tflops": stats["flops"] / wall / 1e12,
                    "launches": launches, "peak_bytes": peak,
                    "h2d_bytes": ex.last_h2d_bytes,
-                   "d2h_bytes": ex.last_d2h_bytes}
+                   "d2h_bytes": ex.last_d2h_bytes,
+                   "stage_s": ex.last_stage_seconds}
             if ex.last_spans:
                 busy = {}
                 for op, span in zip(sched.ops, ex.last_spans):
@@ -398,37 +452,69 @@ def phase_main(gen, report):
                     reach = max(reach, t1)
                 row["device_idle_share"] = 1.0 - covered / wall
             report["main_path"].append(row)
-            say("main", f"{mode:11s} {rep}: {wall:.3f} s wall, "
-                        f"{row['tflops']:.2f} TFLOP/s effective, "
-                        f"{launches} launches, bytes = schedule_stats, "
-                        f"peak {peak / 2**30:.3f} GiB <= working set "
-                        f"{ws / 2**30:.3f} GiB + 64 MiB slack (allocator "
-                        f"rounding)"
-                        + (f", H2D {row['h2d_gbps']:.1f} GB/s, D2H "
-                           f"{row['d2h_gbps']:.1f} GB/s over device copy "
-                           f"time, device idle "
-                           f"{100 * row['device_idle_share']:.1f} % of the "
-                           f"wall" if "h2d_gbps" in row else ""))
+            say(phase, f"{mode:11s} {rep}: {wall:.3f} s wall, "
+                       f"{row['tflops']:.2f} TFLOP/s effective, "
+                       f"{launches} launches, bytes = schedule_stats, "
+                       f"peak {peak / 2**30:.3f} GiB <= working set "
+                       f"{ws / 2**30:.3f} GiB + 64 MiB slack (allocator "
+                       f"rounding); host staging fill "
+                       f"{ex.last_stage_seconds:.3f} s"
+                       + (f", device busy {json.dumps(row['device_busy_s'])}"
+                          f" s, H2D {row['h2d_gbps']:.1f} GB/s, D2H "
+                          f"{row['d2h_gbps']:.1f} GB/s over device copy "
+                          f"time, device idle "
+                          f"{100 * row['device_idle_share']:.1f} % of the "
+                          f"wall" if "h2d_gbps" in row else ""))
             if rep == "cold":
                 outs[mode] = out
-                report["launches"]["host"] = launches
             del out
     require(torch.equal(outs["issue_order"], outs["concurrent"]),
-            "issue_order and concurrent results differ")
-    say("main", "issue_order == concurrent, bitwise")
-    host_out = outs.pop("issue_order")
-    outs.clear()
+            f"{phase}: issue_order and concurrent results differ")
+    say(phase, "issue_order == concurrent, bitwise")
+    return outs
 
-    block_matmul.launches = 0
+
+def in_core_equal(A, B, C, alpha, beta, host_out, report, key, phase):
+    """One launch of kernel 1 on the whole problem equals the out-of-core
+    result bit for bit (the partition invariant)."""
+    from repro_torch.core import ooc_gemm
+    from repro_torch.kernels.block_matmul import block_matmul
+
+    zero_counts(block_matmul)
     incore = ooc_gemm(A, B, C, alpha, beta, budget_bytes=1 << 40,
                       backend="host")
-    report["launches"]["in_core"] = block_matmul.launches
-    require(block_matmul.launches == 1, "in-core path is not one launch")
+    require(read_counts(block_matmul, report, key) == 1,
+            f"{phase}: in-core path is not one launch")
     require(torch.equal(incore, host_out),
-            "out-of-core result differs from the in-core launch")
-    del incore
-    say("main", "out-of-core == in-core (one launch on the whole problem), "
-                "bitwise")
+            f"{phase}: out-of-core result differs from the in-core launch")
+    say(phase, "out-of-core == in-core (one launch on the whole problem), "
+               "bitwise")
+
+
+def phase_main(gen, report):
+    from repro_torch.core import (build_gemm_schedule, plan_gemm_partition,
+                                  schedule_stats)
+
+    M = N = K = 24576
+    budget = 2 * 2**30
+    alpha, beta = 1.5, 0.5
+    t0 = time.perf_counter()
+    A, B, C = (rand(s, gen, device="cpu") for s in ((M, K), (K, N), (M, N)))
+    say("main", f"host operands {M}x{K}, {K}x{N}, {M}x{N} f32 made on the "
+                f"card from seed {SEED} in {time.perf_counter() - t0:.1f} s; "
+                f"{3 * M * K * 4 / budget:.2f}x the {budget / 2**30:.0f} GiB "
+                f"budget")
+    part = plan_gemm_partition(M, N, K, budget, 4)
+    sched = build_gemm_schedule(part, nstreams=2, nbuf=2)
+    say("main", f"partition {part.h}x{part.w} of {part.bm}x{part.bn} blocks; "
+                f"schedule_stats {json.dumps(schedule_stats(sched))}; "
+                f"{dgemm_ops(sched)} dgemm ops; working set (nbuf=2) "
+                f"{part.working_set_bytes(nbuf=2, nstreams=2)} B")
+    outs = mmooc_modes(A, B, C, (alpha, beta, budget, part), sched, report,
+                       "main", "host")
+    host_out = outs.pop("issue_order")
+    outs.clear()
+    in_core_equal(A, B, C, alpha, beta, host_out, report, "in_core", "main")
 
     rows = torch.randperm(M, generator=torch.Generator().manual_seed(SEED))[
         :256].sort().values
@@ -451,6 +537,65 @@ def phase_main(gen, report):
     return A, B, C, host_out, (alpha, beta, budget)
 
 
+# the bf16 MMOOC plan at 24576^3 under 1 GiB (= the f32 cell's at 2 GiB)
+BF16_H2D, BF16_D2H = 7_247_757_312, 1_207_959_552
+
+
+def phase_main_bf16(gen, report, base=None):
+    """MMOOC in bf16: the f32 cell's plan at half the bytes, with kernel 1
+    on the tensor cores.  With ``base`` (another checkout), both trees'
+    warm walls in turns."""
+    from repro_torch.core import (build_gemm_schedule, plan_gemm_partition,
+                                  schedule_stats)
+
+    M = N = K = 24576
+    budget = 2**30
+    alpha, beta = 1.5, 0.5
+    dt = torch.bfloat16
+    t0 = time.perf_counter()
+    A, B, C = (rand(s, gen, dt, device="cpu")
+               for s in ((M, K), (K, N), (M, N)))
+    part = plan_gemm_partition(M, N, K, budget, 2)
+    sched = build_gemm_schedule(part, nstreams=2, nbuf=2)
+    stats = schedule_stats(sched)
+    require((part.h, part.w, part.bm, part.bn, dgemm_ops(sched))
+            == (4, 4, 6144, 6144, 16)
+            and (stats["h2d_bytes"], stats["d2h_bytes"])
+            == (BF16_H2D, BF16_D2H),
+            f"bf16 plan {part.h}x{part.w} of {part.bm}x{part.bn}, stats "
+            f"{stats}")
+    say("bf16", f"host operands {M}^3 bf16 made from seed {SEED} in "
+                f"{time.perf_counter() - t0:.1f} s, "
+                f"{3 * M * K * 2 / budget:.2f}x the 1 GiB budget; partition "
+                f"4x4 of 6144x6144 blocks, 16 dgemm ops; schedule_stats "
+                f"{json.dumps(stats)}; working set (nbuf=2) "
+                f"{part.working_set_bytes(nbuf=2, nstreams=2)} B")
+    outs = mmooc_modes(A, B, C, (alpha, beta, budget, part), sched, report,
+                       "bf16", "host_bf16")
+    host_out = outs.pop("issue_order")
+    outs.clear()
+    in_core_equal(A, B, C, alpha, beta, host_out, report, "in_core_bf16",
+                  "bf16")
+    Ad, Bd, Cd = (t.cuda().float() for t in (A, B, C))
+    ref = torch.addmm(Cd, Ad, Bd, beta=beta, alpha=alpha)
+    del Ad, Bd, Cd
+    err = (host_out.cuda().float() - ref).abs()
+    require(bool((err <= 2e-2 + 2e-2 * ref.abs()).all()),
+            f"bf16 MMOOC: max err {err.max().item()} vs float32 addmm beyond "
+            f"rtol=atol=2e-2")
+    say("bf16", f"vs float32 torch.addmm on the card (oracle): max abs err "
+                f"{err.max().item():.4g} beside max |ref| "
+                f"{ref.abs().max().item():.4g}, within rtol=atol=2e-2; "
+                f"finite {bool(torch.isfinite(host_out).all())}")
+    del ref, err
+    if base is not None:
+        csrc = os.path.join(os.path.abspath(base), "src", "repro_torch",
+                            "csrc")
+        report["baseline_bf16"] = mmooc_turns(A, B, C, (alpha, beta, budget),
+                                              csrc)
+    del A, B, C, host_out
+
+
 def phase_vmem_syrk(gen, report, A, B, C, host_out, params):
     from repro_torch.core import ooc_gemm, ooc_syrk, build_syrk_schedule, \
         plan_gemm_partition, HostOocRuntime, ScheduleExecutor
@@ -458,11 +603,11 @@ def phase_vmem_syrk(gen, report, A, B, C, host_out, params):
 
     alpha, beta, budget = params
     Ad, Bd, Cd = A.cuda(), B.cuda(), C.cuda()
-    block_matmul.launches = 0
+    zero_counts(block_matmul)
     vout = ooc_gemm(Ad, Bd, Cd, alpha, beta, budget_bytes=budget,
                     backend="vmem")
-    report["launches"]["vmem"] = block_matmul.launches
-    require(block_matmul.launches == 1, "vmem backend is not one launch")
+    require(read_counts(block_matmul, report, "vmem") == 1,
+            "vmem backend is not one launch")
     del Ad, Bd, Cd
     require(torch.equal(vout.cpu(), host_out),
             "vmem result differs from the host path")
@@ -477,11 +622,11 @@ def phase_vmem_syrk(gen, report, A, B, C, host_out, params):
     part = plan_gemm_partition(n, n, K, sbudget, 4)
     sched = build_syrk_schedule(part, nstreams=2, nbuf=2)
     ex = ScheduleExecutor()
-    block_matmul.launches = 0
+    zero_counts(block_matmul)
     out = ooc_syrk(P, Cs, -1.0, 0.5, budget_bytes=sbudget, backend="host",
                    runtime=HostOocRuntime(executor=ex))
-    report["launches"]["syrk_host"] = block_matmul.launches
-    require(block_matmul.launches == dgemm_ops(sched),
+    require(read_counts(block_matmul, report, "syrk_host")
+            == dgemm_ops(sched),
             f"syrk: {block_matmul.launches} launches, expected "
             f"{dgemm_ops(sched)}")
     Pd = P.cuda()
@@ -550,10 +695,10 @@ def phase_c1(gen, report, A, B, C, host_out, params):
     part = plan_gemm_partition(M, N, K, budget, 4)
     stats = schedule_stats(build_gemm_schedule(part, nstreams=2, nbuf=2))
     ex = ScheduleExecutor()
-    block_matmul.launches = 0
+    zero_counts(block_matmul)
     out = D.direct_host_ooc_gemm(A, B, C, alpha, beta, budget, executor=ex)
-    report["launches"]["direct_host"] = block_matmul.launches
-    require(block_matmul.launches == part.h * part.w,
+    require(read_counts(block_matmul, report, "direct_host")
+            == part.h * part.w,
             f"direct host: {block_matmul.launches} launches, expected "
             f"{part.h * part.w}")
     require((ex.last_h2d_bytes, ex.last_d2h_bytes)
@@ -613,11 +758,10 @@ def phase_c1(gen, report, A, B, C, host_out, params):
     n3 = 8192
     Ad, Bd, Cd = (rand((n3, n3), gen) for _ in range(3))
     vbudget = 3 * Ad.nbytes // 5
-    D.direct_vmem_ooc_gemm.launches = 0
+    zero_counts(D.direct_vmem_ooc_gemm)
     dout = D.direct_vmem_ooc_gemm(Ad, Bd, Cd, alpha, beta)
     torch.cuda.synchronize()
-    report["launches"]["direct_vmem"] = D.direct_vmem_ooc_gemm.launches
-    require(D.direct_vmem_ooc_gemm.launches == 1,
+    require(read_counts(D.direct_vmem_ooc_gemm, report, "direct_vmem") == 1,
             "direct_vmem_ooc_gemm is not one launch")
     saved = (D.direct_vmem_ooc_gemm.launches, block_matmul.launches)
     lout = ooc_gemm(Ad, Bd, Cd, alpha, beta, budget_bytes=vbudget,
@@ -895,151 +1039,187 @@ def phase_timing_attention(gen, report, card):
     }
 
 
-def phase_timing(gen, report, card):
+TIMING_SHAPE = (6144, 6144, 24576)     # one MMOOC block, whole K
+
+
+def gemm_bound(dt):
+    """(bound ms, what bounds it, flops, peak FLOP/s) of one GEMM at the
+    timing shape in ``dt``: bytes (each operand read once, out written
+    once) at the HBM rate, operations at the data-sheet peak of ``dt``'s
+    unit (CUDA cores in f32, tensor cores in 16 bits)."""
+    M, N, K = TIMING_SHAPE
+    esize = torch.empty((), dtype=dt).element_size()
+    flops = 2 * M * N * K + 3 * M * N
+    nbytes = (M * K + K * N + 2 * M * N) * esize
+    peak_flops, peak_bw = datasheet(torch.cuda.get_device_name(0), dt)
+    t_ops = flops / peak_flops * 1e3
+    t_bytes = nbytes / peak_bw * 1e3
+    return (max(t_ops, t_bytes), "operations" if t_ops >= t_bytes
+            else "bytes", flops, peak_flops)
+
+
+def gemm_err(out, ref, A, B, C, alpha, beta):
+    """Max |out - ref|, required within f32's summation bound (twice
+    sqrt(K) * u * sum|terms|) or the reference's 16-bit 2e-2."""
+    err = (out.float() - ref.float()).abs()
+    if out.dtype == torch.float32:
+        ok = bool((err.double() <= 2 * sum_tol(A, B, C, alpha, beta)).all())
+    else:
+        ok = bool((err <= 2e-2 + 2e-2 * ref.float().abs()).all())
+    require(ok, f"timing shape {out.dtype}: max err {err.max().item()} "
+                f"against the plain version")
+    return err.max().item()
+
+
+def time_block_matmul(gen, dt, card):
+    """Kernel 1 at the timing shape in ``dt``, beside its bound, its plain
+    version and ``torch.addmm`` in the same dtype.  In bf16 also with A one
+    element off a 16-byte boundary, which takes the tensor-core kernel's
+    element-copy producer route instead of TMA (its result checked equal
+    bit for bit)."""
     from repro_torch.kernels.block_matmul import block_matmul, \
         block_matmul_plain
 
-    M = N = 6144
-    K = 24576
+    M, N, K = TIMING_SHAPE
     alpha, beta = 1.5, 0.5
-    A, B, C = (rand(s, gen) for s in ((M, K), (K, N), (M, N)))
-    out = torch.empty_like(C)
-    launches = block_matmul.launches
-    ms = time_ms(lambda: block_matmul(A, B, C, alpha=alpha, beta=beta,
-                                      out=out))
-    block_matmul.launches = launches   # timing launches are not the path's
-    plain_ms = time_ms(lambda: block_matmul_plain(A, B, C, alpha=alpha,
-                                                  beta=beta))
-    library_ms = time_ms(lambda: torch.addmm(C, A, B, beta=beta,
-                                             alpha=alpha))
-    ref = block_matmul_plain(A, B, C, alpha=alpha, beta=beta)
-    err = (out - ref).abs()
-    tol = 2 * sum_tol(A, B, C, alpha, beta)
-    require(bool((err.double() <= tol).all()),
-            f"timing shape: kernel vs plain max err {err.max().item()}")
-    flops = 2 * M * N * K + 3 * M * N
-    nbytes = (M * K + K * N + 2 * M * N) * 4
-    peak_flops, peak_bw = datasheet(torch.cuda.get_device_name(0))
-    t_ops = flops / peak_flops * 1e3
-    t_bytes = nbytes / peak_bw * 1e3
-    entry = {
-        "name": "block_matmul", "route": "cuda",
-        "source": "src/repro_torch/csrc/block_matmul.cu",
-        "replaces": "src/repro/kernels/block_matmul.py:36",
-        "launches": sum(report["launches"][k]
-                        for k in ("host", "in_core", "vmem", "direct_host")),
-        "launches_by_path": {k: report["launches"][k]
-                             for k in ("host", "in_core", "vmem",
-                                       "direct_host")},
-        "max_abs_err": err.max().item(), "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": library_ms,
-    }
-    say("timing", f"block_matmul {M}x{N}x{K} f32: {ms:.3f} ms/launch "
-                  f"({flops / ms / 1e9:.2f} TFLOP/s), bound {entry['bound_ms']:.3f}"
-                  f" ms ({entry['bound_by']}: {peak_flops / 1e12:.0f} TFLOP/s "
-                  f"f32 non-tensor, data sheet), plain {plain_ms:.3f} ms, "
-                  f"torch.addmm {library_ms:.3f} ms; kernel vs plain max "
-                  f"err {entry['max_abs_err']:.3g} (bound 2*sqrt(K)*u*"
-                  f"sum|terms|); card {card}")
-    del A, B, C, out, ref, err, tol
-
-    # the bf16 instance: the same CUDA-core pipeline, beside torch.addmm in
-    # bf16 (tensor cores); its bound is the bf16 tensor-core rate
-    dt = torch.bfloat16
     A, B, C = (rand(s, gen, dt) for s in ((M, K), (K, N), (M, N)))
     out = torch.empty_like(C)
     launches = block_matmul.launches
+    reps = 5 if dt == torch.float32 else 20
     ms = time_ms(lambda: block_matmul(A, B, C, alpha=alpha, beta=beta,
-                                      out=out), reps=3)
-    block_matmul.launches = launches
+                                      out=out), reps=reps)
+    unaligned_ms = None
+    if dt == torch.bfloat16:
+        Au = torch.empty(M * K + 1, dtype=dt, device="cuda")[1:].view(M, K)
+        Au.copy_(A)
+        out_u = torch.empty_like(C)
+        unaligned_ms = time_ms(lambda: block_matmul(
+            Au, B, C, alpha=alpha, beta=beta, out=out_u), reps=5)
+        require(torch.equal(out_u, out),
+                f"timing shape {dt}: A off 16 bytes (element-copy route) "
+                f"differs from the TMA route")
+        del Au, out_u
+    block_matmul.launches = launches   # timing launches are not the path's
     plain_ms = time_ms(lambda: block_matmul_plain(A, B, C, alpha=alpha,
                                                   beta=beta), reps=3)
     library_ms = time_ms(lambda: torch.addmm(C, A, B, beta=beta,
-                                             alpha=alpha), reps=3)
-    ref = block_matmul_plain(A, B, C, alpha=alpha, beta=beta).float()
-    err = (out.float() - ref).abs()
-    require(bool((err <= 2e-2 + 2e-2 * ref.abs()).all()),
-            f"timing shape bf16: kernel vs plain max err {err.max().item()}")
-    peak_flops, peak_bw = datasheet(torch.cuda.get_device_name(0), dt)
-    t_ops = flops / peak_flops * 1e3
-    t_bytes = nbytes // 2 / peak_bw * 1e3
-    entry["bf16"] = {
-        "ms": ms, "plain_ms": plain_ms, "library_ms": library_ms,
-        "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "max_abs_err": err.max().item()}
-    say("timing", f"block_matmul {M}x{N}x{K} bf16 (CUDA cores): {ms:.3f} "
+                                             alpha=alpha), reps=reps)
+    ref = block_matmul_plain(A, B, C, alpha=alpha, beta=beta)
+    bound_ms, bound_by, flops, peak = gemm_bound(dt)
+    row = {"dtype": str(dt)[6:], "ms": ms, "plain_ms": plain_ms,
+           "library_ms": library_ms, "bound_ms": bound_ms,
+           "bound_by": bound_by,
+           "max_abs_err": gemm_err(out, ref, A, B, C, alpha, beta)}
+    if unaligned_ms is not None:
+        row["unaligned_a_ms"] = unaligned_ms
+    unit = "f32 CUDA cores" if dt == torch.float32 else \
+        f"{str(dt)[6:]} tensor cores"
+    say("timing", f"block_matmul {M}x{N}x{K} {str(dt)[6:]}: {ms:.3f} "
                   f"ms/launch ({flops / ms / 1e9:.2f} TFLOP/s), bound "
-                  f"{entry['bf16']['bound_ms']:.3f} ms "
-                  f"({entry['bf16']['bound_by']}: {peak_flops / 1e12:.0f} "
-                  f"TFLOP/s bf16 tensor cores, data sheet), plain "
-                  f"{plain_ms:.3f} ms, torch.addmm bf16 {library_ms:.3f} ms; "
-                  f"kernel vs plain max err {err.max().item():.3g} "
-                  f"(rtol=atol=2e-2); card {card}")
-    return entry
+                  f"{bound_ms:.3f} ms ({bound_by}: {peak / 1e12:.0f} TFLOP/s "
+                  f"{unit}, data sheet), plain {plain_ms:.3f} ms, "
+                  f"torch.addmm {str(dt)[6:]} {library_ms:.3f} ms "
+                  f"({ms / library_ms:.3f}x); kernel vs plain max err "
+                  f"{row['max_abs_err']:.3g}"
+                  + (f"; A one element off 16 bytes (element-copy route) "
+                     f"{unaligned_ms:.3f} ms, == the TMA route bitwise"
+                     if unaligned_ms is not None else "") + f"; card {card}")
+    return row
+
+
+def launches_of(report, paths, dt):
+    """A kernel instance's launches in the main path's runs: its wrapper's
+    count for dtype ``dt`` on each path, and their sum."""
+    by_path = {k: report["launches_by_dtype"][k].get(dt, 0) for k in paths}
+    return {"launches": sum(by_path.values()), "launches_by_path": by_path}
+
+
+# the paths that launch kernel 1, each driven with its counts set to 0
+BLOCK_MATMUL_PATHS = ("host", "in_core", "vmem", "syrk_host", "direct_host",
+                      "host_bf16", "in_core_bf16")
+
+
+def phase_timing(gen, report, card):
+    f32, bf16, f16 = (time_block_matmul(gen, dt, card) for dt in (
+        torch.float32, torch.bfloat16, torch.float16))
+    common = {"route": "cuda",
+              "source": "src/repro_torch/csrc/block_matmul.cu",
+              "replaces": "src/repro/kernels/block_matmul.py:36"}
+    return [
+        {"name": "block_matmul", **common,
+         **launches_of(report, BLOCK_MATMUL_PATHS, "float32"), **f32},
+        {"name": "block_matmul_bf16", **common,
+         **launches_of(report, BLOCK_MATMUL_PATHS, "bfloat16"), **bf16,
+         "instances": {"float16": {
+             **launches_of(report, BLOCK_MATMUL_PATHS, "float16"), **f16}}},
+    ]
 
 
 def phase_timing_direct(gen, report, card):
-    """Kernel 3 at kernel 1's timing shape, beside its bound, its plain
-    version, torch.addmm and kernel 1, timed in turns."""
+    """Kernel 3 at kernel 1's timing shape in f32 and bf16, beside its
+    bound, its plain version, torch.addmm and kernel 1, timed in turns."""
     from repro_torch import direct_impls as D
     from repro_torch.kernels.block_matmul import block_matmul
 
-    M = N = 6144
-    K = 24576
+    M, N, K = TIMING_SHAPE
     alpha, beta = 1.5, 0.5
-    A, B, C = (rand(s, gen) for s in ((M, K), (K, N), (M, N)))
+    rows = {}
     saved = (D.direct_vmem_ooc_gemm.launches, block_matmul.launches)
-    out = D.direct_vmem_ooc_gemm(A, B, C, alpha, beta)
-    k1 = block_matmul(A, B, C, alpha=alpha, beta=beta)
-    ref = D.direct_vmem_ooc_gemm_plain(A, B, C, alpha, beta)
-    err = (out - ref).abs()
-    tol = 2 * sum_tol(A, B, C, alpha, beta)
-    require(bool((err.double() <= tol).all()),
-            f"timing shape: kernel 3 vs plain max err {err.max().item()}")
-    require(torch.equal(out, k1),
-            f"timing shape: kernel 3 differs from kernel 1 (max "
-            f"{(out - k1).abs().max().item()})")
-    del ref, tol, k1
-    runs = {"direct": lambda: D.direct_vmem_ooc_gemm(A, B, C, alpha, beta),
-            "block_matmul": lambda: block_matmul(A, B, C, alpha=alpha,
-                                                 beta=beta),
-            "plain": lambda: D.direct_vmem_ooc_gemm_plain(A, B, C, alpha,
-                                                          beta),
-            "addmm": lambda: torch.addmm(C, A, B, beta=beta, alpha=alpha)}
-    ms = {k: [] for k in runs}
-    for order in (list(runs), list(runs)[::-1]):
-        for k in order:
-            ms[k].append(time_ms(runs[k], reps=3))
+    for dt in (torch.float32, torch.bfloat16):
+        A, B, C = (rand(s, gen, dt) for s in ((M, K), (K, N), (M, N)))
+        out = D.direct_vmem_ooc_gemm(A, B, C, alpha, beta)
+        k1 = block_matmul(A, B, C, alpha=alpha, beta=beta)
+        ref = D.direct_vmem_ooc_gemm_plain(A, B, C, alpha, beta)
+        err = gemm_err(out, ref, A, B, C, alpha, beta)
+        diff = (out.float() - k1.float()).abs().max().item()
+        require(torch.equal(out, k1),
+                f"timing shape {dt}: kernel 3 differs from kernel 1 (max "
+                f"{diff})")
+        del ref, k1, out
+        reps = 3 if dt == torch.float32 else 20
+        runs = {"direct": lambda: D.direct_vmem_ooc_gemm(A, B, C, alpha,
+                                                         beta),
+                "block_matmul": lambda: block_matmul(A, B, C, alpha=alpha,
+                                                     beta=beta),
+                "plain": lambda: D.direct_vmem_ooc_gemm_plain(A, B, C, alpha,
+                                                              beta),
+                "addmm": lambda: torch.addmm(C, A, B, beta=beta,
+                                             alpha=alpha)}
+        ms = {k: [] for k in runs}
+        for order in (list(runs), list(runs)[::-1]):
+            for k in order:
+                ms[k].append(time_ms(runs[k], reps=3 if k == "plain"
+                                     else reps))
+        t = {k: statistics.mean(v) for k, v in ms.items()}
+        bound_ms, bound_by, flops, _ = gemm_bound(dt)
+        rows[dt] = {"dtype": str(dt)[6:], "max_abs_err": err,
+                    "ms": t["direct"], "plain_ms": t["plain"],
+                    "bound_ms": bound_ms, "bound_by": bound_by,
+                    "library_ms": t["addmm"],
+                    "block_matmul_ms": t["block_matmul"],
+                    "max_abs_diff_from_block_matmul": diff, "runs_ms": ms}
+        say("timing", f"direct_vmem_gemm {M}x{N}x{K} {str(dt)[6:]}: "
+                      f"{t['direct']:.3f} ms/launch "
+                      f"({flops / t['direct'] / 1e9:.2f} TFLOP/s), bound "
+                      f"{bound_ms:.3f} ms ({bound_by}), plain "
+                      f"{t['plain']:.3f} ms, torch.addmm {t['addmm']:.3f} "
+                      f"ms, kernel 1 in the same turns "
+                      f"{t['block_matmul']:.3f} ms (kernel 3 / kernel 1 = "
+                      f"{t['direct'] / t['block_matmul']:.4f}); runs "
+                      f"{json.dumps(ms)}; kernel 3 vs plain max err "
+                      f"{err:.3g}, kernel 3 == kernel 1 bitwise; card {card}")
+        del A, B, C
     D.direct_vmem_ooc_gemm.launches, block_matmul.launches = saved
-    t = {k: statistics.mean(v) for k, v in ms.items()}
-    flops = 2 * M * N * K + 3 * M * N
-    nbytes = (M * K + K * N + 2 * M * N) * 4
-    peak_flops, peak_bw = datasheet(torch.cuda.get_device_name(0))
-    t_ops = flops / peak_flops * 1e3
-    t_bytes = nbytes / peak_bw * 1e3
-    entry = {
+    return {
         "name": "direct_vmem_gemm", "route": "cuda",
         "source": "src/repro_torch/csrc/direct_vmem_gemm.cu",
         "replaces": "benchmarks/direct_impls.py:119",
-        "launches": report["launches"]["direct_vmem"],
-        "max_abs_err": err.max().item(), "ms": t["direct"],
-        "plain_ms": t["plain"], "bound_ms": max(t_ops, t_bytes),
-        "bound_by": "operations" if t_ops >= t_bytes else "bytes",
-        "library_ms": t["addmm"], "block_matmul_ms": t["block_matmul"],
-        "max_abs_diff_from_block_matmul": 0.0,
+        **launches_of(report, ("direct_vmem",), "float32"),
+        **rows[torch.float32],
+        "instances": {"bfloat16": {
+            **launches_of(report, ("direct_vmem",), "bfloat16"),
+            **rows[torch.bfloat16]}},
     }
-    say("timing", f"direct_vmem_gemm {M}x{N}x{K} f32: {t['direct']:.3f} "
-                  f"ms/launch ({flops / t['direct'] / 1e9:.2f} TFLOP/s), "
-                  f"bound {entry['bound_ms']:.3f} ms ({entry['bound_by']}), "
-                  f"plain {t['plain']:.3f} ms, torch.addmm {t['addmm']:.3f} "
-                  f"ms, kernel 1 in the same turns {t['block_matmul']:.3f} "
-                  f"ms; runs {json.dumps(ms)}; kernel 3 vs plain max err "
-                  f"{entry['max_abs_err']:.3g}, kernel 3 == kernel 1 "
-                  f"bitwise; card {card}")
-    return entry
 
 
 class kernels_from:
@@ -1060,16 +1240,52 @@ class kernels_from:
         self.build.load = self.load
 
 
+def mmooc_turns(A, B, C, params, csrc):
+    """The executor walls of ``ooc_gemm``'s host backend on this tree's
+    kernels and on those built from ``csrc``, in turns (this, base, this,
+    base, base, this) in each executor mode.  Returns a row a mode."""
+    from repro_torch.core import HostOocRuntime, ScheduleExecutor, ooc_gemm
+
+    alpha, beta, budget = params
+    dt = str(A.dtype)[6:]
+    rows = []
+    for mode in ("issue_order", "concurrent"):
+        walls = {"this": [], "base": []}
+        exes = {w: ScheduleExecutor(mode=mode) for w in walls}
+        for who in ("this", "base", "this", "base", "base", "this"):
+            with (kernels_from(csrc) if who == "base"
+                  else contextlib.nullcontext()):
+                ooc_gemm(A, B, C, alpha, beta, budget_bytes=budget,
+                         backend="host",
+                         runtime=HostOocRuntime(executor=exes[who]))
+            walls[who].append(exes[who].last_wall_seconds)
+        # the first run of each is its cold run (pinned staging is new)
+        warm = {w: v[1:] for w, v in walls.items()}
+        rows.append({"kernel": "mmooc", "dtype": dt, "mode": mode,
+                     "walls_s": walls})
+        say("base", f"MMOOC {dt} {mode} executor walls (first of each "
+                    f"cold): this "
+                    f"{', '.join(f'{x:.3f}' for x in walls['this'])} s, base "
+                    f"{', '.join(f'{x:.3f}' for x in walls['base'])} s; warm "
+                    f"means this {statistics.mean(warm['this']):.3f} s, base "
+                    f"{statistics.mean(warm['base']):.3f} s")
+    return rows
+
+
 def phase_baseline(gen, report, card, base, A, B, C, params):
     """Kernels 1 and 2 of another checkout (``base``, e.g. a ``git archive``
     of the parent commit) against this tree's, in one call on one card, in
-    turns (this, base, base, this): kernel 1 at its timing shape in f32 and
-    bf16 (outputs compared bit for bit), kernel 2 at its two timing shapes,
-    and the MMOOC walls of phase 3 in both executor modes."""
-    from repro_torch.core import HostOocRuntime, ScheduleExecutor, ooc_gemm
+    turns (this, base, base, this): kernel 1 at its timing shape in f32
+    (outputs compared bit for bit) and bf16 (each tree's output within the
+    reference's 2e-2 of the plain version, and this tree's equal to kernel
+    3's: a base that sums bf16 on the CUDA cores and this tree's tensor
+    cores round differently), kernel 2 at its two timing shapes, and the
+    MMOOC walls of phase 3 in both executor modes."""
+    from repro_torch import direct_impls as D
     from repro_torch.kernels import _build
     from repro_torch.kernels import flash_attention as kfa
-    from repro_torch.kernels.block_matmul import block_matmul
+    from repro_torch.kernels.block_matmul import block_matmul, \
+        block_matmul_plain
 
     csrc = os.path.join(os.path.abspath(base), "src", "repro_torch", "csrc")
     names = ("block_matmul", "flash_attention")
@@ -1078,7 +1294,7 @@ def phase_baseline(gen, report, card, base, A, B, C, params):
     for name, log in zip(names, logs):
         say("base", f"{name} from {csrc} built in {log['seconds']:.2f} s")
     saved = (block_matmul.launches, kfa.flash_partial.launches,
-             kfa.flash_combine.launches)
+             kfa.flash_combine.launches, D.direct_vmem_ooc_gemm.launches)
 
     def turns(fn_new, fn_base, reps, warmup=1):
         ms = {"this": [], "base": []}
@@ -1102,8 +1318,25 @@ def phase_baseline(gen, report, card, base, A, B, C, params):
         with kernels_from(csrc):
             block_matmul(a, b, c, alpha=alpha, beta=beta, out=o_base)
         torch.cuda.synchronize()
-        require(torch.equal(o_new, o_base),
-                f"kernel 1 {dt} at {M}x{N}x{K} differs from the base's")
+        if dt == torch.float32:
+            require(torch.equal(o_new, o_base),
+                    f"kernel 1 {dt} at {M}x{N}x{K} differs from the base's")
+            same = "outputs bitwise equal"
+        else:
+            ref = block_matmul_plain(a, b, c, alpha=alpha, beta=beta).float()
+            errs = [(o.float() - ref).abs() for o in (o_new, o_base)]
+            require(all(bool((e <= 2e-2 + 2e-2 * ref.abs()).all())
+                        for e in errs),
+                    f"kernel 1 {dt}: max err vs plain "
+                    f"{[e.max().item() for e in errs]} (this, base)")
+            require(torch.equal(o_new,
+                                D.direct_vmem_ooc_gemm(a, b, c, alpha, beta)),
+                    f"kernel 1 {dt} at {M}x{N}x{K} differs from kernel 3")
+            same = (f"max err vs plain {errs[0].max().item():.3g} (this), "
+                    f"{errs[1].max().item():.3g} (base), within 2e-2; this "
+                    f"== kernel 3 bitwise; this vs base max diff "
+                    f"{(o_new.float() - o_base.float()).abs().max().item():.3g}")
+            del ref, errs
         ms = turns(lambda: block_matmul(a, b, c, alpha=alpha, beta=beta,
                                         out=o_new),
                    lambda: block_matmul(a, b, c, alpha=alpha, beta=beta,
@@ -1113,7 +1346,7 @@ def phase_baseline(gen, report, card, base, A, B, C, params):
         say("base", f"block_matmul {str(dt)[6:]} {M}x{N}x{K}: this "
                     f"{statistics.mean(ms['this']):.3f} ms, base "
                     f"{statistics.mean(ms['base']):.3f} ms (turns "
-                    f"{json.dumps(ms)}); outputs bitwise equal")
+                    f"{json.dumps(ms)}); {same}")
         del a, b, c, o_new, o_base
 
     hkv, G, d = 8, 3, 128
@@ -1149,31 +1382,9 @@ def phase_baseline(gen, report, card, base, A, B, C, params):
                     f"plain {err:.3g} / {err_base:.3g}")
         del q, k, v
 
-    alpha, beta, budget = params
-    for mode in ("issue_order", "concurrent"):
-        walls = {"this": [], "base": []}
-        exes = {w: ScheduleExecutor(mode=mode) for w in walls}
-        for who in ("this", "base", "this", "base", "base", "this"):
-            rt = HostOocRuntime(executor=exes[who])
-            if who == "this":
-                ooc_gemm(A, B, C, alpha, beta, budget_bytes=budget,
-                         backend="host", runtime=rt)
-            else:
-                with kernels_from(csrc):
-                    ooc_gemm(A, B, C, alpha, beta, budget_bytes=budget,
-                             backend="host", runtime=rt)
-            walls[who].append(exes[who].last_wall_seconds)
-        # the first run of each is its cold run (pinned staging is new)
-        warm = {w: v[1:] for w, v in walls.items()}
-        rows.append({"kernel": "mmooc", "mode": mode, "walls_s": walls})
-        say("base", f"MMOOC {mode} executor walls (first of each cold): "
-                    f"this {', '.join(f'{x:.3f}' for x in walls['this'])} "
-                    f"s, base {', '.join(f'{x:.3f}' for x in walls['base'])}"
-                    f" s; warm means this "
-                    f"{statistics.mean(warm['this']):.3f} s, base "
-                    f"{statistics.mean(warm['base']):.3f} s")
+    rows += mmooc_turns(A, B, C, params, csrc)
     (block_matmul.launches, kfa.flash_partial.launches,
-     kfa.flash_combine.launches) = saved
+     kfa.flash_combine.launches, D.direct_vmem_ooc_gemm.launches) = saved
     report["baseline"] = {"base": os.path.abspath(base), "card": card,
                           "rows": rows}
 
@@ -1196,7 +1407,8 @@ def main(argv=None) -> int:
     phase_kernels(gen)
     phase_kernels_attention(gen)
     phase_kernels_direct(gen)
-    report = {"main_path": [], "attention": [], "c1": [], "launches": {}}
+    report = {"main_path": [], "attention": [], "c1": [], "launches": {},
+              "launches_by_dtype": {}}
     A, B, C, host_out, params = phase_main(gen, report)
     phase_vmem_syrk(gen, report, A, B, C, host_out, params)
     phase_c1(gen, report, A, B, C, host_out, params)
@@ -1204,14 +1416,17 @@ def main(argv=None) -> int:
         phase_baseline(gen, report, card, args.baseline, A, B, C, params)
     del A, B, C, host_out
     phase_attention(gen, report)
-    entries = [phase_timing(gen, report, card),
+    phase_main_bf16(gen, report, args.baseline)
+    entries = [*phase_timing(gen, report, card),
                phase_timing_attention(gen, report, card),
                phase_timing_direct(gen, report, card)]
     say("done", f"launches by path {json.dumps(report['launches'])}; "
                 f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"main_path": report["main_path"],
                       "attention": report["attention"], "c1": report["c1"],
-                      "baseline": report.get("baseline"), "card": card}))
+                      "baseline": report.get("baseline"),
+                      "baseline_bf16": report.get("baseline_bf16"),
+                      "card": card}))
     print(card)
     print(json.dumps({"kernels": entries}))
     print(json.dumps({"ok": True, "device": {

@@ -18,6 +18,7 @@ import numpy as np
 import torch
 
 from repro_torch.core.partitioner import AttentionPartition, GemmPartition
+from repro_torch.core.runtime import as_tensor
 from repro_torch.core.simulator import HardwareModel
 from repro_torch.core.streams import (BlockRef, Device, Event, Op, OpKind,
                                       Schedule, SliceRef, StreamFactory)
@@ -57,10 +58,7 @@ def _schedule(sched) -> Schedule:
 
 
 def _array(x) -> torch.Tensor:
-    a = np.array(x)       # a writable host copy, whatever the array type
-    if a.dtype.name == "bfloat16":   # ml_dtypes: widen exactly, narrow back
-        return torch.from_numpy(a.astype(np.float32)).to(torch.bfloat16)
-    return torch.from_numpy(a)
+    return as_tensor(np.array(x))   # a writable host copy, whatever the type
 
 
 _CONVERTERS = {

@@ -33,8 +33,9 @@ import torch
 from repro_torch.core.partitioner import plan_attention_partition
 from repro_torch.core.pipeline import build_attention_schedule
 from repro_torch.core.runtime import (ExecState, ScheduleExecutor,
-                                      compute_dtype, host_tensor, not_ported,
-                                      register_op_handler, resolve_device)
+                                      as_tensor, compute_dtype, host_tensor,
+                                      not_ported, register_op_handler,
+                                      resolve_device)
 from repro_torch.core.streams import BlockRef, Op, validate_schedule
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.obs import get_observability
@@ -159,7 +160,7 @@ def ooc_attention(
             and resolve_device(torch_device) != executor.torch_device:
         raise ValueError(f"torch_device {torch_device} differs from the "
                          f"executor's {executor.torch_device}")
-    q = torch.as_tensor(q)
+    q = as_tensor(q)
     k_cache = host_tensor(k_cache)
     v_cache = host_tensor(v_cache)
     S, hkv, d = k_cache.shape

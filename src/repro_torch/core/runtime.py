@@ -36,6 +36,7 @@ import dataclasses
 import time
 from typing import Any, Callable, Dict, Hashable, List, Optional, Tuple, Type
 
+import numpy as np
 import torch
 
 from repro_torch.core import pipeline as plib
@@ -110,10 +111,29 @@ def compute_dtype(dtype: torch.dtype) -> torch.dtype:
     return torch.float32 if dtype == torch.float64 else dtype
 
 
+def _is_bf16_array(x) -> bool:
+    """An array of ml_dtypes' ``bfloat16`` (which torch cannot read)."""
+    return not isinstance(x, torch.Tensor) \
+        and str(getattr(x, "dtype", "")) == "bfloat16"
+
+
+def as_tensor(x) -> torch.Tensor:
+    """``torch.as_tensor``, and the same for an ml_dtypes ``bfloat16``
+    array (the reference's bf16 host type): it is widened exactly to
+    float32 and narrowed to ``torch.bfloat16``, so it is copied, not
+    shared."""
+    if _is_bf16_array(x):
+        return torch.from_numpy(np.asarray(x, dtype=np.float32)).to(
+            torch.bfloat16)
+    return torch.as_tensor(x)
+
+
 def host_tensor(x) -> torch.Tensor:
     """A host operand as a CPU tensor, sharing memory with a numpy array
-    (so in-place results are visible to the caller's array)."""
-    t = torch.as_tensor(x)
+    (so in-place results are visible to the caller's array).  An ml_dtypes
+    ``bfloat16`` array is copied instead (see :func:`as_tensor`): an
+    in-place result does not reach it."""
+    t = as_tensor(x)
     if t.device.type != "cpu":
         raise ValueError(f"host operands must be on the CPU, got {t.device}")
     return t
@@ -122,7 +142,7 @@ def host_tensor(x) -> torch.Tensor:
 def device_tensor(x, torch_device: torch.device) -> torch.Tensor:
     """An operand as a contiguous tensor on ``torch_device`` in its
     compute dtype."""
-    t = torch.as_tensor(x)
+    t = as_tensor(x)
     return t.to(device=torch_device,
                 dtype=compute_dtype(t.dtype)).contiguous()
 
@@ -405,7 +425,9 @@ class ScheduleExecutor:
             faults=None,
             policy=None) -> ExecState:
         """Run ``sched``; ``operands``/``outputs`` are numpy arrays or CPU
-        tensors (outputs are updated in place)."""
+        tensors (outputs are updated in place; an ml_dtypes ``bfloat16``
+        output, which :func:`host_tensor` copies, gets the result copied
+        back)."""
         if faults is not None or policy is not None:
             raise not_ported("faults")
         st = ExecState(bufs={},
@@ -603,6 +625,9 @@ class ScheduleExecutor:
                 or f"executor:{sched.meta.get('kernel', 'run')}",
                 self.last_spans, offset=run_offset,
                 reuse=sched.reuse or None)
+        for k, v in outputs.items():
+            if _is_bf16_array(v):
+                v[...] = st.outputs[k].float().numpy().astype(v.dtype)
         return st
 
 

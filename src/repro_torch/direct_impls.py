@@ -31,8 +31,8 @@ from typing import Optional, Tuple
 
 import torch
 
-from repro_torch.core.runtime import (ScheduleExecutor, host_tensor,
-                                      resolve_device)
+from repro_torch.core.runtime import (ScheduleExecutor, as_tensor,
+                                      host_tensor, resolve_device)
 from repro_torch.core.streams import (BlockRef, Device, Op, OpKind, Schedule,
                                       SliceRef, StreamFactory)
 from repro_torch.kernels import _build
@@ -140,23 +140,25 @@ def direct_vmem_ooc_gemm(A, B, C, alpha, beta,
     moved there); with ``torch_device="cpu"`` the plain version runs.
 
     Returns a new (M, N) tensor in C's dtype; ``C`` is left unchanged.
-    Operands share one dtype: float32 (IEEE FMA, never TF32), bfloat16 or
-    float16; float64 is computed in float32, as the reference does with
-    JAX's 64-bit mode off.  Inputs need unit column stride and may have any
-    row stride; nothing is copied to fix a layout.
+    Operands share one dtype: float32 (IEEE FMA on the CUDA cores, never
+    TF32), bfloat16 or float16 (the tensor cores, f32 accumulator; an
+    ml_dtypes ``bfloat16`` array is taken too); float64 is computed in
+    float32, as the reference does with JAX's 64-bit mode off.  Inputs need
+    unit column stride and may have any row stride; nothing is copied to fix
+    a layout.
 
     ``block`` is the (bm, bn, bk) tile the caller asks for.  The reference
-    pads to it; here it picks the CTA tile, clamped to what 256 threads'
-    registers hold: each of bm and bn becomes 128 if it is at least 128,
-    else 64 (so the default 256³ runs 128 x 128 tiles).  The k step is 16
-    for every tile, and ``bk`` is only checked.  Every output element is
+    pads to it; here it is checked and ignored: the kernel has one CTA tile
+    (128 x 256) and one k step for each dtype (16 in f32, one m64n256k16
+    instruction in 16 bits), which are kernel 1's.  Every output element is
     summed over k in one fixed order, so the result does not depend on
-    ``block``.  ``direct_vmem_ooc_gemm.launches`` counts kernel launches.
+    ``block``.  ``direct_vmem_ooc_gemm.launches`` counts kernel launches,
+    and ``direct_vmem_ooc_gemm.launches_by_dtype`` counts them by dtype name.
     """
     dev = resolve_device(torch_device)
     ts = []
     for x in (A, B, C):
-        t = torch.as_tensor(x)
+        t = as_tensor(x)
         if t.dtype == torch.float64:
             t = t.float()
         ts.append(t.to(dev))
@@ -188,21 +190,21 @@ def direct_vmem_ooc_gemm(A, B, C, alpha, beta,
     if fn.argtypes is None:     # pointers and the stream as c_void_p
         vp, ll = ctypes.c_void_p, ctypes.c_longlong
         fn.restype = ctypes.c_int
-        fn.argtypes = [ctypes.c_int, ctypes.c_int, ctypes.c_int, vp, vp, vp,
-                       vp, ll, ll, ll, ll, ll, ll, ctypes.c_float,
-                       ctypes.c_float, vp]
-    tile_m, tile_n = (128 if int(b) >= 128 else 64 for b in block[:2])
+        fn.argtypes = [ctypes.c_int, vp, vp, vp, vp, ll, ll, ll, ll, ll, ll,
+                       ctypes.c_float, ctypes.c_float, vp]
     with torch.cuda.device(dev):
-        err = fn(_DTYPE_CODE[A.dtype], tile_m, tile_n, A.data_ptr(),
-                 B.data_ptr(), C.data_ptr(), out.data_ptr(), M, N, K,
-                 A.stride(0), B.stride(0), C.stride(0), float(alpha),
-                 float(beta), torch.cuda.current_stream(dev).cuda_stream)
+        err = fn(_DTYPE_CODE[A.dtype], A.data_ptr(), B.data_ptr(),
+                 C.data_ptr(), out.data_ptr(), M, N, K, A.stride(0),
+                 B.stride(0), C.stride(0), float(alpha), float(beta),
+                 torch.cuda.current_stream(dev).cuda_stream)
     if err != 0:
         raise RuntimeError(f"direct_vmem_gemm launch failed: CUDA error {err}"
-                           f" (M={M}, N={N}, K={K}, dtype={A.dtype}, tile "
-                           f"{tile_m}x{tile_n})")
+                           f" (M={M}, N={N}, K={K}, dtype={A.dtype})")
     direct_vmem_ooc_gemm.launches += 1
+    by_dtype = direct_vmem_ooc_gemm.launches_by_dtype
+    by_dtype[str(A.dtype)[6:]] = by_dtype.get(str(A.dtype)[6:], 0) + 1
     return out
 
 
 direct_vmem_ooc_gemm.launches = 0
+direct_vmem_ooc_gemm.launches_by_dtype = {}

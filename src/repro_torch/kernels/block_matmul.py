@@ -11,20 +11,26 @@ What differs from the Pallas version, and why:
   * No host padding: the kernel masks ragged M/N/K edges itself and takes
     row strides, so a parity buffer view can be passed as it is.
   * ``block=`` is kept in the signature and validated, but the kernel has
-    one CTA tile (128 x 256, k tiles of 16 in a 4-stage cp.async ring) and
-    ignores it.  The result could not
-    depend on it anyway: every output element is summed over k = 0..K-1
-    in one fixed order.
+    one CTA tile (128 x 256) per dtype and ignores it.  The result could
+    not depend on it anyway: every output element is summed over k in one
+    fixed order (k = 0..K-1 one FMA at a time in float32; one tensor-core
+    step of 16 k at a time in 16 bits).
   * ``out=`` lets the caller update a buffer in place (the executor's
     ``dgemm`` handler passes its C parity buffer); ``out`` may be ``c``.
-  * Types: float32 (IEEE FMA, never TF32), bfloat16 and float16, all three
-    operands alike; the sum is float32 and the output takes C's dtype.
-    There is no float64 kernel: callers holding float64 host data compute
-    in float32, as the reference does with JAX's 64-bit mode off.
+  * Types: float32 (IEEE FMA on the CUDA cores, never TF32), bfloat16 and
+    float16 (``wgmma`` on the tensor cores, fed by TMA), all three operands
+    alike; the sum is float32 and the output takes C's dtype.  In 16 bits
+    the tensor core sums each step of 16 k in its own order, so the result
+    agrees with :func:`block_matmul_plain` within the reference's 2e-2,
+    not bit for bit.  There is no float64 kernel: callers holding float64
+    host data compute in float32, as the reference does with JAX's 64-bit
+    mode off.
 
 On a CPU tensor the wrapper runs :func:`block_matmul_plain`; on a CUDA
 tensor it launches the kernel or raises.  ``block_matmul.launches`` counts
-kernel launches, and nothing else.
+kernel launches, and nothing else; ``block_matmul.launches_by_dtype`` counts
+them by the operands' dtype name (``"float32"``, ``"bfloat16"``,
+``"float16"``), one count for each instance of the kernel.
 """
 
 from __future__ import annotations
@@ -119,7 +125,10 @@ def block_matmul(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, *,
         raise RuntimeError(f"block_matmul kernel launch failed: CUDA error "
                            f"{err} (M={M}, N={N}, K={K}, dtype={a.dtype})")
     block_matmul.launches += 1
+    by_dtype = block_matmul.launches_by_dtype
+    by_dtype[str(a.dtype)[6:]] = by_dtype.get(str(a.dtype)[6:], 0) + 1
     return out
 
 
 block_matmul.launches = 0
+block_matmul.launches_by_dtype = {}

@@ -62,17 +62,21 @@ def test_kernel_matches_plain_version(card, dtype, M, N, K):
     assert torch.equal(sub, outs[0][7:M - 3, 5:N - 9])
 
 
-# kernel 1's pipeline: k tiles of 16 in a ring of 4 stages, so K = 64 +- 1
-# straddles a full ring; ragged M and N cut both edge tiles
-PIPE_K = [1, 7, 17, 33, 63, 64, 65]
+# kernel 1's pipelines: k tiles of 16 in a ring of 4 stages in f32 (K = 64
+# +- 1 straddles a full ring), k tiles of 64 in a ring of 4 stages in 16
+# bits (K = 256 +- 1; 15, 17, 63 and 65 cut a tensor-core step of 16 or a
+# tile); M = 200 is not a multiple of 64 and N = 131 not of 8, so both edge
+# tiles are cut
+PIPE_K = [1, 7, 15, 17, 33, 63, 64, 65, 255, 257]
 GEMM_DTYPES = [torch.float32, torch.bfloat16, torch.float16]
 
 
+@pytest.mark.parametrize("N", [136, 131])
 @pytest.mark.parametrize("K", PIPE_K)
 @pytest.mark.parametrize("dtype", GEMM_DTYPES)
-def test_kernel_pipeline_edges(card, dtype, K):
+def test_kernel_pipeline_edges(card, dtype, K, N):
     tol = 2e-4 if dtype == torch.float32 else 2e-2
-    M, N = 200, 136
+    M = 200
     A, B, C = (torch.from_numpy(x).to(card, dtype)
                for x in _inputs(K, M, N, K))
     out = block_matmul(A, B, C, alpha=1.25, beta=0.5)
@@ -87,12 +91,15 @@ def test_kernel_pipeline_edges(card, dtype, K):
 
 
 @pytest.mark.parametrize("dtype", GEMM_DTYPES)
-@pytest.mark.parametrize("pad", [1, 3])
+@pytest.mark.parametrize("pad", [1, 3, 8])
 def test_kernel_unaligned_row_strides(card, dtype, pad):
-    """Row strides that are not multiples of 16 bytes, and base pointers
-    off a 16-byte boundary, take the element-wise copies: the same bits as
-    the 16-byte copies take on contiguous copies of the operands (rows of
-    152 and 256 elements)."""
+    """Operands inside wider rows, offset by ``pad`` elements.  Row strides
+    that are not multiples of 16 bytes, and base pointers off a 16-byte
+    boundary (pads 1 and 3), take the element-wise copies; pad 8 keeps
+    both 16-byte aligned, so a padded row stride and an offset base go
+    through the 16-byte copies (f32) or TMA (16 bits).  Each gives the same
+    bits as contiguous copies of the operands (rows of 152 and 256
+    elements)."""
     M, N, K = 150, 256, 152
     A, B, C = (torch.from_numpy(x).to(card, dtype)
                for x in _inputs(pad, M, N, K))
@@ -101,7 +108,9 @@ def test_kernel_unaligned_row_strides(card, dtype, pad):
     wa[:, pad:] = A
     wb[:, pad:] = B
     av, bv = wa[:, pad:], wb[:, pad:]
-    assert av.stride(0) % 4 != 0 or av.data_ptr() % 16 != 0
+    aligned = (av.stride(0) * av.element_size() % 16 == 0
+               and av.data_ptr() % 16 == 0)
+    assert aligned == (pad == 8)
     out = block_matmul(av, bv, C, alpha=-0.75, beta=1.5)
     assert torch.equal(out, block_matmul(A, B, C, alpha=-0.75, beta=1.5))
     sub = block_matmul(av[5:M - 2], bv[:, 1:N - 30], C[5:M - 2, 1:N - 30],
@@ -173,6 +182,32 @@ def test_executor_modes_agree_and_match_in_core(card, nstreams, nbuf,
     np.testing.assert_allclose(incore.numpy(),
                                1.5 * (A.astype(np.float64) @ B) + 0.5 * C,
                                rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.parametrize("dtype", [torch.bfloat16, torch.float16])
+def test_half_mmooc_equals_in_core_bitwise(card, dtype):
+    """MMOOC in 16 bits on the tensor cores: every block is summed in the
+    same k steps of 16 as the whole product, so both executor modes and the
+    vmem backend equal one in-core launch bit for bit."""
+    M, N, K = 704, 576, 320
+    A, B, C = (torch.from_numpy(x).to(dtype) for x in _inputs(23, M, N, K))
+    full = sum(t.numel() * t.element_size() for t in (A, B, C))
+    part = T.plan_gemm_partition(M, N, K, full // 4, 2)
+    assert part.h >= 2 and part.w >= 2
+    incore = T.ooc_gemm(A, B, C, 1.5, 0.5, budget_bytes=full)
+    assert incore.dtype == dtype
+    torch.testing.assert_close(
+        incore.float(), block_matmul_plain(A, B, C, alpha=1.5,
+                                           beta=0.5).float(),
+        rtol=2e-2, atol=2e-2)
+    for mode in ("issue_order", "concurrent"):
+        rt = T.HostOocRuntime(executor=T.ScheduleExecutor(mode=mode))
+        out = T.ooc_gemm(A, B, C, 1.5, 0.5, budget_bytes=full // 4,
+                         runtime=rt)
+        assert torch.equal(out, incore), mode
+    vmem = T.ooc_gemm(A.to(card), B.to(card), C.to(card), 1.5, 0.5,
+                      budget_bytes=full // 4, backend="vmem")
+    assert torch.equal(vmem.cpu(), incore)
 
 
 @pytest.mark.parametrize("mode", ["issue_order", "concurrent"])
@@ -443,6 +478,8 @@ def test_direct_vmem_kernel_matches_plain_version(card, dtype, M, N, K):
                                atol=tol)
     assert all(torch.equal(outs[0], o) for o in outs[1:] + [again])
     assert torch.equal(C, C_before)
+    # the same instruction sequence and k order as kernel 1: the same bits
+    assert torch.equal(outs[0], block_matmul(A, B, C, alpha=1.25, beta=0.5))
 
 
 def test_direct_vmem_takes_row_strided_views(card):

@@ -6,6 +6,7 @@ every traversal and eviction policy, and the vmem backend agrees too.
 """
 
 import jax.numpy as jnp
+import ml_dtypes
 import numpy as np
 import pytest
 import torch
@@ -200,3 +201,90 @@ def test_tiers_outside_the_slice_raise(tier, item):
                                 torch_device=CPU)
     with pytest.raises(NotImplementedError, match=item):
         hclDeviceFactory.create(tier, 0, mem_bytes=1 << 20)
+
+
+# 16-bit host operands as the reference's callers hold them: ml_dtypes
+# bfloat16 (which torch cannot read) and numpy float16.  Ragged shapes
+# under budgets that force at least 2x2 blocks; the reference's 2e-2
+# (tests/test_kernels.py).
+HALF_DTYPES = [ml_dtypes.bfloat16, np.float16]
+HALF_TOL = 2e-2
+
+
+def _half_close(out: torch.Tensor, ref, dtype) -> None:
+    want = {ml_dtypes.bfloat16: torch.bfloat16, np.float16: torch.float16}
+    assert isinstance(out, torch.Tensor) and out.dtype == want[dtype]
+    ref = np.asarray(ref)
+    assert ref.dtype == dtype
+    np.testing.assert_allclose(out.float().numpy(), ref.astype(np.float32),
+                               rtol=HALF_TOL, atol=HALF_TOL)
+
+
+@pytest.mark.parametrize("backend", ["host", "vmem"])
+@pytest.mark.parametrize("M,N,K,frac", [(192, 256, 160, 4),
+                                        (200, 136, 72, 4),
+                                        (130, 300, 45, 3)])
+@pytest.mark.parametrize("dtype", HALF_DTYPES, ids=["bf16", "f16"])
+def test_ooc_gemm_half_host_operands_match_reference(dtype, M, N, K, frac,
+                                                     backend):
+    A, B, C = _problem(M + K, M, N, K, dtype=dtype)
+    budget = (A.nbytes + B.nbytes + C.nbytes) // frac
+    part = T.plan_gemm_partition(M, N, K, budget, A.itemsize)
+    assert part.h >= 2 and part.w >= 2
+    ref = R.ooc_gemm(A, B, C, 1.5, 0.5, budget_bytes=budget,
+                     backend=backend)
+    out = T.ooc_gemm(A, B, C, 1.5, 0.5, budget_bytes=budget,
+                     backend=backend, torch_device=CPU)
+    _half_close(out, ref, dtype)
+
+
+@pytest.mark.parametrize("backend", ["host", "vmem"])
+@pytest.mark.parametrize("n,K,frac", [(200, 72, 4), (300, 64, 3)])
+@pytest.mark.parametrize("dtype", HALF_DTYPES, ids=["bf16", "f16"])
+def test_ooc_syrk_half_host_operands_match_reference(dtype, n, K, frac,
+                                                     backend):
+    rng = np.random.default_rng(n + K)
+    P = rng.standard_normal((n, K)).astype(dtype)
+    C = rng.standard_normal((n, n)).astype(dtype)
+    budget = (2 * P.nbytes + C.nbytes) // frac
+    part = T.plan_gemm_partition(n, n, K, budget, P.itemsize)
+    assert part.h >= 2 and part.w >= 2
+    ref = R.ooc_syrk(P, C, -1.0, 0.5, budget_bytes=budget, backend=backend)
+    out = T.ooc_syrk(P, C, -1.0, 0.5, budget_bytes=budget, backend=backend,
+                     torch_device=CPU)
+    _half_close(out, ref, dtype)
+
+
+@pytest.mark.parametrize("entry", ["host_tensor", "device_tensor",
+                                   "executor_output", "hcl_runtime"])
+def test_bf16_host_arrays_enter_the_port(entry):
+    """An ml_dtypes bfloat16 array enters every host entry point without a
+    TypeError, as an exact ``torch.bfloat16`` copy; an executor output of
+    that type gets its result copied back."""
+    A, B, C = _problem(5, 192, 256, 160, dtype=ml_dtypes.bfloat16)
+    if entry in ("host_tensor", "device_tensor"):
+        conv = getattr(T.runtime, entry)
+        t = conv(A) if entry == "host_tensor" else conv(A, torch.device(CPU))
+        assert t.dtype == torch.bfloat16 and t.device.type == "cpu"
+        np.testing.assert_array_equal(t.float().numpy(),
+                                      A.astype(np.float32))
+        return
+    budget = (A.nbytes + B.nbytes + C.nbytes) // 4
+    part = T.plan_gemm_partition(192, 256, 160, budget, 2)
+    want = T.ooc_gemm(torch.from_numpy(A.astype(np.float32)).bfloat16(),
+                      torch.from_numpy(B.astype(np.float32)).bfloat16(),
+                      torch.from_numpy(C.astype(np.float32)).bfloat16(),
+                      1.5, 0.5, budget_bytes=budget, torch_device=CPU)
+    if entry == "executor_output":
+        out = C.copy()
+        T.ScheduleExecutor(torch_device=CPU).run(
+            T.build_gemm_schedule(part), {"A": A, "B": B}, {"C": out},
+            {"alpha": 1.5, "beta": 0.5})
+        got = torch.from_numpy(out.astype(np.float32)).bfloat16()
+    else:
+        rt = hclRuntimeFactory.create(hclDeviceFactory.create("HBM", 0,
+                                                              budget),
+                                      torch_device=CPU)
+        got = rt.gemm(A, B, C, 1.5, 0.5, part)
+    assert got.dtype == torch.bfloat16
+    assert torch.equal(got, want)
