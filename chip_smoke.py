@@ -53,7 +53,20 @@ printing any result.  Phases (each raises on failure; none is skipped):
      and f16 (beside ``torch.addmm``; in bf16 also with A off 16 bytes, the
      element-copy route, bit for bit equal to the TMA route), kernel 2's
      partial and combine passes apart, kernel 3 in f32 and bf16 in turns
-     with kernel 1.
+     with kernel 1;
+  9. the fourth path, the factorizations (``[factor]`` lines; run after
+     phase 7, before phase 8): ``ooc_cholesky`` and ``ooc_lu`` at
+     n = 24576 f32 under 1 GiB (panel 2048, lookahead 1), through the entry
+     point and then the schedule it plans (the budget less the panel ops'
+     device workspace) on ``ScheduleExecutor`` in both modes, cold and
+     warm: every result bit for bit equal, bytes against
+     ``schedule_stats``, kernel 1 once per ``dgemm`` op, peak device memory
+     within the budget and within the parity buffers and the panel ops'
+     measured workspace (itself within what the planner charges), kernel 1
+     against its plain version on the operands of every ``dgemm`` op as
+     the executor stages them, a float64 Cholesky and an LU residual on the
+     card, and each run's wall, transfer, panel-op, row-swap-replay and
+     idle times.
 
 With ``--baseline DIR`` (another checkout, e.g. ``git archive`` of the
 parent commit unpacked into a directory ``.gitignore`` lists), phase 5 is
@@ -596,6 +609,396 @@ def phase_main_bf16(gen, report, base=None):
     del A, B, C, host_out
 
 
+# the shared planner's factor plans (factor_pipeline_spec, equal to the
+# reference's) at n = 24576 f32 under 1 GiB, panel 2048, lookahead 1, 2
+# streams, 2 buffers (schedule_stats of the compiled schedule): panels,
+# ops, dgemm ops, H2D bytes, D2H bytes.  The entry points plan the same
+# call against the budget less the panel ops' device workspace.
+FACTOR_N, FACTOR_PANEL, FACTOR_BUDGET = 24576, 2048, 2**30
+FACTOR_PLANS = {"cholesky": (12, 291, 59, 9_539_944_448, 6_960_447_488),
+                "lu": (12, 762, 166, 15_535_702_016, 10_905_190_400)}
+PANEL_TAGS = ("POTRF", "GETRF", "TRSM")
+
+
+def factor_input(gen, kind, n):
+    """The factorization's input, made on the card from the seed and copied
+    to the host: ``M M^T / n + I`` (SPD, eigenvalues about 1-5, built with
+    kernel 1, whose fixed k order makes it exactly symmetric) for
+    Cholesky, a standard-normal M for LU (so pivoting swaps rows)."""
+    from repro_torch.kernels.block_matmul import block_matmul
+
+    M = torch.randn((n, n), generator=gen, device="cuda")
+    if kind == "cholesky":
+        M = block_matmul(M, M.T.contiguous(), torch.eye(n, device="cuda"),
+                         alpha=1.0 / n, beta=1.0)
+    return M.cpu()
+
+
+def panel_workspace(kind, n, pw):
+    """Device bytes the panel ops allocate beyond their buffers at the
+    largest panel (n x pw), as the handlers run them: the solver's copy,
+    and the libraries' own workspace for a stream they have not run on
+    (the panel stream of a ``concurrent`` run is such a stream; cuBLAS
+    keeps one workspace a stream)."""
+    from repro_torch.core import runtime as rt
+
+    pnl = torch.randn((n, pw), device="cuda")
+    pnl[:pw] += n * torch.eye(pw, device="cuda")   # SPD head, pivots in it
+    urow = torch.randn((pw, n - pw), device="cuda")
+    fresh = torch.cuda.Stream()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    with torch.cuda.stream(fresh), rt.prefer_cusolver(pnl.device):
+        if kind == "cholesky":
+            L, info = torch.linalg.cholesky_ex(pnl[:pw, :pw])
+            pnl[:pw, :pw] = L
+            del L, info
+            rt.chol_panel_solve(pnl)
+        else:
+            piv = rt.getrf_panel(pnl)
+            rt.lu_row_solve(pnl, urow)
+            del piv
+    torch.cuda.synchronize()
+    ws = torch.cuda.max_memory_allocated() - base
+    del pnl, urow
+    return ws
+
+
+def panel_op_ms(kind, n, pw):
+    """Device ms of each panel op at the largest panel (n x pw): POTRF and
+    the Cholesky TRSM, or GETRF and the LU row TRSM, the TRSMs in place as
+    the handlers run them.  GETRF is timed through cuSOLVER, which the
+    executor asks for, and through PyTorch's default choice (MAGMA for a
+    tall panel)."""
+    pnl = torch.randn((n, pw), device="cuda")
+    pnl[:pw] += n * torch.eye(pw, device="cuda")
+    urow = torch.randn((pw, n - pw), device="cuda")
+    L = torch.linalg.cholesky(pnl[:pw, :pw])
+    la = torch.linalg
+    prev = torch.backends.cuda.preferred_linalg_library()
+    ms = {}
+    try:
+        for lib in ("cusolver", "default"):
+            torch.backends.cuda.preferred_linalg_library(lib)
+            if kind == "cholesky":
+                if lib == "cusolver":
+                    head = pnl[:pw, :pw]
+                    ms["potrf"] = time_ms(lambda: la.cholesky_ex(head))
+                    rows = pnl[pw:]
+                    ms["trsm"] = time_ms(lambda: la.solve_triangular(
+                        L.T, rows, upper=True, left=False, out=rows))
+            else:
+                ms[f"getrf_{lib}"] = time_ms(lambda: la.lu_factor_ex(pnl),
+                                             reps=3)
+                if lib == "cusolver":
+                    ms["trsm"] = time_ms(lambda: la.solve_triangular(
+                        L, urow, upper=False, left=True, unitriangular=True,
+                        out=urow))
+    finally:
+        torch.backends.cuda.preferred_linalg_library(prev)
+    return ms
+
+
+def factor_row(kind, sched, stats, ex, wall, mallocs, peak, n):
+    """One run's figures from its CUDA-event spans and counters.  An LU
+    write-back's span (the finalizer) runs from its panel copy to the end
+    of the host's replay and landing, so it is kept apart: not in D2H busy
+    and not in the device's busy union."""
+    from repro_torch.core import BlockRef, OpKind
+
+    busy, panel_s, dgemm_s, wb_s, wb_bytes = {}, 0.0, 0.0, 0.0, 0
+    device = []
+    for op, span in zip(sched.ops, ex.last_spans):
+        tag, _, t0, t1 = span
+        if op.kind == OpKind.D2H and isinstance(op.payload, BlockRef):
+            wb_s += t1 - t0
+            wb_bytes += op.bytes
+            continue
+        device.append(span)
+        busy[op.kind] = busy.get(op.kind, 0.0) + t1 - t0
+        if tag.startswith(PANEL_TAGS):
+            panel_s += t1 - t0
+        elif tag.startswith(("SYRK", "GEMM")):
+            dgemm_s += t1 - t0
+    covered, reach = 0.0, 0.0   # union of the op spans
+    for _, _, t0, t1 in sorted(device, key=lambda x: x[2]):
+        covered += max(0.0, t1 - max(t0, reach))
+        reach = max(reach, t1)
+    flops = n ** 3 / 3 if kind == "cholesky" else 2 * n ** 3 / 3
+    return {"kind": kind, "wall_s": wall, "useful_tflops": flops / wall / 1e12,
+            "h2d_busy_s": busy[OpKind.H2D], "d2h_busy_s": busy[OpKind.D2H],
+            "h2d_gbps": stats["h2d_bytes"] / busy[OpKind.H2D] / 1e9,
+            "d2h_gbps": (stats["d2h_bytes"] - wb_bytes)
+            / busy[OpKind.D2H] / 1e9, "writeback_s": wb_s,
+            "compute_busy_s": busy[OpKind.COMPUTE], "dgemm_busy_s": dgemm_s,
+            "panel_ops_s": panel_s, "stage_s": ex.last_stage_seconds,
+            "row_swap_replay_s": ex.last_handler_seconds.get(
+                "row_swap_replay", 0.0),
+            "device_idle_share": 1.0 - covered / wall,
+            "peak_bytes": peak, "cuda_mallocs": mallocs}
+
+
+def check_dgemm_ops(sched, A, ctx, kind, first):
+    """Kernel 1 against its plain version on the operands that every
+    ``dgemm`` op of ``sched`` reads, staged as the executor stages them
+    (Cholesky's transposed ``Ft`` slices through the tiled fill), at
+    alpha = -1, beta = 1: each result within twice f32's summation bound of
+    the plain one, ``gemm_err``'s criterion.  A run of its own after the
+    timed ones (its launches are not the path's); its result must equal
+    theirs bit for bit.  Returns (ops checked, their shapes, max |err|,
+    max err / bound)."""
+    from repro_torch.core import ScheduleExecutor
+    from repro_torch.kernels.block_matmul import block_matmul, \
+        block_matmul_plain
+
+    alpha, beta = ctx["alpha"], ctx["beta"]
+    errs, ratios, shapes = [], [], set()
+
+    def dgemm(st, op, ref):
+        a, b = (st.bufs[k] for k in op.buffers_read)
+        c = st.bufs[op.buffers_written[0]]
+        c0 = c.clone()
+        block_matmul(a, b, c, alpha=alpha, beta=beta, out=c)
+        want = block_matmul_plain(a, b, c0, alpha=alpha, beta=beta)
+        err = (c - want).abs().double()
+        bound = 2 * sum_tol(a, b, c0, alpha, beta)
+        errs.append(err.max())
+        ratios.append((err / bound.clamp_min(1e-300)).max())
+        shapes.add((a.shape[0], b.shape[1], a.shape[1]))
+
+    ex = ScheduleExecutor(mode="issue_order", handlers={"dgemm": dgemm})
+    out = A.clone()
+    st = ex.run(sched, {}, {"A": out}, ctx)
+    res = (torch.tril(out),) if kind == "cholesky" \
+        else (out, st.scratch["perm"])
+    require(all(torch.equal(a, b) for a, b in zip(res, first)),
+            f"{kind}: the checking run differs from the entry point's")
+    err = torch.stack(errs).max().item()
+    ratio = torch.stack(ratios).max().item()
+    require(ratio <= 1.0,
+            f"{kind}: kernel 1 on a dgemm op's operands differs from the "
+            f"plain version by {ratio:.3g} x 2 sqrt(K) u sum|terms|")
+    return len(errs), sorted(shapes, key=math.prod, reverse=True), err, \
+        ratio
+
+
+def factor_case(gen, report, kind):
+    """``ooc_cholesky`` or ``ooc_lu`` at n = 24576 f32 under 1 GiB through
+    the entry point, then the schedule it plans on ``ScheduleExecutor`` in
+    both modes, cold and warm: every result bit for bit equal, bytes equal
+    to ``schedule_stats``, kernel 1 once per ``dgemm`` op, peak device
+    memory within the budget and within the parity buffers and the panel
+    ops' workspace, kernel 1 against its plain version on every ``dgemm``
+    op's operands, and a float64 oracle on the card.  Kernel 1's launches
+    on the entry point's run are kept as the path's."""
+    from repro_torch.core import (BlockRef, ScheduleExecutor,
+                                  compile_factor_pipeline,
+                                  factor_pipeline_spec, ooc_cholesky, ooc_lu,
+                                  schedule_stats)
+    from repro_torch.core.ooc_factor import (_plan_factor_spec,
+                                             panel_workspace_bytes)
+    from repro_torch.kernels.block_matmul import block_matmul
+
+    n, pw, budget = FACTOR_N, FACTOR_PANEL, FACTOR_BUDGET
+    t0 = time.perf_counter()
+    A = factor_input(gen, kind, n)
+
+    def plan_of(spec):
+        sched = compile_factor_pipeline(spec, nstreams=2, nbuf=2)
+        stats = schedule_stats(sched)
+        return sched, stats, (spec.npanels, stats["n_ops"], dgemm_ops(sched),
+                              stats["h2d_bytes"], stats["d2h_bytes"])
+
+    shared = factor_pipeline_spec(n, pw, budget, 4, kind=kind, lookahead=1,
+                                  nbuf=2)
+    plan = plan_of(shared)[2]
+    require(plan == FACTOR_PLANS[kind],
+            f"{kind} plan (panels, ops, dgemm, H2D, D2H) {plan}, expected "
+            f"{FACTOR_PLANS[kind]}")
+    charged = panel_workspace_bytes(kind, n, pw, 4, "cuda")
+    spec = _plan_factor_spec(kind, n, pw, budget, 4, 1, 2, "cuda")
+    sched, stats, run_plan = plan_of(spec)
+    n_dgemm = run_plan[2]
+    panel_ops = sum(1 for op in sched.ops if isinstance(op.payload, BlockRef)
+                    and op.payload.kernel != "dgemm")
+    ws = panel_workspace(kind, n, pw)
+    require(ws <= charged,
+            f"{kind}: the panel ops took {ws} B of device workspace, the "
+            f"planner charges {charged} B")
+    op_ms = panel_op_ms(kind, n, pw)
+    report["factor_panel_ms"][kind] = op_ms
+    say("factor", f"{kind}: A {n}x{n} f32 ({A.nbytes / 2**30:.2f} GiB, "
+                  f"{A.nbytes / budget:.2f}x the 1 GiB budget) made on the "
+                  f"card from seed {SEED} in {time.perf_counter() - t0:.1f} "
+                  f"s; panel {pw}, lookahead 1, nstreams 2, nbuf 2; the "
+                  f"shared planner at 1 GiB: {plan[0]} panels, {plan[1]} "
+                  f"ops, {plan[2]} dgemm ops (trailing blocks {shared.bm}x"
+                  f"{shared.bn}), {plan[3]} B H2D, {plan[4]} B D2H (= "
+                  f"schedule_stats); the entry point's plan, at the budget "
+                  f"less {charged} B charged for the panel ops: "
+                  f"{run_plan[0]} panels, lookahead {spec.lookahead}, "
+                  f"{run_plan[1]} ops, {n_dgemm} dgemm ops (trailing blocks "
+                  f"{spec.bm}x{spec.bn}), {panel_ops} panel ops, "
+                  f"{run_plan[3]} B H2D, {run_plan[4]} B D2H; panel ops' "
+                  f"workspace at the largest panel, measured on a fresh "
+                  f"stream, {ws} B <= {charged} B charged; there: "
+                  + ", ".join(f"{k} {v:.3f} ms" for k, v in op_ms.items())
+                  + (" (getrf_default: PyTorch's default backend, not used)"
+                     if kind == "lu" else ""))
+    ctx = {"alpha": -1.0, "beta": 1.0, "panel": spec.panel, "n": spec.n}
+    entry = ooc_cholesky if kind == "cholesky" else ooc_lu
+    first = None
+    slack = 32 * 2**20          # allocator rounding of ~10 buffers
+    for mode, rep in (("entry point", "cold"), ("issue_order", "cold"),
+                      ("issue_order", "warm"), ("concurrent", "cold"),
+                      ("concurrent", "warm")):
+        if rep == "cold":
+            ex = ScheduleExecutor(mode=mode.replace("entry point",
+                                                    "issue_order"),
+                                  record_spans=True)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        mallocs = torch.cuda.memory_stats()["num_device_alloc"]
+        zero_counts(block_matmul)
+        if mode == "entry point":
+            res = entry(A, pw, budget_bytes=budget, lookahead=1, nstreams=2,
+                        nbuf=2, executor=ex)
+            read_counts(block_matmul, report, kind)
+        else:
+            out = A.clone()
+            st = ex.run(sched, {}, {"A": out}, ctx)
+            res = torch.tril(out) if kind == "cholesky" \
+                else (out, st.scratch["perm"])
+            del out, st
+        n_k1 = block_matmul.launches
+        peak = torch.cuda.max_memory_allocated() - base
+        mallocs = torch.cuda.memory_stats()["num_device_alloc"] - mallocs
+        res = res if isinstance(res, tuple) else (res,)
+        require(n_k1 == n_dgemm,
+                f"{kind} {mode}: {n_k1} kernel-1 launches, expected "
+                f"{n_dgemm} (one per dgemm op)")
+        require((ex.last_h2d_bytes, ex.last_d2h_bytes)
+                == (stats["h2d_bytes"], stats["d2h_bytes"]),
+                f"{kind} {mode}: moved {ex.last_h2d_bytes}/"
+                f"{ex.last_d2h_bytes} B, schedule_stats says "
+                f"{stats['h2d_bytes']}/{stats['d2h_bytes']}")
+        parity = ex.last_buffer_bytes
+        require(peak <= parity + ws + slack,
+                f"{kind} {mode}: peak device memory {peak} B above the "
+                f"parity buffers {parity} B + panel workspace {ws} B + "
+                f"{slack} B")
+        require(peak <= budget,
+                f"{kind} {mode}: peak device memory {peak} B above the "
+                f"budget of {budget} B")
+        if first is None:
+            first = res
+        else:
+            require(all(torch.equal(a, b) for a, b in zip(res, first)),
+                    f"{kind} {mode} {rep}: differs from the entry point's "
+                    f"result")
+        row = factor_row(kind, sched, stats, ex, ex.last_wall_seconds,
+                         mallocs, peak, n)
+        row.update(mode=mode, run=rep, launches=n_k1, parity_bytes=parity,
+                   workspace_bytes=ws, charged_bytes=charged)
+        report["factor"].append(row)
+        say("factor", f"{kind} {mode:11s} {rep}: {row['wall_s']:.3f} s wall, "
+                      f"{row['useful_tflops']:.2f} TFLOP/s useful "
+                      f"({'n^3/3' if kind == 'cholesky' else '2n^3/3'}), "
+                      f"{n_k1} kernel-1 launches, bytes = schedule_stats; "
+                      f"H2D busy {row['h2d_busy_s']:.3f} s "
+                      f"({row['h2d_gbps']:.1f} GB/s), D2H busy "
+                      f"{row['d2h_busy_s']:.3f} s ({row['d2h_gbps']:.1f} "
+                      f"GB/s); dgemm busy {row['dgemm_busy_s']:.3f} s, panel "
+                      f"ops (POTRF/GETRF/TRSM) {row['panel_ops_s']:.4f} s, "
+                      f"row-swap replay {row['row_swap_replay_s']:.4f} s "
+                      f"(host)"
+                      + (f" in LU write-back spans of {row['writeback_s']:.3f}"
+                         f" s (panel copy, replay, landing)"
+                         if kind == "lu" else "")
+                      + f"; host staging fill {row['stage_s']:.3f} s; "
+                      f"device idle {100 * row['device_idle_share']:.1f} % "
+                      f"of the wall; peak {peak} B <= parity {parity} B + "
+                      f"workspace {ws} B + 32 MiB, {peak / budget:.3f}x "
+                      f"the 1 GiB budget; {mallocs} cudaMalloc")
+        del res
+    say("factor", f"{kind}: entry point, issue_order and concurrent, cold "
+                  f"and warm: all five results bitwise equal")
+    checked, shapes, err, ratio = check_dgemm_ops(sched, A, ctx, kind, first)
+    report["factor_dgemm_check"][kind] = {
+        "ops": checked, "shapes": shapes[:4], "max_abs_err": err,
+        "max_err_over_bound": ratio}
+    require(checked == n_dgemm, f"{kind}: checked {checked} of {n_dgemm} "
+                                f"dgemm ops")
+    say("factor", f"{kind}: kernel 1 vs block_matmul_plain on the operands "
+                  f"of all {checked} dgemm ops as the executor stages them "
+                  f"(alpha -1, beta 1; largest (M, N, K) {shapes[0]}): max "
+                  f"|err| {err:.3g}, max err / (2 sqrt(K) u sum|terms|) "
+                  f"{ratio:.3g} (limit 1); the checking run == the timed "
+                  f"runs bitwise")
+    factor_oracle(kind, A, first, n)
+
+
+def factor_oracle(kind, A, res, n):
+    """Cholesky: float64 ``torch.linalg.cholesky`` of the whole matrix on
+    the card, within ``tests/test_factor.py``'s 5e-6 of the factor's
+    largest entry.  LU: ``perm`` a permutation, every multiplier within
+    1 + 1e-6, and on 256 sampled rows, in float64 on the card,
+    ``|A[perm] - L U| <= sqrt(n) u (|L| |U|)`` elementwise (LU's backward
+    error bound, Higham, Accuracy and Stability of Numerical Algorithms,
+    2nd ed., theorem 9.3, with the probabilistic sqrt(n) u for n u)."""
+    if kind == "cholesky":
+        exact = torch.linalg.cholesky(A.cuda().double())
+        L = res[0].cuda().double()
+        require(bool(torch.isfinite(L).all()), "cholesky: factor not finite")
+        scale = exact.abs().max().item()
+        err = (L - exact).abs().max().item() / scale
+        del exact, L
+        require(err <= 5e-6, f"cholesky: max |L - L64| / max |L64| = {err} "
+                             f"beyond 5e-6")
+        say("factor", f"cholesky vs float64 torch.linalg.cholesky on the "
+                      f"card: max |L - L64| / max |L64| = {err:.3g} (limit "
+                      f"5e-6, tests/test_factor.py); max |L64| {scale:.4g}")
+        return
+    LU, perm = res
+    require(bool(torch.equal(perm.sort().values, torch.arange(n))),
+            "lu: perm is not a permutation")
+    swapped = int((perm != torch.arange(n)).sum())
+    LUd = LU.cuda()
+    require(bool(torch.isfinite(LUd).all()), "lu: factor not finite")
+    lmax = torch.tril(LUd, -1).abs().max().item()
+    require(lmax <= 1.0 + 1e-6, f"lu: a multiplier of {lmax} beyond 1 + 1e-6")
+    rows = torch.randperm(n, generator=torch.Generator().manual_seed(SEED))[
+        :256].sort().values
+    U = torch.triu(LUd.double())
+    rows_d = rows.cuda()
+    cols = torch.arange(n, device="cuda")
+    Lr = torch.where(cols < rows_d[:, None], LUd[rows_d].double(), 0.0)
+    Lr[torch.arange(256, device="cuda"), rows_d] = 1.0
+    del LUd
+    prod = Lr @ U
+    bound = math.sqrt(n) * U32 * (Lr.abs() @ U.abs())
+    del U
+    Ar = A[perm[rows]].cuda().double()
+    err = (Ar - prod).abs()
+    ratio = (err / bound).max().item()
+    rel = err.max().item() / A.abs().max().item()
+    require(ratio <= 1.0, f"lu: sampled rows |A[perm] - LU| up to {ratio:.3g}"
+                          f" x sqrt(n) u (|L||U|)")
+    say("factor", f"lu: perm a permutation moving {swapped} of {n} rows; "
+                  f"max multiplier {lmax:.6f} (limit 1 + 1e-6); 256 sampled "
+                  f"rows in float64 on the card: max |A[perm] - L U| / "
+                  f"(sqrt(n) u (|L||U|)) = {ratio:.3g} (limit 1), normwise "
+                  f"max |A[perm] - LU| / max |A| = {rel:.3g}")
+
+
+def phase_factor(gen, report):
+    """Phase 9: the factorizations on the card."""
+    for kind in ("cholesky", "lu"):
+        factor_case(gen, report, kind)
+
+
 def phase_vmem_syrk(gen, report, A, B, C, host_out, params):
     from repro_torch.core import ooc_gemm, ooc_syrk, build_syrk_schedule, \
         plan_gemm_partition, HostOocRuntime, ScheduleExecutor
@@ -1136,7 +1539,7 @@ def launches_of(report, paths, dt):
 
 # the paths that launch kernel 1, each driven with its counts set to 0
 BLOCK_MATMUL_PATHS = ("host", "in_core", "vmem", "syrk_host", "direct_host",
-                      "host_bf16", "in_core_bf16")
+                      "host_bf16", "in_core_bf16", "cholesky", "lu")
 
 
 def phase_timing(gen, report, card):
@@ -1407,8 +1810,9 @@ def main(argv=None) -> int:
     phase_kernels(gen)
     phase_kernels_attention(gen)
     phase_kernels_direct(gen)
-    report = {"main_path": [], "attention": [], "c1": [], "launches": {},
-              "launches_by_dtype": {}}
+    report = {"main_path": [], "attention": [], "c1": [], "factor": [],
+              "factor_panel_ms": {}, "factor_dgemm_check": {},
+              "launches": {}, "launches_by_dtype": {}}
     A, B, C, host_out, params = phase_main(gen, report)
     phase_vmem_syrk(gen, report, A, B, C, host_out, params)
     phase_c1(gen, report, A, B, C, host_out, params)
@@ -1417,6 +1821,7 @@ def main(argv=None) -> int:
     del A, B, C, host_out
     phase_attention(gen, report)
     phase_main_bf16(gen, report, args.baseline)
+    phase_factor(gen, report)
     entries = [*phase_timing(gen, report, card),
                phase_timing_attention(gen, report, card),
                phase_timing_direct(gen, report, card)]
@@ -1424,6 +1829,9 @@ def main(argv=None) -> int:
                 f"total {time.perf_counter() - t_start:.1f} s")
     print(json.dumps({"main_path": report["main_path"],
                       "attention": report["attention"], "c1": report["c1"],
+                      "factor": report["factor"],
+                      "factor_panel_ms": report["factor_panel_ms"],
+                      "factor_dgemm_check": report["factor_dgemm_check"],
                       "baseline": report.get("baseline"),
                       "baseline_bf16": report.get("baseline_bf16"),
                       "card": card}))

@@ -9,6 +9,9 @@ Port of ``src/repro/core/__init__.py`` for this slice's modules:
   * ooc_gemm / ooc_syrk                              (MMOOC)
   * ooc_attention                                    (attention over an
     out-of-core KV cache; importing it registers ``attn``/``attn_out``)
+  * ooc_cholesky / ooc_lu                            (out-of-core
+    factorizations: panel ops on the device, trailing updates through
+    the block GEMM)
   * ScheduleExecutor / register_op_handler           (the one interpreter)
   * HostOocRuntime / VmemOocRuntime                  (hclRuntime hierarchy)
   * from_reference                                   (state carried across)
@@ -19,6 +22,7 @@ from repro_torch.core.convert import from_reference
 from repro_torch.core.oocgemm import (is_in_core, ooc_gemm, ooc_syrk,
                                       plan_for_device)
 from repro_torch.core.ooc_attention import ooc_attention
+from repro_torch.core.ooc_factor import ooc_cholesky, ooc_lu
 from repro_torch.core.partitioner import (
     TRAVERSALS,
     AttentionPartition,
@@ -106,7 +110,8 @@ __all__ = [
     "chrome_trace", "chrome_trace_groups", "compile_executable",
     "compile_factor_pipeline", "compile_pipeline", "factor_pipeline_spec",
     "from_reference", "gemm_pipeline_spec", "gpu_like", "is_in_core",
-    "ooc_attention", "ooc_gemm", "ooc_syrk", "phi_like",
+    "ooc_attention", "ooc_cholesky", "ooc_gemm", "ooc_lu", "ooc_syrk",
+    "phi_like",
     "plan_attention_partition", "plan_cache_stats", "plan_for_device",
     "plan_gemm_partition",
     "register_op_handler", "register_runtime", "resolve_device",

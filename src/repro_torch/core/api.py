@@ -5,8 +5,8 @@ runtimes, streams, the partitioner, the pipeline compiler, the executor
 and observability.  Tier sizes are the card's own
 (:func:`~repro_torch.core.runtime.tier_bytes`): ``HBM`` is the device
 memory, ``VMEM`` the shared memory a block may use.  Without a card the
-caller passes ``mem_bytes``.  The hybrid, factorization, analysis, tuner
-and fault facades arrive with their ROADMAP module items (8, 5, 9, 7, 6).
+caller passes ``mem_bytes``.  The hybrid, analysis, tuner and fault
+facades arrive with their ROADMAP module items (8, 9, 7, 6).
 """
 
 from __future__ import annotations
@@ -96,3 +96,26 @@ def hclObservability(enable: bool = False, trace: bool = False, **kw):
     if enable or trace:
         obs.enable(metrics=True, trace=trace, **kw)
     return obs
+
+
+def hclOocFactor(A, kind: str = "cholesky", **kw):
+    """Facade over the out-of-core factorizations: one lookahead pipeline
+    schedule interleaving panel POTRF/GETRF/TRSM ops with the streamed
+    SYRK/GEMM trailing update.
+
+        L = hclOocFactor(A, "cholesky", budget_bytes=..., lookahead=1)
+        LU, perm = hclOocFactor(A, "lu", budget_bytes=...)
+
+    Keyword arguments forward to :func:`repro_torch.core.ooc_factor.
+    ooc_cholesky` / :func:`~repro_torch.core.ooc_factor.ooc_lu` (``panel``,
+    ``budget_bytes``, ``lookahead``, ``torch_device``, ...).  The engine
+    computes in float32 whatever the input dtype: float64 results carry
+    f32-level residuals."""
+    from repro_torch.core.ooc_factor import ooc_cholesky, ooc_lu
+
+    if kind == "cholesky":
+        return ooc_cholesky(A, **kw)
+    if kind == "lu":
+        return ooc_lu(A, **kw)
+    raise ValueError(f"unknown factor kind {kind!r}; expected "
+                     f"'cholesky' or 'lu'")

@@ -1,0 +1,295 @@
+"""Out-of-core factorizations — the paper's §VII future work — on one CUDA
+device.
+
+Port of ``src/repro/core/ooc_factor.py``, held against it by
+``tests/test_torch_factor.py`` and on the card by ``chip_smoke.py``.
+
+The whole factorization is ONE compiled
+:class:`~repro_torch.core.streams.Schedule`
+(:func:`~repro_torch.core.pipeline.compile_factor_pipeline`) that
+interleaves in-core panel ops (POTRF / partial-pivot GETRF, TRSM solves —
+the op handlers of ``core/runtime.py``) with the streamed SYRK/GEMM
+trailing update, with a *lookahead* parameter: panel ``k+1`` factors while
+trailing update ``k`` is still streaming.
+
+Entry points:
+
+  * :func:`ooc_cholesky` — lower-triangular factor of a host-resident SPD
+    matrix.
+  * :func:`ooc_lu` — right-looking LU with partial pivoting inside the
+    resident panel and row-swap replay on write-back; returns ``(LU, perm)``
+    with ``A[perm] = tril(LU, -1) + I  @  triu(LU)``.
+
+What differs from the reference: the panel ops run on the executor's
+device (cuSOLVER and cuBLAS through ``torch.linalg`` on a card) instead of
+in numpy on the host, and the trailing updates run the hand-written block
+GEMM (``dgemm`` ops, or ``ooc_syrk``/``ooc_gemm`` on the per-panel loop of
+``backend="vmem"``).  A Cholesky whose matrix is not SPD raises
+``torch.linalg.LinAlgError`` after the run (the solver's status is read
+once, not after every panel).  Inputs are numpy arrays or CPU tensors;
+results are CPU tensors in the input's dtype, computed in float32 for
+float64 input as the reference computes with JAX's 64-bit mode off.
+
+On a card, ``budget_bytes`` covers the panel ops' device workspace as well
+as the schedule's buffers (:func:`panel_workspace_bytes`): the planner
+sizes the trailing blocks for what is left.  On the CPU nothing is charged
+for the panel ops, as in the reference, so the plans are the reference's.
+
+``torch_device`` (default: CUDA) selects where blocks and panels are
+computed; with no card the caller passes ``torch_device="cpu"``.
+``executor`` runs the host pipeline on a prepared
+:class:`~repro_torch.core.runtime.ScheduleExecutor` (its mode, spans and
+device).
+
+Not in this slice: ``tune="auto"`` and ``tuner=`` (ROADMAP module item 7),
+``devices=`` and ``tolerance=`` (item 8) and ``faults=``/``fault_policy=``
+with the oom degrade ladder (item 6); each raises ``NotImplementedError``.
+"""
+
+from __future__ import annotations
+
+from typing import List, Optional, Sequence, Tuple
+
+import torch
+
+from repro_torch.core import pipeline as plib
+from repro_torch.core.oocgemm import (_check_slice, _torch_device, ooc_gemm,
+                                      ooc_syrk)
+from repro_torch.core.pipeline import FactorPipelineSpec, factor_pipeline_spec
+from repro_torch.core.runtime import (ScheduleExecutor, apply_panel_pivots,
+                                      chol_panel_solve, device_tensor,
+                                      getrf_panel, host_tensor, lu_row_solve,
+                                      not_ported, prefer_cusolver,
+                                      raise_on_info)
+from repro_torch.core.streams import validate_schedule
+from repro_torch.obs import get_observability
+
+
+# the libraries' device workspace beside the panel ops' own copies: cuBLAS
+# keeps up to 32 MiB for each stream it runs on (the TRSMs; a concurrent
+# run's panel stream may be new to it, so two streams are charged), and
+# cuSOLVER's GETRF took 0.2 MiB at a 24576 x 2048 panel on an H100
+# (chip_smoke.py phase 9 measures the panel ops on a fresh stream and
+# holds them to panel_workspace_bytes)
+_LIBRARY_BYTES = 64 << 20
+
+
+def panel_workspace_bytes(kind: str, n: int, pw: int, bytes_per_el: int,
+                          torch_device) -> int:
+    """Device bytes the panel ops take beyond the schedule's buffers at the
+    largest panel (``n x pw``), which the planner charges on a card:
+    GETRF's column-major copy of the panel, or POTRF's ``pw x pw`` factor,
+    plus the libraries' workspace (the TRSMs solve in place).  On the CPU
+    nothing: the reference's panel ops run in host memory, uncharged."""
+    if torch.device(torch_device).type != "cuda":
+        return 0
+    own = n * pw if kind == "lu" else pw * pw
+    return own * bytes_per_el + _LIBRARY_BYTES
+
+
+def _plan_factor_spec(kind: str, n: int, panel: int, budget_bytes: int,
+                      bytes_per_el: int, lookahead: int, nbuf: int,
+                      torch_device="cpu") -> FactorPipelineSpec:
+    """Feasible spec for the budget, less the panel ops' device workspace
+    at each panel width (:func:`panel_workspace_bytes`), degrading
+    gracefully: try the requested (lookahead, panel) first, then drop the
+    lookahead buffers, then halve the panel — the panel width is a
+    performance hint, not a contract."""
+    err: Optional[ValueError] = None
+    pw = min(panel, n)
+    while pw >= 1:
+        ws = panel_workspace_bytes(kind, n, pw, bytes_per_el, torch_device)
+        for la in sorted({lookahead, 0}, reverse=True):
+            try:
+                return factor_pipeline_spec(
+                    n, pw, budget_bytes - ws, bytes_per_el,
+                    kind=kind, lookahead=la, nbuf=nbuf)
+            except ValueError as e:
+                err = ValueError(f"{e} (the budget of {budget_bytes}B less "
+                                 f"{ws}B of panel-op workspace)") if ws \
+                    else e
+        pw //= 2
+    raise err if err is not None else ValueError(
+        f"no feasible {kind} pipeline for n={n} within {budget_bytes}B")
+
+
+def _run_factor(A: torch.Tensor, spec: FactorPipelineSpec, nstreams: int,
+                nbuf: int, validate: bool, evict: str = "lru",
+                executor: Optional[ScheduleExecutor] = None,
+                torch_device=None):
+    """Compile + execute the factor schedule over a copy of ``A``; returns
+    (factored matrix, executor state) — LU's permutation rides in scratch.
+
+    When a trace is active the executor records its pipeline as the
+    ``factor:<kind>`` lane group, and the ``repro_factor_*`` gauges expose
+    the lookahead/panel shape."""
+    obs = get_observability()
+    sched = plib.compile_factor_pipeline(spec, nstreams=nstreams, nbuf=nbuf,
+                                         evict=evict)
+    if validate:
+        validate_schedule(sched)
+    out = A.clone()
+    ex = executor or ScheduleExecutor(
+        record_spans=obs.tracer is not None,
+        trace_group=f"factor:{spec.kind}", torch_device=torch_device)
+    state = ex.run(
+        sched, operands={}, outputs={"A": out},
+        ctx={"alpha": -1.0, "beta": 1.0, "panel": spec.panel, "n": spec.n})
+    if obs.metrics.enabled:
+        kernel = f"{spec.kind}-factor"
+        obs.metrics.gauge(
+            "repro_factor_lookahead_depth",
+            "panels factored ahead of the streaming trailing update").set(
+                spec.lookahead, kernel=kernel)
+        obs.metrics.gauge(
+            "repro_factor_panel_width",
+            "resident panel width of the last factorization").set(
+                spec.panel, kernel=kernel)
+    return out, state
+
+
+def _check_square(A: torch.Tensor) -> int:
+    n = A.shape[0]
+    if A.dim() != 2 or tuple(A.shape) != (n, n):
+        raise ValueError(f"square matrix required, got {tuple(A.shape)}")
+    return n
+
+
+def _prepare(A, backend, tune, tuner, devices, tolerance, faults,
+             fault_policy, executor, torch_device
+             ) -> Tuple[torch.Tensor, int, torch.device]:
+    _check_slice(backend, tune, devices, faults, fault_policy)
+    if tuner is not None:
+        raise not_ported("tune")
+    if tolerance is not None:
+        raise not_ported("devices")
+    dev = _torch_device(executor, torch_device)
+    A = host_tensor(A)
+    return A, _check_square(A), dev
+
+
+def ooc_cholesky(A, panel: int = 256, *, budget_bytes: int,
+                 backend: str = "host", tune=None, tuner=None,
+                 lookahead: int = 1, nstreams: int = 2, nbuf: int = 2,
+                 evict: str = "lru", validate: bool = False,
+                 devices: Optional[Sequence] = None,
+                 tolerance: Optional[float] = None,
+                 faults=None, fault_policy=None,
+                 executor: Optional[ScheduleExecutor] = None,
+                 torch_device=None) -> torch.Tensor:
+    """Lower-triangular Cholesky factor of SPD ``A`` (host-resident), as a
+    CPU tensor in A's dtype.
+
+    Host backend (default): the factorization is one lookahead pipeline
+    schedule — panel POTRF/TRSM ops interleaved with the streamed SYRK
+    trailing update; ``lookahead=0`` degenerates to the sequential
+    per-panel loop.  ``evict`` picks the factored-row block cache's
+    eviction policy (``"lru"``/``"belady"``) — it changes only H2D traffic,
+    never the factor.
+
+    ``backend="vmem"`` takes the per-panel loop instead: panel ops on the
+    device, the trailing update through :func:`~repro_torch.core.oocgemm.
+    ooc_syrk` on that backend.
+
+    Precision: float64 input is computed in float32 and returned as
+    float64 with f32-accurate residuals (~1e-6 relative, not LAPACK's
+    ~1e-15), as in the reference.
+    """
+    A, n, dev = _prepare(A, backend, tune, tuner, devices, tolerance,
+                         faults, fault_policy, executor, torch_device)
+    if backend != "host":
+        with prefer_cusolver(dev):
+            return _loop_cholesky(A, panel, budget_bytes, backend, dev)
+    spec = _plan_factor_spec("cholesky", n, panel, budget_bytes,
+                             A.element_size(), lookahead, nbuf, dev)
+    out, _ = _run_factor(A, spec, nstreams, nbuf, validate, evict=evict,
+                         executor=executor, torch_device=dev)
+    return torch.tril(out)
+
+
+def ooc_lu(A, panel: int = 256, *, budget_bytes: int,
+           backend: str = "host", tune=None, tuner=None,
+           lookahead: int = 1, nstreams: int = 2, nbuf: int = 2,
+           evict: str = "lru", validate: bool = False,
+           devices: Optional[Sequence] = None,
+           tolerance: Optional[float] = None,
+           faults=None, fault_policy=None,
+           executor: Optional[ScheduleExecutor] = None,
+           torch_device=None) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Right-looking LU with partial pivoting: ``A[perm] = L @ U``.
+
+    Returns ``(LU, perm)`` as CPU tensors: ``LU`` (A's dtype) packs the
+    unit-lower ``L`` below the diagonal and ``U`` on/above it; ``perm``
+    (int64) is the row permutation such that ``A[perm]`` equals
+    ``(tril(LU, -1) + I) @ triu(LU)``.
+
+    Pivot search runs over the full resident panel (true partial pivoting:
+    the panel holds every remaining row of its columns); row swaps replay on
+    the host columns outside the panel at panel write-back
+    (``lu_writeback`` handler), so the trailing stream always reads
+    consistently permuted rows.  ``lookahead`` overlaps the next panel's
+    transfer+GETRF with the current trailing update; ``backend="vmem"``
+    behaves as in :func:`ooc_cholesky`, with :func:`~repro_torch.core.
+    oocgemm.ooc_gemm` as the trailing update.  As there, float64 input is
+    computed in float32.
+    """
+    A, n, dev = _prepare(A, backend, tune, tuner, devices, tolerance,
+                         faults, fault_policy, executor, torch_device)
+    if backend != "host":
+        with prefer_cusolver(dev):
+            return _loop_lu(A, panel, budget_bytes, backend, dev)
+    spec = _plan_factor_spec("lu", n, panel, budget_bytes,
+                             A.element_size(), lookahead, nbuf, dev)
+    out, state = _run_factor(A, spec, nstreams, nbuf, validate, evict=evict,
+                             executor=executor, torch_device=dev)
+    return out, state.scratch.get("perm", torch.arange(n))
+
+
+# ---------------------------------------------------------------------------
+# Per-panel loop: the non-host backends (panel math on the device, trailing
+# update through the out-of-core kernels)
+# ---------------------------------------------------------------------------
+def _loop_cholesky(A: torch.Tensor, panel: int, budget_bytes: int,
+                   backend: str, dev: torch.device) -> torch.Tensor:
+    A = A.clone()
+    n = A.shape[0]
+    kw = dict(budget_bytes=budget_bytes, backend=backend, torch_device=dev)
+    infos: List[Tuple[str, torch.Tensor]] = []
+    for k0 in range(0, n, panel):
+        k1 = min(n, k0 + panel)
+        d = k1 - k0
+        pnl = device_tensor(A[k0:, k0:k1], dev)
+        L, info = torch.linalg.cholesky_ex(pnl[:d, :d])
+        pnl[:d, :d] = L
+        infos.append((f"POTRF[{k0 // panel}]", info))
+        chol_panel_solve(pnl)
+        A[k0:, k0:k1] = pnl.cpu()
+        if k1 == n:
+            break
+        A[k1:, k1:] = ooc_syrk(pnl[d:], A[k1:, k1:], alpha=-1.0, beta=1.0,
+                               **kw).cpu()
+    raise_on_info(infos)
+    return torch.tril(A)
+
+
+def _loop_lu(A: torch.Tensor, panel: int, budget_bytes: int, backend: str,
+             dev: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+    A = A.clone()
+    n = A.shape[0]
+    perm = torch.arange(n)
+    kw = dict(budget_bytes=budget_bytes, backend=backend, torch_device=dev)
+    for k0 in range(0, n, panel):
+        k1 = min(n, k0 + panel)
+        d = k1 - k0
+        pnl = device_tensor(A[k0:, k0:k1], dev)
+        piv = getrf_panel(pnl)
+        apply_panel_pivots(A, piv, k0, k1, perm)
+        A[k0:, k0:k1] = pnl.cpu()
+        if k1 == n:
+            break
+        U = device_tensor(A[k0:k1, k1:], dev)
+        lu_row_solve(pnl, U)
+        A[k0:k1, k1:] = U.cpu()
+        A[k1:, k1:] = ooc_gemm(pnl[d:], U, A[k1:, k1:], alpha=-1.0,
+                               beta=1.0, **kw).cpu()
+    return A, perm

@@ -9,6 +9,9 @@ If the whole problem fits the budget, one in-core launch of the block GEMM
 is issued instead (the paper's C2 transition).  Unlike the reference, whose
 in-core path is XLA's dot, every path here runs the one hand-written
 kernel, so the host, in-core and vmem results agree bit for bit.
+Operands may be of any numeric dtype, as the reference's are: a mix, or
+integers, is computed in float32 and cast to C's dtype (C defaults to
+zeros of A's dtype); 64-bit operands land on the device in 32 bits.
 
 ``torch_device`` (default: CUDA) selects where blocks are computed; with
 no card the caller must pass ``torch_device="cpu"`` (the kernels' plain
@@ -30,11 +33,10 @@ import torch
 from repro_torch.core import pipeline as plib
 from repro_torch.core.partitioner import GemmPartition, plan_gemm_partition
 from repro_torch.core.runtime import (HostOocRuntime, OocRuntime,
-                                      VmemOocRuntime, device_tensor,
-                                      host_tensor, not_ported,
+                                      VmemOocRuntime, block_gemm,
+                                      device_tensor, host_tensor, not_ported,
                                       resolve_device)
 from repro_torch.core.streams import Device, validate_schedule
-from repro_torch.kernels import ops as kops
 
 
 def is_in_core(M: int, N: int, K: int, budget_bytes: int,
@@ -58,8 +60,9 @@ def _check_slice(backend: str, tune, devices, faults, fault_policy) -> None:
         raise ValueError(f"unknown backend {backend!r}")
 
 
-def _torch_device(runtime: Optional[OocRuntime], torch_device
-                  ) -> torch.device:
+def _torch_device(runtime, torch_device) -> torch.device:
+    """The device of a given runtime or executor (``torch_device``, if
+    also given, must name it), else ``resolve_device(torch_device)``."""
     if runtime is None:
         return resolve_device(torch_device)
     if torch_device is not None \
@@ -76,8 +79,8 @@ def _operand(x, backend: str, dev: torch.device) -> torch.Tensor:
 def _in_core(A, B, C, alpha, beta, backend: str, dev: torch.device
              ) -> torch.Tensor:
     """One resident launch of the block GEMM (claim C2 transition point)."""
-    out = kops.block_matmul(device_tensor(A, dev), device_tensor(B, dev),
-                            device_tensor(C, dev), alpha=alpha, beta=beta)
+    out = block_gemm(device_tensor(A, dev), device_tensor(B, dev),
+                     device_tensor(C, dev), alpha=alpha, beta=beta)
     return out.cpu() if backend == "host" else out
 
 

@@ -32,6 +32,7 @@ versions, which is how the tests hold the port against the reference.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import time
 from typing import Any, Callable, Dict, Hashable, List, Optional, Tuple, Type
@@ -55,12 +56,6 @@ NOT_PORTED = {
     "tune": "tune='auto' (the autotuner) is ROADMAP module item 7",
     "devices": "hybrid co-execution (devices=) is ROADMAP module item 8",
 }
-
-
-# op-handler kernels of the reference that this slice does not have
-KERNELS_NOT_PORTED = dict.fromkeys(
-    ("panel_chol", "panel_trsm", "panel_lu", "lu_trsm", "lu_writeback"),
-    "the factorization panel handlers are ROADMAP module item 5")
 
 
 def not_ported(what: str) -> NotImplementedError:
@@ -104,11 +99,38 @@ def tier_bytes(name: str, torch_device=None) -> int:
     return int(props.shared_memory_per_block_optin)
 
 
+# the reference's device types with JAX's 64-bit mode off: 64-bit host
+# data lands on the device in 32 bits (there is no float64 kernel)
+_CANONICAL = {torch.float64: torch.float32, torch.int64: torch.int32}
+# the operand dtypes kernel 1 takes (all three alike)
+_KERNEL_DTYPES = (torch.float32, torch.bfloat16, torch.float16)
+
+
 def compute_dtype(dtype: torch.dtype) -> torch.dtype:
-    """The dtype blocks are computed in: float64 host data is computed in
-    float32, as the reference does with JAX's 64-bit mode off (there is no
-    float64 kernel in this slice)."""
-    return torch.float32 if dtype == torch.float64 else dtype
+    """The dtype a host operand lands on the device in: float64 as float32
+    and int64 as int32, as the reference's arrays land with JAX's 64-bit
+    mode off; every other dtype as it is."""
+    return _CANONICAL.get(dtype, dtype)
+
+
+def block_gemm(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor,
+               alpha: float, beta: float,
+               out: Optional[torch.Tensor] = None, **kw) -> torch.Tensor:
+    """``alpha * a @ b + beta * c`` through the hand-written block GEMM, on
+    any numeric operands, as the reference's block GEMM takes them (a
+    float32 ``jnp.dot``, scaled and cast to C's dtype).  Operands of one
+    kernel dtype go to the kernel as they are; any other mix (integers,
+    bool, two float types) is computed in float32 and the result is cast
+    to C's dtype.  ``out`` (default: a new tensor) may be ``c``."""
+    if a.dtype == b.dtype == c.dtype and a.dtype in _KERNEL_DTYPES:
+        return kops.block_matmul(a, b, c, alpha=alpha, beta=beta, out=out,
+                                 **kw)
+    f32 = dict(dtype=torch.float32, memory_format=torch.contiguous_format)
+    res = kops.block_matmul(a.to(**f32), b.to(**f32), c.to(**f32),
+                            alpha=alpha, beta=beta, **kw)
+    if out is None:
+        return res.to(c.dtype)
+    return out.copy_(res)
 
 
 def _is_bf16_array(x) -> bool:
@@ -237,6 +259,12 @@ class ExecState:
     outputs: Dict[str, torch.Tensor]     # host results (in-place)
     ctx: Dict[str, Any]                  # kernel parameters
     scratch: Dict[str, Any]              # handler carry state
+    # device statuses ``(tag, info)`` that handlers park instead of waiting
+    # for the device (a Cholesky's); checked once, after the run
+    statuses: List[Tuple[str, torch.Tensor]] = dataclasses.field(
+        default_factory=list)
+    # host seconds that handlers report by name (``last_handler_seconds``)
+    seconds: Dict[str, float] = dataclasses.field(default_factory=dict)
 
     def host(self, name: str) -> torch.Tensor:
         """Host array an H2D slices from: inout operands read the live
@@ -262,6 +290,18 @@ def _spans_overlap(a: SliceRef, b: SliceRef, shape) -> bool:
     return (a.operand == b.operand
             and hit(a.rows, b.rows, shape[0])
             and hit(a.cols, b.cols, shape[1] if len(shape) > 1 else 1))
+
+
+def _fill(dest: torch.Tensor, src: torch.Tensor, ref: SliceRef) -> None:
+    """``dest.copy_(src)`` for an H2D slice.  A transposed slice is copied
+    in tiles of 64 host rows: torch's one strided copy of a whole
+    (rows x panel) host slice into its transpose runs at ~0.2 GB/s on the
+    host, the tiles at ~4 GB/s (the SYRK and Cholesky ``Ft`` slices)."""
+    if not ref.transpose:
+        dest.copy_(src)
+        return
+    for c in range(0, src.shape[1], 64):
+        dest[:, c:c + 64].copy_(src[:, c:c + 64])
 
 
 def _land(dest: torch.Tensor, arr: torch.Tensor, ref: SliceRef) -> None:
@@ -338,6 +378,14 @@ class ScheduleExecutor:
     host time spent filling pinned H2D staging from the host operands, and
     ``last_stage_wait_seconds`` the host time spent waiting for a staging
     buffer's previous copy to finish before refilling it.
+    ``last_buffer_bytes`` is the size of the run's device parity buffers,
+    and ``last_handler_seconds`` the host seconds that handlers reported
+    by name in ``state.seconds`` (the LU write-back's row-swap replay).
+    Device statuses that handlers park in ``state.statuses`` are checked
+    once, after the run (:func:`raise_on_info`).  For the length of a run
+    on a card, PyTorch's linalg calls go to cuSOLVER
+    (:func:`prefer_cusolver`): the setting is process-wide, so a run
+    should not share its process with another thread's linalg calls.
     ``record_spans=True`` fills ``last_spans`` with
     ``(tag, stream, start_s, end_s)``: on a card from CUDA events
     around each op's device work (H2D spans exclude the host staging
@@ -372,6 +420,8 @@ class ScheduleExecutor:
         self.last_wall_seconds = 0.0
         self.last_stage_seconds = 0.0
         self.last_stage_wait_seconds = 0.0
+        self.last_buffer_bytes = 0
+        self.last_handler_seconds: Dict[str, float] = {}
         # pinned host staging, (direction, parity key) -> flat tensor
         self._staging: Dict[Tuple[str, Hashable], torch.Tensor] = {}
         # concurrent mode's engine streams on self.torch_device, by engine
@@ -379,9 +429,6 @@ class ScheduleExecutor:
 
     def _handler(self, ref: BlockRef) -> HandlerFn:
         fn = self.handlers.get(ref.kernel) or _OP_HANDLERS.get(ref.kernel)
-        if fn is None and ref.kernel in KERNELS_NOT_PORTED:
-            raise NotImplementedError(
-                f"not ported yet: {KERNELS_NOT_PORTED[ref.kernel]}")
         if fn is None:
             raise KeyError(
                 f"no op handler registered for kernel {ref.kernel!r}; "
@@ -475,6 +522,8 @@ class ScheduleExecutor:
         t_run0 = time.perf_counter()
 
         flat = self._allocate(sched, st)
+        self.last_buffer_bytes = sum(t.numel() * t.element_size()
+                                     for t in flat.values())
         # parity key -> (staging view, its copy's event, destination slice)
         pending: Dict[Hashable, Tuple[torch.Tensor, Any, SliceRef]] = {}
         h2d_copied: Dict[Hashable, torch.cuda.Event] = {}
@@ -526,7 +575,7 @@ class ScheduleExecutor:
             view = flat[key][:src.numel()].view(src.shape)
             st.bufs[key] = view
             if not cuda:
-                view.copy_(src)
+                _fill(view, src, ref)
                 return
             t0 = time.perf_counter()
             prev = h2d_copied.get(key)
@@ -534,7 +583,7 @@ class ScheduleExecutor:
                 prev.synchronize()
             t1 = time.perf_counter()
             stage = self._stage("h2d", key, view)
-            stage.copy_(src)
+            _fill(stage, src, ref)
             self.last_stage_wait_seconds += t1 - t0
             self.last_stage_seconds += time.perf_counter() - t1
             device_work()
@@ -578,30 +627,31 @@ class ScheduleExecutor:
             else:
                 exec_d2h(i, op, ref)
 
-        for i, op in enumerate(sched.ops):
-            if not cuda:
-                t0 = time.perf_counter() - t_run0
-                exec_op(i, op)
-                if trace:
-                    self.last_spans.append(
-                        (op.tag, op.stream, t0,
-                         time.perf_counter() - t_run0))
-            else:
-                stream = main
-                if concurrent:
-                    stream = engine_streams[plan.engine_of[i]]
-                    for p in plan.preds[i]:
-                        stream.wait_event(done[p])
-                with torch.cuda.stream(stream):
+        with prefer_cusolver(dev):
+            for i, op in enumerate(sched.ops):
+                if not cuda:
+                    t0 = time.perf_counter() - t_run0
                     exec_op(i, op)
                     if trace:
-                        t1 = torch.cuda.Event(enable_timing=True)
-                        t1.record()
-                        marks.append((op, started[0], t1))
-                    if concurrent and i in needed:
-                        done[i] = torch.cuda.Event()
-                        done[i].record()
-            self.last_completion_order.append(i)
+                        self.last_spans.append(
+                            (op.tag, op.stream, t0,
+                             time.perf_counter() - t_run0))
+                else:
+                    stream = main
+                    if concurrent:
+                        stream = engine_streams[plan.engine_of[i]]
+                        for p in plan.preds[i]:
+                            stream.wait_event(done[p])
+                    with torch.cuda.stream(stream):
+                        exec_op(i, op)
+                        if trace:
+                            t1 = torch.cuda.Event(enable_timing=True)
+                            t1.record()
+                            marks.append((op, started[0], t1))
+                        if concurrent and i in needed:
+                            done[i] = torch.cuda.Event()
+                            done[i].record()
+                self.last_completion_order.append(i)
         for key in list(pending):
             flush(key)
         if cuda:
@@ -614,6 +664,8 @@ class ScheduleExecutor:
                     (op.tag, op.stream, base.elapsed_time(t0) / 1e3,
                      base.elapsed_time(t1) / 1e3) for op, t0, t1 in marks]
         self.last_wall_seconds = time.perf_counter() - t_run0
+        self.last_handler_seconds = dict(st.seconds)
+        raise_on_info(st.statuses)
         if obs.metrics.enabled:
             obs.record_executor_run(
                 sched, self.last_wall_seconds,
@@ -642,9 +694,229 @@ def _dgemm_handler(st: ExecState, op: Op, ref: BlockRef) -> None:
     buffers_read = (lhs, rhs), buffers_written[0] = accumulator), in place
     through the hand-written block GEMM (the reference calls XLA's dot)."""
     c = st.bufs[op.buffers_written[0]]
-    kops.block_matmul(st.bufs[op.buffers_read[0]], st.bufs[op.buffers_read[1]],
-                      c, alpha=float(st.ctx.get("alpha", 1.0)),
-                      beta=float(st.ctx.get("beta", 0.0)), out=c)
+    block_gemm(st.bufs[op.buffers_read[0]], st.bufs[op.buffers_read[1]], c,
+               alpha=float(st.ctx.get("alpha", 1.0)),
+               beta=float(st.ctx.get("beta", 0.0)), out=c)
+
+
+# ---------------------------------------------------------------------------
+# Factorization panel ops (the paper's §VII kernels): in-core panel factor /
+# solve handlers the factor pipeline interleaves with the streamed dgemm
+# trailing update.  Panels are resident parity buffers shaped (m, pw); the
+# panel width is recovered from the buffer itself.  Each op runs on the
+# buffer's device and enqueues on the current stream (the op's engine
+# stream); nothing waits for the device on the host except the
+# ``lu_writeback`` finalizer, which must read the panel and its pivots.
+# ---------------------------------------------------------------------------
+@contextlib.contextmanager
+def prefer_cusolver(dev: torch.device):
+    """Within the block, PyTorch's linalg calls on a card go to cuSOLVER
+    (``torch.backends.cuda.preferred_linalg_library``, set back on exit).
+    Its default sends the LU of a tall panel to MAGMA's hybrid routine,
+    which waits for the device on the host and takes ~10x as long at a
+    24576 x 2048 panel on an H100 (``chip_smoke.py`` times both);
+    cuSOLVER enqueues on the current stream.  :meth:`ScheduleExecutor.run`
+    and the factorizations' per-panel loop enter it once.  The setting is
+    process-wide: another thread's linalg calls inside the block go to
+    cuSOLVER too."""
+    if dev.type != "cuda":
+        yield
+        return
+    prev = torch.backends.cuda.preferred_linalg_library()
+    torch.backends.cuda.preferred_linalg_library("cusolver")
+    try:
+        yield
+    finally:
+        torch.backends.cuda.preferred_linalg_library(prev)
+
+
+def chol_panel_solve(pnl: torch.Tensor) -> None:
+    """Cholesky panel solve in place: the rows below the panel's ``d x d``
+    head become ``rows @ inv(Lkk)^T``.  The solve writes into the rows
+    themselves (no result tensor: a contiguous panel is already in the
+    solver's transposed layout)."""
+    d = pnl.shape[1]
+    rows = pnl[d:]
+    torch.linalg.solve_triangular(pnl[:d, :d].T, rows, upper=True,
+                                  left=False, out=rows)
+
+
+def getrf_panel(buf: torch.Tensor) -> torch.Tensor:
+    """Right-looking LU with partial pivoting on an (m, pw) panel, in place,
+    on the panel's device (LAPACK's getrf on the CPU; on a card, PyTorch's
+    preferred linalg library's, cuSOLVER's under :func:`prefer_cusolver`).
+    The solver factors a column-major copy of the panel (``m x pw``
+    elements of device workspace).  Returns LAPACK-style local pivot rows ``piv`` as an int64 tensor
+    on that device (column ``j`` swapped panel rows ``j`` and ``piv[j]``);
+    L's unit diagonal is implicit, multipliers live below it, U on and
+    above.  A zero pivot leaves its column unscaled, as in the reference,
+    and is no error."""
+    lu, piv, _ = torch.linalg.lu_factor_ex(buf)
+    buf.copy_(lu)
+    return piv.long() - 1
+
+
+def lu_row_solve(pnl: torch.Tensor, urow: torch.Tensor) -> None:
+    """LU row-panel solve in place: ``urow <- inv(unit-lower Lkk) @ urow``,
+    with Lkk the head of the factored panel ``pnl``.  The solve writes into
+    ``urow`` itself (contiguous, so no result tensor)."""
+    d = pnl.shape[1]
+    torch.linalg.solve_triangular(pnl[:d, :d], urow, upper=False, left=True,
+                                  unitriangular=True, out=urow)
+
+
+def _host_pivots(piv) -> np.ndarray:
+    return np.asarray(piv.cpu() if isinstance(piv, torch.Tensor) else piv,
+                      dtype=np.int64)
+
+
+def _panel_permutation(piv) -> np.ndarray:
+    """The one row order a panel's local pivots amount to: after the swaps
+    (in pivot order), panel row ``i`` holds what was row ``p[i]``.  Only
+    the rows a swap touched can differ from the identity."""
+    piv = _host_pivots(piv)
+    p = np.arange(max(len(piv), int(piv.max(initial=-1)) + 1))
+    for j, q in enumerate(piv.tolist()):
+        p[j], p[q] = p[q], p[j]
+    return p
+
+
+def apply_panel_pivots(A: torch.Tensor, piv, k0: int, k1: int,
+                       perm: torch.Tensor,
+                       work: Optional[torch.Tensor] = None
+                       ) -> Optional[torch.Tensor]:
+    """Replay a panel's local pivots on the host matrix columns *outside*
+    the panel (left of it: already-written L; right of it: the trailing
+    columns), accumulating the global row permutation.  The pivots are
+    composed into one permutation (:func:`_panel_permutation`); the rows it
+    moves are gathered whole into ``work`` (one contiguous copy a row; a
+    flat host tensor reused across panels, since gathering into fresh
+    memory takes ~4x as long), their panel columns are put back, and they
+    are scattered once.  Returns the work tensor used (a new one when
+    ``work`` is None or too small).  A permutation moves values exactly,
+    so the result equals the swap-by-swap replay
+    (:func:`apply_panel_pivots_plain`, the reference's loop) bit for
+    bit."""
+    p = _panel_permutation(piv)
+    moved = np.flatnonzero(p != np.arange(len(p)))
+    if not len(moved):
+        return work
+    dst = torch.from_numpy(k0 + moved)
+    src = torch.from_numpy(k0 + p[moved])
+    size = len(moved) * A.shape[1]
+    if work is None or work.numel() < size or work.dtype != A.dtype:
+        work = torch.empty(size, dtype=A.dtype)
+    rows = work[:size].view(len(moved), A.shape[1])
+    torch.index_select(A, 0, src, out=rows)
+    rows[:, k0:k1] = A[dst, k0:k1]
+    A.index_copy_(0, dst, rows)
+    perm[dst] = perm[src]
+    return work
+
+
+def apply_panel_pivots_plain(A: torch.Tensor, piv, k0: int, k1: int,
+                             perm: torch.Tensor) -> None:
+    """The plain version of :func:`apply_panel_pivots`: one swap of two
+    host rows per pivot, as the reference replays them."""
+    for j, q in enumerate(_host_pivots(piv).tolist()):
+        if q != j:
+            rows = torch.tensor([k0 + j, k0 + q])
+            flip = rows.flip(0)
+            A[rows, :k0] = A[flip, :k0]
+            A[rows, k1:] = A[flip, k1:]
+            perm[rows] = perm[flip]
+
+
+def raise_on_info(infos: List[Tuple[str, torch.Tensor]]) -> None:
+    """Raise for the first failed Cholesky among ``(tag, info)`` pairs
+    parked on the device (one copy to the host for all of them)."""
+    if not infos:
+        return
+    codes = torch.stack([info.reshape(()) for _, info in infos]).cpu()
+    for (tag, _), code in zip(infos, codes.tolist()):
+        if code != 0:
+            raise torch.linalg.LinAlgError(
+                f"{tag}: the leading minor of order {code} is not positive "
+                f"definite (the matrix is not SPD)")
+
+
+@register_op_handler("panel_chol")
+def _panel_chol_handler(st: ExecState, op: Op, ref: BlockRef) -> None:
+    """POTRF: factor the resident panel's diagonal block in-core (the upper
+    triangle comes back zeroed).  Its status stays on the device (checking
+    it here would wait for the device) and is checked after the run."""
+    buf = st.bufs[op.buffers_written[0]]
+    d = buf.shape[1]
+    L, info = torch.linalg.cholesky_ex(buf[:d, :d])
+    buf[:d, :d] = L
+    st.statuses.append((op.tag, info))
+
+
+@register_op_handler("panel_trsm")
+def _panel_trsm_handler(st: ExecState, op: Op, ref: BlockRef) -> None:
+    """Cholesky panel solve: sub-diagonal rows <- rows @ inv(Lkk)^T, in the
+    resident panel buffer."""
+    chol_panel_solve(st.bufs[op.buffers_written[0]])
+
+
+@register_op_handler("panel_lu")
+def _panel_lu_handler(st: ExecState, op: Op, ref: BlockRef) -> None:
+    """GETRF: partial-pivot LU of the resident panel; the local pivot rows
+    (on the device) park in scratch for the write-back's row-swap
+    replay."""
+    st.scratch[("piv", ref.index)] = getrf_panel(
+        st.bufs[op.buffers_written[0]])
+
+
+@register_op_handler("lu_trsm")
+def _lu_trsm_handler(st: ExecState, op: Op, ref: BlockRef) -> None:
+    """LU row-panel solve: U[k, k+1:] <- inv(unit-lower Lkk) @ U[k, k+1:],
+    with Lkk read from the resident factored panel."""
+    pkey, ukey = op.buffers_read
+    lu_row_solve(st.bufs[pkey], st.bufs[ukey])
+
+
+@register_op_handler("lu_writeback")
+def _lu_writeback_handler(st: ExecState, op: Op, ref: BlockRef) -> None:
+    """LU panel write-back with row-swap replay: land the factored panel and
+    apply its pivots to the host columns *outside* the panel (left of it:
+    already-written L; right of it: the not-yet-updated trailing columns),
+    accumulating the global permutation in scratch.
+
+    It runs when issued, on the host, after the executor has landed every
+    pending write-back; its stream has waited for the panel's GETRF.  On a
+    card the panel's copy into pinned staging runs while the host replays
+    the pivots.  ``st.seconds["row_swap_replay"]`` sums the host time of
+    the replays."""
+    A = st.outputs["A"]
+    n = A.shape[0]
+    buf = st.bufs[op.buffers_read[0]]
+    pw = buf.shape[1]
+    k0 = n - buf.shape[0]
+    k1 = k0 + pw
+    piv = st.scratch.pop(("piv", ref.index)).cpu()
+    perm = st.scratch.setdefault("perm", torch.arange(n))
+    done = None
+    if buf.device.type == "cuda":
+        stage = st.scratch.get("lu_stage")
+        if stage is None or stage.numel() < buf.numel():
+            stage = torch.empty(buf.numel(), dtype=buf.dtype,
+                                pin_memory=True)
+            st.scratch["lu_stage"] = stage
+        host = stage[:buf.numel()].view(buf.shape)
+        host.copy_(buf, non_blocking=True)
+        done = torch.cuda.Event()
+        done.record()
+    else:
+        host = buf
+    t0 = time.perf_counter()
+    st.scratch["lu_rows"] = apply_panel_pivots(A, piv, k0, k1, perm,
+                                               st.scratch.get("lu_rows"))
+    st.seconds["row_swap_replay"] = st.seconds.get("row_swap_replay", 0.0) \
+        + time.perf_counter() - t0
+    if done is not None:
+        done.synchronize()
+    A[k0:, k0:k1] = host
 
 
 @register_runtime("HBM")
@@ -733,7 +1005,7 @@ class VmemOocRuntime(OocRuntime):
         if block is not None:
             bm, bn, bk = block
         dev = self.torch_device
-        return kops.block_matmul(
+        return block_gemm(
             device_tensor(A, dev), device_tensor(B, dev),
             device_tensor(C, dev), alpha=alpha, beta=beta,
             block=(bm, bn, bk))

@@ -20,6 +20,8 @@ import repro_torch.core as T
 from repro_torch import direct_impls as D
 from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as kfa
+from repro_torch.core.ooc_factor import (_plan_factor_spec,
+                                         panel_workspace_bytes)
 from repro_torch.kernels.block_matmul import block_matmul, block_matmul_plain
 from _torch_helpers import overlap_schedule
 
@@ -567,3 +569,145 @@ def test_engine_streams_persist_across_concurrent_runs(card):
     assert streams[0] == streams[1]
     assert mallocs[1] == 0, mallocs
     assert torch.equal(outs[0], outs[1])
+
+
+# ------------------------------------------------------- factorizations
+def _factor_input(kind, n, seed):
+    rng = np.random.default_rng(seed)
+    M = rng.standard_normal((n, n))
+    if kind == "cholesky":
+        M = M @ M.T / n + np.eye(n)
+    return M.astype(np.float32)
+
+
+FACTORS = {"cholesky": T.ooc_cholesky, "lu": T.ooc_lu}
+
+
+def _factor_arrays(kind, res):
+    return res if kind == "lu" else (res,)
+
+
+def _card_budget(kind, n, panel, parity_bytes):
+    """A budget that leaves ``parity_bytes`` for the schedule's buffers on
+    the card once the panel ops' workspace is charged, so the card plans
+    as the CPU does at ``parity_bytes``."""
+    return panel_workspace_bytes(kind, n, panel, 4, "cuda") + parity_bytes
+
+
+@pytest.mark.parametrize("kind", ["cholesky", "lu"])
+def test_factorizations_match_the_cpu(card, kind):
+    """Out of core on the card (cuSOLVER panels, kernel 1 trailing blocks)
+    against the port on the CPU: the same pivots, the factor within the
+    reference tests' f32 tolerance (5e-6 of the largest entry for
+    Cholesky; LU by its reconstruction, whose values round apart more)."""
+    n, panel = 384, 96
+    A = _factor_input(kind, n, 31)
+    kw = dict(panel=panel, validate=True)
+    got = _factor_arrays(kind, FACTORS[kind](
+        A, budget_bytes=_card_budget(kind, n, panel, A.nbytes), **kw))
+    cpu = _factor_arrays(kind, FACTORS[kind](
+        A, budget_bytes=A.nbytes, torch_device="cpu", **kw))
+    assert all(t.device.type == "cpu" for t in got)
+    if kind == "cholesky":
+        scale = cpu[0].abs().max().item()
+        torch.testing.assert_close(got[0], cpu[0], rtol=0, atol=5e-6 * scale)
+        return
+    LU, perm = got
+    assert torch.equal(perm, cpu[1])
+    L = torch.tril(LU.double(), -1) + torch.eye(n, dtype=torch.float64)
+    rel = (torch.from_numpy(A).double()[perm] - L @ torch.triu(LU.double())
+           ).abs().max().item() / float(np.abs(A).max())
+    assert rel < 5e-6, rel
+    assert torch.tril(LU, -1).abs().max().item() <= 1.0 + 1e-6
+
+
+@pytest.mark.parametrize("kind", ["cholesky", "lu"])
+def test_factor_modes_and_loop_agree_bitwise(card, kind):
+    """The entry point, both executor modes (cold and warm) and the
+    ``backend="vmem"`` loop give the same bits: kernel 1 sums each trailing
+    element in one order whatever the blocks, and the panel ops see the
+    same panels.  Bytes equal ``schedule_stats`` and kernel 1 launches once
+    per ``dgemm`` op."""
+    n, panel = 512, 128
+    A = _factor_input(kind, n, 32)
+    budget = _card_budget(kind, n, panel, A.nbytes)
+    spec = _plan_factor_spec(kind, n, panel, budget, 4, 1, 2, "cuda")
+    stats = T.schedule_stats(T.compile_factor_pipeline(spec))
+    n_dgemm = sum(1 for op in T.compile_factor_pipeline(spec).ops
+                  if isinstance(op.payload, T.BlockRef)
+                  and op.payload.kernel == "dgemm")
+    first = _factor_arrays(kind, FACTORS[kind](A, panel=panel,
+                                               budget_bytes=budget))
+    for mode in ("issue_order", "concurrent"):
+        ex = T.ScheduleExecutor(mode=mode, record_spans=True)
+        for _ in range(2):
+            before = block_matmul.launches
+            got = _factor_arrays(kind, FACTORS[kind](
+                A, panel=panel, budget_bytes=budget, executor=ex))
+            assert block_matmul.launches - before == n_dgemm
+            assert (ex.last_h2d_bytes, ex.last_d2h_bytes) \
+                == (stats["h2d_bytes"], stats["d2h_bytes"])
+            assert all(torch.equal(a, b) for a, b in zip(got, first)), mode
+    loop = _factor_arrays(kind, FACTORS[kind](A, panel=panel,
+                                              budget_bytes=budget,
+                                              backend="vmem"))
+    assert all(torch.equal(a, b) for a, b in zip(loop, first))
+
+
+@pytest.mark.parametrize("backend", ["host", "vmem"])
+@pytest.mark.parametrize("mode", ["issue_order", "concurrent"])
+def test_cholesky_of_an_indefinite_matrix_raises(card, mode, backend):
+    """cuSOLVER's status is read after the run: a matrix that is not SPD
+    raises instead of returning a factor."""
+    A = _factor_input("cholesky", 384, 33)
+    A[300, 300] = -100.0
+    ex = T.ScheduleExecutor(mode=mode) if backend == "host" else None
+    with pytest.raises(torch.linalg.LinAlgError, match="POTRF"):
+        T.ooc_cholesky(A, panel=96,
+                       budget_bytes=_card_budget("cholesky", 384, 96,
+                                                 A.nbytes),
+                       backend=backend, executor=ex)
+
+
+@pytest.mark.parametrize("mode", ["issue_order", "concurrent"])
+@pytest.mark.parametrize("kind", ["cholesky", "lu"])
+def test_factor_peak_memory_within_budget(card, kind, mode):
+    """``budget_bytes`` covers the panel ops' device workspace (GETRF's
+    column-major panel copy, POTRF's factor, the libraries' workspace):
+    a run's peak device memory stays within it, on a fresh executor whose
+    ``concurrent`` streams are new to cuBLAS, and the schedule's buffers
+    take no more than what is left."""
+    n, panel = 4096, 512
+    A = _factor_input(kind, n, 35)
+    charged = panel_workspace_bytes(kind, n, panel, 4, "cuda")
+    budget = charged + A.nbytes // 4
+    ex = T.ScheduleExecutor(mode=mode)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    FACTORS[kind](A, panel=panel, budget_bytes=budget, executor=ex)
+    torch.cuda.synchronize()
+    peak = torch.cuda.max_memory_allocated() - base
+    assert peak <= budget, (peak, budget)
+    assert ex.last_buffer_bytes <= budget - charged
+
+
+@pytest.mark.parametrize("mode", ["issue_order", "concurrent"])
+def test_integer_and_mixed_operands_on_card(card, mode):
+    """Integer operands are exact and an f16 A with an f32 B returns f16,
+    on the host pipeline, the vmem backend and in core."""
+    rng = np.random.default_rng(34)
+    A = rng.integers(0, 5, (400, 200)).astype(np.int32)
+    B = rng.integers(0, 5, (200, 300)).astype(np.int32)
+    exact = A.astype(np.int64) @ B
+    rt = T.HostOocRuntime(executor=T.ScheduleExecutor(mode=mode))
+    for kw in (dict(runtime=rt, budget_bytes=300_000),
+               dict(backend="vmem", budget_bytes=300_000),
+               dict(budget_bytes=1 << 30)):
+        out = T.ooc_gemm(A, B, **kw)
+        assert out.dtype == torch.int32
+        np.testing.assert_array_equal(out.cpu().numpy(), exact)
+        h = T.ooc_gemm(A.astype(np.float16), B.astype(np.float32), **kw)
+        assert h.dtype == torch.float16
+        np.testing.assert_allclose(h.cpu().float().numpy(), exact,
+                                   rtol=2e-2, atol=2e-2)

@@ -157,14 +157,50 @@ def test_unknown_kernel_raises(mode):
         _run_port(sched, {"A": A, "B": B}, C, {}, mode=mode)
 
 
-@pytest.mark.parametrize("kind,item", [("cholesky", "item 5"),
-                                       ("lu", "item 5")])
-def test_handlers_outside_the_slice_raise(kind, item):
-    spec = T.factor_pipeline_spec(256, 128, 3 * 256 * 256 * 4, 4, kind=kind)
+def _factor_matrix(kind, n, seed):
+    rng = np.random.default_rng(seed)
+    M = rng.standard_normal((n, n))
+    if kind == "cholesky":
+        M = M @ M.T / n + np.eye(n)
+    return M.astype(np.float32)
+
+
+@pytest.mark.parametrize("mode", ["issue_order", "concurrent"])
+@pytest.mark.parametrize("kind,n,panel,lookahead", [
+    ("cholesky", 256, 64, 1), ("cholesky", 300, 96, 0),
+    ("lu", 256, 64, 1), ("lu", 300, 96, 0)])
+def test_factor_schedules_match_reference(kind, n, panel, lookahead, mode):
+    """The compiled Cholesky and LU schedules (panel handlers, ``dgemm``
+    trailing blocks, LU's ``lu_writeback`` finalizer) run on the port's
+    executor as on the reference's, on the same matrix: the factored
+    matrix within the reference's f32 tolerance of the reference's, LU's
+    permutation equal, bytes equal to ``schedule_stats``."""
+    A = _factor_matrix(kind, n, n + panel)
+    budget = 3 * A.nbytes // 2
+    spec = T.factor_pipeline_spec(n, panel, budget, 4, kind=kind,
+                                  lookahead=lookahead)
     sched = T.compile_factor_pipeline(spec)
-    operands, outputs = {}, {"A": np.eye(256, dtype=np.float32)}
-    with pytest.raises(NotImplementedError, match=item):
-        T.ScheduleExecutor(torch_device=CPU).run(sched, operands, outputs)
+    rsched = R.compile_factor_pipeline(R.factor_pipeline_spec(
+        n, panel, budget, 4, kind=kind, lookahead=lookahead))
+    ctx = {"alpha": -1.0, "beta": 1.0}
+    out = {"A": torch.from_numpy(A.copy())}
+    ex = T.ScheduleExecutor(torch_device=CPU, mode=mode)
+    st = ex.run(sched, {}, out, ctx)
+    ref = {"A": A.copy()}
+    rst = R.ScheduleExecutor().run(rsched, {}, ref, ctx)
+    stats = T.schedule_stats(sched)
+    assert (ex.last_h2d_bytes, ex.last_d2h_bytes) == (stats["h2d_bytes"],
+                                                      stats["d2h_bytes"])
+    got, want = out["A"].numpy(), ref["A"]
+    if kind == "cholesky":
+        got, want = np.tril(got), np.tril(want)
+        tol = 5e-6
+    else:
+        assert np.array_equal(st.scratch["perm"].numpy(),
+                              rst.scratch["perm"])
+        tol = 1e-4           # U's entries round apart by more (growth)
+    np.testing.assert_allclose(got, want, rtol=0,
+                               atol=tol * np.abs(want).max())
 
 
 def test_instance_handler_overrides_registry():

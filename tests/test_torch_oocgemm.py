@@ -288,3 +288,59 @@ def test_bf16_host_arrays_enter_the_port(entry):
         got = rt.gemm(A, B, C, 1.5, 0.5, part)
     assert got.dtype == torch.bfloat16
     assert torch.equal(got, want)
+
+
+# Integer and mixed-dtype operands, as the reference takes them: its block
+# GEMM is a float32 dot cast to C's dtype, and C defaults to zeros of A's
+# dtype.  400x200 @ 200x300 under 300,000 B is out of core on the host and
+# vmem backends; a 1 GiB budget takes the in-core path.
+MIXED_PATHS = {"host": dict(budget_bytes=300_000, backend="host"),
+               "vmem": dict(budget_bytes=300_000, backend="vmem"),
+               "in_core": dict(budget_bytes=1 << 30, backend="host")}
+
+
+@pytest.mark.parametrize("path", list(MIXED_PATHS))
+def test_integer_operands_are_exact(path):
+    rng = np.random.default_rng(71)
+    A = rng.integers(0, 5, (400, 200)).astype(np.int32)
+    B = rng.integers(0, 5, (200, 300)).astype(np.int32)
+    kw = MIXED_PATHS[path]
+    assert T.is_in_core(400, 300, 200, kw["budget_bytes"], 4) \
+        == (path == "in_core")
+    ref = np.asarray(R.ooc_gemm(A, B, **kw))
+    out = T.ooc_gemm(A, B, torch_device=CPU, **kw)
+    assert out.dtype == torch.int32 and ref.dtype == np.int32
+    np.testing.assert_array_equal(out.numpy(), A.astype(np.int64) @ B)
+    np.testing.assert_array_equal(out.numpy(), ref)
+
+
+@pytest.mark.parametrize("path", list(MIXED_PATHS))
+def test_integer_syrk_is_exact(path):
+    rng = np.random.default_rng(73)
+    P = rng.integers(0, 5, (300, 100)).astype(np.int32)
+    kw = dict(MIXED_PATHS[path])
+    if path != "in_core":
+        kw["budget_bytes"] = 200_000
+    ref = np.asarray(R.ooc_syrk(P, **kw))
+    out = T.ooc_syrk(P, torch_device=CPU, **kw)
+    assert out.dtype == torch.int32 and ref.dtype == np.int32
+    np.testing.assert_array_equal(out.numpy(), P.astype(np.int64) @ P.T)
+    np.testing.assert_array_equal(out.numpy(), ref)
+
+
+@pytest.mark.parametrize("path", list(MIXED_PATHS))
+def test_half_times_float_returns_half(path):
+    """An f16 A with an f32 B is computed in float32 and returned in f16
+    (C's default dtype, A's), within the reference's 16-bit tolerance."""
+    rng = np.random.default_rng(72)
+    A = rng.standard_normal((400, 200)).astype(np.float16)
+    B = rng.standard_normal((200, 300)).astype(np.float32)
+    kw = MIXED_PATHS[path]
+    ref = np.asarray(R.ooc_gemm(A, B, **kw))
+    out = T.ooc_gemm(A, B, torch_device=CPU, **kw)
+    assert out.dtype == torch.float16 and ref.dtype == np.float16
+    np.testing.assert_allclose(out.float().numpy(), ref.astype(np.float32),
+                               rtol=HALF_TOL, atol=HALF_TOL)
+    exact = A.astype(np.float64) @ B
+    np.testing.assert_allclose(out.float().numpy(), exact, rtol=HALF_TOL,
+                               atol=HALF_TOL)
