@@ -66,7 +66,22 @@ printing any result.  Phases (each raises on failure; none is skipped):
      against its plain version on the operands of every ``dgemm`` op as
      the executor stages them, a float64 Cholesky and an LU residual on the
      card, and each run's wall, transfer, panel-op, row-swap-replay and
-     idle times.
+     idle times;
+ 10. fault injection and recovery (``[fault]`` lines; after phase 9, on
+     phase 3's and phase 9's inputs and results): ``ooc_gemm`` at 24576^3
+     f32 under 2 GiB under ``FaultPlan.random(seed 0, rate 0.1)`` over
+     transfer and compute faults, under an empty plan and under an oom at
+     the first compute (the degrade ladder); ``ooc_cholesky`` and
+     ``ooc_lu`` at n = 24576 under 1 GiB under ``FaultPlan.random(seed 0,
+     rate 0.02)``, and Cholesky under an oom.  Each beside a clean run of
+     the same call: every result bit for bit equal to the clean one, the
+     ladders' rungs, ``last_fault_stats`` with the replayed bytes and ops
+     against the plan's static derivation, nominal bytes against
+     ``schedule_stats``, kernel 1's launches (one per ``dgemm`` op plus
+     the replayed ones), the snapshot bytes, and peak device memory
+     within the parity buffers, the snapshots and the panel ops'
+     workspace (its excess over the budget printed).  Backoff sleeps are
+     a no-op here.
 
 With ``--baseline DIR`` (another checkout, e.g. ``git archive`` of the
 parent commit unpacked into a directory ``.gitignore`` lists), phase 5 is
@@ -938,6 +953,7 @@ def factor_case(gen, report, kind):
                   f"{ratio:.3g} (limit 1); the checking run == the timed "
                   f"runs bitwise")
     factor_oracle(kind, A, first, n)
+    return A, first
 
 
 def factor_oracle(kind, A, res, n):
@@ -994,9 +1010,283 @@ def factor_oracle(kind, A, res, n):
 
 
 def phase_factor(gen, report):
-    """Phase 9: the factorizations on the card."""
-    for kind in ("cholesky", "lu"):
-        factor_case(gen, report, kind)
+    """Phase 9: the factorizations on the card; returns each one's input
+    and result by kind."""
+    return {kind: factor_case(gen, report, kind)
+            for kind in ("cholesky", "lu")}
+
+
+# ---------------------------------------------------------------------------
+# Phase 10: fault injection and recovery on the main paths ([fault] lines)
+# ---------------------------------------------------------------------------
+MMOOC_FAULT_RATE, FACTOR_FAULT_RATE = 0.1, 0.02
+
+
+class FaultCapture:
+    """A ``faults=`` factory: draws ``FaultPlan.random(seed, sched, rate)``
+    (or, with ``oom``, one oom at the first compute op) on the schedule the
+    entry point builds, and keeps that schedule and the injector."""
+
+    def __init__(self, seed=0, rate=0.0, oom=False):
+        self.seed, self.rate, self.oom = seed, rate, oom
+        self.sched = self.inj = None
+
+    def __call__(self, sched):
+        from repro_torch.core import OpKind
+        from repro_torch.fault import FaultPlan, FaultSpec
+
+        self.sched = sched
+        if self.oom:
+            first = next(i for i, op in enumerate(sched.ops)
+                         if op.kind == OpKind.COMPUTE)
+            plan = FaultPlan(specs=(FaultSpec(op=first, cls="oom"),))
+        else:
+            plan = FaultPlan.random(self.seed, sched, self.rate)
+        self.inj = plan.injector()
+        return self.inj
+
+
+def replayed_dgemms(sched, injected):
+    """Kernel 1's launches beyond one per ``dgemm`` op: the ``dgemm`` ops
+    of the redo-set of each injected compute fault (its faulted attempt
+    and the chain re-run before its clean one)."""
+    from repro_torch.fault import redo_set
+
+    return sum(sum(1 for j in redo_set(sched, i)
+                   if sched.ops[j].payload.kernel == "dgemm")
+               for i, cls in injected if cls == "compute_nan")
+
+
+def check_faulted(tag, ex, cap, launches, peak, extra_bytes, budget,
+                  clean_wall, report):
+    """The checks every faulted run must pass, and its ``[fault]`` line:
+    ``replayed_h2d_bytes`` and ``replayed_ops`` against the static
+    derivation from the plan, the nominal bytes against ``schedule_stats``,
+    kernel 1's launches (one per ``dgemm`` op plus the replayed ones) and
+    peak device memory within the parity buffers, the snapshots and
+    ``extra_bytes`` (the panel ops' workspace)."""
+    from repro_torch.core import OpKind, schedule_stats
+    from repro_torch.fault import redo_set
+
+    sched, injected = cap.sched, cap.inj.injected
+    fs = ex.last_fault_stats
+    stats = schedule_stats(sched)
+    want_h2d = sum(sched.ops[i].bytes for i, c in injected
+                   if c == "h2d_error" and sched.ops[i].kind == OpKind.H2D)
+    want_ops = sum(len(redo_set(sched, i)) for i, c in injected
+                   if c == "compute_nan")
+    want_k1 = dgemm_ops(sched) + replayed_dgemms(sched, injected)
+    require(cap.inj.exhausted() and fs["injected"] == len(injected),
+            f"{tag}: {fs['injected']} injected, the plan holds "
+            f"{len(injected)}")
+    require(fs["replayed_h2d_bytes"] == want_h2d,
+            f"{tag}: replayed_h2d_bytes {fs['replayed_h2d_bytes']}, the "
+            f"injected H2D ops hold {want_h2d} B")
+    require(fs["replayed_ops"] == want_ops,
+            f"{tag}: replayed_ops {fs['replayed_ops']}, the redo-sets of "
+            f"the injected compute faults hold {want_ops}")
+    require((ex.last_h2d_bytes, ex.last_d2h_bytes)
+            == (stats["h2d_bytes"], stats["d2h_bytes"]),
+            f"{tag}: moved {ex.last_h2d_bytes}/{ex.last_d2h_bytes} B, "
+            f"schedule_stats says {stats['h2d_bytes']}/{stats['d2h_bytes']}")
+    require(launches == want_k1,
+            f"{tag}: {launches} kernel-1 launches, expected {want_k1} "
+            f"(dgemm ops + replayed dgemm ops)")
+    parity, snaps = ex.last_buffer_bytes, ex.last_snapshot_bytes
+    slack = 64 * 2**20
+    require(peak <= parity + snaps + extra_bytes + slack,
+            f"{tag}: peak device memory {peak} B above parity {parity} B + "
+            f"snapshots {snaps} B + workspace {extra_bytes} B + {slack} B")
+    wall = ex.last_wall_seconds
+    row = {"run": tag, "wall_s": wall, "clean_wall_s": clean_wall,
+           "fault_stats": fs, "injected": len(injected),
+           "launches": launches, "snapshot_bytes": snaps,
+           "parity_bytes": parity, "workspace_bytes": extra_bytes,
+           "peak_bytes": peak, "budget_bytes": budget,
+           "over_budget_bytes": max(0, peak - budget)}
+    report["fault"].append(row)
+    say("fault", f"{tag}: {wall:.3f} s wall against {clean_wall:.3f} s "
+                 f"clean (same call, same executor; backoff sleep is a "
+                 f"no-op); last_fault_stats {json.dumps(fs)}; replayed "
+                 f"H2D bytes = the injected H2D ops' ({want_h2d} B), "
+                 f"replayed ops = their redo-sets' ({want_ops}), nominal "
+                 f"bytes = schedule_stats; kernel 1 {launches} launches = "
+                 f"{dgemm_ops(sched)} dgemm ops + "
+                 f"{launches - dgemm_ops(sched)} replayed; snapshots "
+                 f"{snaps} B; peak {peak} B <= parity {parity} B + "
+                 f"snapshots + workspace {extra_bytes} B + 64 MiB, "
+                 f"{peak / budget:.3f}x the budget "
+                 f"({max(0, peak - budget)} B over)")
+    return row
+
+
+def measured(fn):
+    """``fn()`` with kernel 1's launches counted and device memory's peak
+    above what was allocated before: (result, launches, peak bytes)."""
+    from repro_torch.kernels.block_matmul import block_matmul
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    zero_counts(block_matmul)
+    out = fn()
+    torch.cuda.synchronize()
+    return out, block_matmul.launches, \
+        torch.cuda.max_memory_allocated() - base
+
+
+def phase_faults(report, A, B, C, host_out, params, factors):
+    """Phase 10: ``ooc_gemm`` at 24576^3 f32 under 2 GiB (phase 3's
+    operands and result) under ``FaultPlan.random(seed 0, rate 0.1)`` over
+    transfer and compute faults, under an empty plan (the armed path, no
+    injection) and under an oom at the first compute op (the degrade
+    ladder); then ``ooc_cholesky``/``ooc_lu`` at n = 24576 under 1 GiB
+    (phase 9's inputs and results) under ``FaultPlan.random(seed 0, rate
+    0.02)``, and Cholesky under an oom.  Every result bit for bit equal to
+    the clean one; each faulted run's checks in :func:`check_faulted`."""
+    from repro_torch.core import (HostOocRuntime, ScheduleExecutor,
+                                  build_gemm_schedule,
+                                  compile_factor_pipeline, ooc_cholesky,
+                                  ooc_gemm, ooc_lu, plan_gemm_partition)
+    from repro_torch.core.ooc_factor import (_plan_factor_spec,
+                                             panel_workspace_bytes)
+    from repro_torch.fault import FaultPolicy
+    from repro_torch.kernels.block_matmul import block_matmul
+
+    def policy():
+        return FaultPolicy(sleep=lambda s: None)
+
+    alpha, beta, budget = params
+    M, K = A.shape
+    N = B.shape[1]
+    part = plan_gemm_partition(M, N, K, budget, 4)
+    ws = part.working_set_bytes(nbuf=2, nstreams=2)
+    ex = ScheduleExecutor()
+    rt = HostOocRuntime(executor=ex)
+
+    def gemm(**kw):
+        return ooc_gemm(A, B, C, alpha, beta, budget_bytes=budget,
+                        backend="host", nstreams=2, nbuf=2, runtime=rt, **kw)
+
+    out, launches, peak = measured(gemm)
+    require(torch.equal(out, host_out), "fault phase: the clean MMOOC run "
+                                        "differs from phase 3's")
+    require(peak <= ws + 64 * 2**20,
+            f"fault phase: clean MMOOC peak {peak} B above the working set "
+            f"{ws} B + 64 MiB")
+    clean_wall = ex.last_wall_seconds
+    say("fault", f"mmooc {M}x{N}x{K} f32 under {budget} B, clean "
+                 f"(issue_order, the path a faulted run takes): "
+                 f"{clean_wall:.3f} s wall, "
+                 f"{launches} launches, peak {peak} B <= working set {ws} B "
+                 f"+ 64 MiB, == phase 3 bitwise")
+    for name, cap, key in (
+            (f"mmooc FaultPlan.random(seed 0, rate {MMOOC_FAULT_RATE})",
+             FaultCapture(0, MMOOC_FAULT_RATE), "fault_host"),
+            ("mmooc empty FaultPlan (armed, nothing injected)",
+             FaultCapture(0, 0.0), "fault_host_empty")):
+        out, launches, peak = measured(lambda: gemm(
+            faults=cap, fault_policy=policy()))
+        read_counts(block_matmul, report, key)
+        require(torch.equal(out, host_out),
+                f"{name}: differs from phase 3's result")
+        check_faulted(name, ex, cap, launches, peak, 0, budget, clean_wall,
+                      report)
+        say("fault", f"{name}: == phase 3's result bitwise")
+        del out
+    pol = policy()
+    cap = FaultCapture(oom=True)
+    out, launches, peak = measured(lambda: gemm(faults=cap,
+                                                fault_policy=pol))
+    read_counts(block_matmul, report, "fault_host_oom")
+    rungs = [d.action for d in pol.degrades]
+    sched1 = build_gemm_schedule(part, nstreams=2, nbuf=1)
+    require(rungs == ["halve_nbuf"], f"mmooc oom: ladder {rungs}")
+    require(torch.equal(out, host_out), "mmooc oom: the degraded re-run "
+                                        "differs from phase 3's result")
+    require(launches == dgemm_ops(sched1),
+            f"mmooc oom: {launches} launches, the nbuf=1 re-run has "
+            f"{dgemm_ops(sched1)} dgemm ops")
+    require(peak <= ws + 64 * 2**20,
+            f"mmooc oom: peak {peak} B above the nbuf=2 working set {ws} B "
+            f"+ 64 MiB (the aborted run's buffers must be freed before the "
+            f"re-run)")
+    report["fault"].append({"run": "mmooc oom", "rungs": rungs,
+                            "wall_s": ex.last_wall_seconds,
+                            "launches": launches, "peak_bytes": peak})
+    say("fault", f"mmooc oom at the first compute: ladder {rungs}, the "
+                 f"nbuf=1 re-run {ex.last_wall_seconds:.3f} s wall, "
+                 f"{launches} launches, peak {peak} B (the aborted run's "
+                 f"included) <= working set {ws} B + 64 MiB, == phase 3 "
+                 f"bitwise")
+    del out
+
+    n, pw, fbudget = FACTOR_N, FACTOR_PANEL, FACTOR_BUDGET
+    for kind, entry in (("cholesky", ooc_cholesky), ("lu", ooc_lu)):
+        Af, first = factors[kind]
+        ws_f = panel_workspace_bytes(kind, n, pw, 4, "cuda")
+        fex = ScheduleExecutor()
+
+        def factor(**kw):
+            res = entry(Af, pw, budget_bytes=fbudget, lookahead=1,
+                        nstreams=2, nbuf=2, executor=fex, **kw)
+            return res if isinstance(res, tuple) else (res,)
+
+        res, launches, peak = measured(factor)
+        require(all(torch.equal(a, b) for a, b in zip(res, first)),
+                f"{kind}: the clean run differs from phase 9's")
+        require(peak <= fbudget, f"{kind}: clean peak {peak} B above the "
+                                 f"budget {fbudget} B")
+        clean_wall = fex.last_wall_seconds
+        say("fault", f"{kind} n={n} f32 under {fbudget} B, panel {pw}, "
+                     f"clean: {clean_wall:.3f} s wall, {launches} launches, "
+                     f"peak {peak} B <= budget, == phase 9 bitwise")
+        del res
+        name = f"{kind} FaultPlan.random(seed 0, rate {FACTOR_FAULT_RATE})"
+        cap = FaultCapture(0, FACTOR_FAULT_RATE)
+        res, launches, peak = measured(lambda: factor(
+            faults=cap, fault_policy=policy()))
+        read_counts(block_matmul, report, f"fault_{kind}")
+        require(all(torch.equal(a, b) for a, b in zip(res, first)),
+                f"{name}: differs from phase 9's result")
+        check_faulted(name, fex, cap, launches, peak, ws_f, fbudget,
+                      clean_wall, report)
+        say("fault", f"{name}: == phase 9's result bitwise")
+        del res
+        if kind != "cholesky":
+            continue
+        pol = policy()
+        cap = FaultCapture(oom=True)
+        res, launches, peak = measured(lambda: factor(faults=cap,
+                                                      fault_policy=pol))
+        read_counts(block_matmul, report, "fault_cholesky_oom")
+        rungs = [(d.action, d.nbuf, d.lookahead, d.budget_bytes)
+                 for d in pol.degrades]
+        spec1 = _plan_factor_spec(kind, n, pw, pol.degrades[-1].budget_bytes,
+                                  4, pol.degrades[-1].lookahead,
+                                  pol.degrades[-1].nbuf, "cuda")
+        sched1 = compile_factor_pipeline(spec1, nstreams=2,
+                                         nbuf=pol.degrades[-1].nbuf)
+        require(rungs[0][0] == "halve_nbuf", f"cholesky oom: ladder {rungs}")
+        require(all(torch.equal(a, b) for a, b in zip(res, first)),
+                "cholesky oom: the degraded re-run differs from phase 9's "
+                "result")
+        require(launches == dgemm_ops(sched1),
+                f"cholesky oom: {launches} launches, the re-run's schedule "
+                f"has {dgemm_ops(sched1)} dgemm ops")
+        require(peak <= fbudget,
+                f"cholesky oom: peak {peak} B above the budget {fbudget} B")
+        report["fault"].append({"run": "cholesky oom", "rungs": rungs,
+                                "wall_s": fex.last_wall_seconds,
+                                "launches": launches, "peak_bytes": peak})
+        say("fault", f"cholesky oom at the first compute: rungs (action, "
+                     f"nbuf, lookahead, budget) {rungs}; the re-run plans "
+                     f"{spec1.bm}x{spec1.bn} trailing blocks, "
+                     f"{fex.last_wall_seconds:.3f} s wall, {launches} "
+                     f"launches, peak {peak} B <= budget, == phase 9 "
+                     f"bitwise (kernel 1 sums K = panel in one order "
+                     f"whatever the blocks)")
+        del res
 
 
 def phase_vmem_syrk(gen, report, A, B, C, host_out, params):
@@ -1539,7 +1829,9 @@ def launches_of(report, paths, dt):
 
 # the paths that launch kernel 1, each driven with its counts set to 0
 BLOCK_MATMUL_PATHS = ("host", "in_core", "vmem", "syrk_host", "direct_host",
-                      "host_bf16", "in_core_bf16", "cholesky", "lu")
+                      "host_bf16", "in_core_bf16", "cholesky", "lu",
+                      "fault_host", "fault_host_empty", "fault_host_oom",
+                      "fault_cholesky", "fault_cholesky_oom", "fault_lu")
 
 
 def phase_timing(gen, report, card):
@@ -1811,6 +2103,7 @@ def main(argv=None) -> int:
     phase_kernels_attention(gen)
     phase_kernels_direct(gen)
     report = {"main_path": [], "attention": [], "c1": [], "factor": [],
+              "fault": [],
               "factor_panel_ms": {}, "factor_dgemm_check": {},
               "launches": {}, "launches_by_dtype": {}}
     A, B, C, host_out, params = phase_main(gen, report)
@@ -1818,10 +2111,11 @@ def main(argv=None) -> int:
     phase_c1(gen, report, A, B, C, host_out, params)
     if args.baseline:
         phase_baseline(gen, report, card, args.baseline, A, B, C, params)
-    del A, B, C, host_out
     phase_attention(gen, report)
     phase_main_bf16(gen, report, args.baseline)
-    phase_factor(gen, report)
+    factors = phase_factor(gen, report)
+    phase_faults(report, A, B, C, host_out, params, factors)
+    del A, B, C, host_out, factors
     entries = [*phase_timing(gen, report, card),
                phase_timing_attention(gen, report, card),
                phase_timing_direct(gen, report, card)]
@@ -1832,6 +2126,7 @@ def main(argv=None) -> int:
                       "factor": report["factor"],
                       "factor_panel_ms": report["factor_panel_ms"],
                       "factor_dgemm_check": report["factor_dgemm_check"],
+                      "fault": report["fault"],
                       "baseline": report.get("baseline"),
                       "baseline_bf16": report.get("baseline_bf16"),
                       "card": card}))

@@ -1,12 +1,12 @@
 """hcl-prefixed facade — the paper's API surface over the port.
 
 Port of ``src/repro/core/api.py`` for what this slice has: devices,
-runtimes, streams, the partitioner, the pipeline compiler, the executor
-and observability.  Tier sizes are the card's own
-(:func:`~repro_torch.core.runtime.tier_bytes`): ``HBM`` is the device
-memory, ``VMEM`` the shared memory a block may use.  Without a card the
-caller passes ``mem_bytes``.  The hybrid, analysis, tuner and fault
-facades arrive with their ROADMAP module items (8, 9, 7, 6).
+runtimes, streams, the partitioner, the pipeline compiler, the executor,
+observability, the factorizations and the fault policy.  Tier sizes are
+the card's own (:func:`~repro_torch.core.runtime.tier_bytes`): ``HBM`` is
+the device memory, ``VMEM`` the shared memory a block may use.  Without a
+card the caller passes ``mem_bytes``.  The hybrid, analysis and tuner facades
+arrive with their ROADMAP module items (8, 9, 7).
 """
 
 from __future__ import annotations
@@ -119,3 +119,19 @@ def hclOocFactor(A, kind: str = "cholesky", **kw):
         return ooc_lu(A, **kw)
     raise ValueError(f"unknown factor kind {kind!r}; expected "
                      f"'cholesky' or 'lu'")
+
+
+def hclFaultPolicy(**kw):
+    """Facade over :class:`repro_torch.fault.FaultPolicy` (DESIGN.md §12):
+    the recovery knobs every resilient entry point shares — transfer retry
+    count and exponential backoff, and the oom degrade ladder's depth.
+
+        pol = hclFaultPolicy(max_retries=5, backoff_base=0.02)
+        C = ooc_gemm(A, B, budget_bytes=..., faults=plan, fault_policy=pol)
+
+    Pair with a :class:`~repro_torch.fault.FaultPlan` (deterministic,
+    seeded, schedule-addressable) passed as ``faults=`` to ``ooc_gemm`` /
+    ``ooc_syrk`` / ``ooc_cholesky`` / ``ooc_lu``."""
+    from repro_torch.fault import FaultPolicy
+
+    return FaultPolicy(**kw)

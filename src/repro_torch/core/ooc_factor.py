@@ -41,9 +41,15 @@ computed; with no card the caller passes ``torch_device="cpu"``.
 :class:`~repro_torch.core.runtime.ScheduleExecutor` (its mode, spans and
 device).
 
-Not in this slice: ``tune="auto"`` and ``tuner=`` (ROADMAP module item 7),
-``devices=`` and ``tolerance=`` (item 8) and ``faults=``/``fault_policy=``
-with the oom degrade ladder (item 6); each raises ``NotImplementedError``.
+``faults=``/``fault_policy=`` (host backend) arm fault injection on the
+executor (``repro_torch.fault``); an oom, injected, walks the degrade
+ladder (halve nbuf, drop lookahead, halve the budget), each rung planned
+through :func:`_plan_factor_spec` (on a card, with the panel ops'
+workspace charged), and re-executes clean.
+
+Not in this slice: ``tune="auto"`` and ``tuner=`` (ROADMAP module item 7)
+and ``devices=`` and ``tolerance=`` (item 8); each raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -116,7 +122,7 @@ def _plan_factor_spec(kind: str, n: int, panel: int, budget_bytes: int,
 def _run_factor(A: torch.Tensor, spec: FactorPipelineSpec, nstreams: int,
                 nbuf: int, validate: bool, evict: str = "lru",
                 executor: Optional[ScheduleExecutor] = None,
-                torch_device=None):
+                torch_device=None, faults=None, policy=None):
     """Compile + execute the factor schedule over a copy of ``A``; returns
     (factored matrix, executor state) — LU's permutation rides in scratch.
 
@@ -134,7 +140,8 @@ def _run_factor(A: torch.Tensor, spec: FactorPipelineSpec, nstreams: int,
         trace_group=f"factor:{spec.kind}", torch_device=torch_device)
     state = ex.run(
         sched, operands={}, outputs={"A": out},
-        ctx={"alpha": -1.0, "beta": 1.0, "panel": spec.panel, "n": spec.n})
+        ctx={"alpha": -1.0, "beta": 1.0, "panel": spec.panel, "n": spec.n},
+        faults=faults, policy=policy)
     if obs.metrics.enabled:
         kernel = f"{spec.kind}-factor"
         obs.metrics.gauge(
@@ -148,6 +155,51 @@ def _run_factor(A: torch.Tensor, spec: FactorPipelineSpec, nstreams: int,
     return out, state
 
 
+def _run_factor_resilient(A: torch.Tensor, kind: str,
+                          spec: FactorPipelineSpec, nstreams: int, nbuf: int,
+                          validate: bool, evict: str, *, faults, policy,
+                          panel: int, budget_bytes: int,
+                          executor: Optional[ScheduleExecutor],
+                          torch_device):
+    """:func:`_run_factor` with the oom degrade ladder (DESIGN.md §12)
+    around it: an injected oom aborts the run, after which successive
+    rungs — halve nbuf, drop lookahead, halve the budget — replan through
+    :func:`_plan_factor_spec` until one executes.  The degraded re-run is
+    fault-free: the oom occurrence was consumed by the failed attempt.
+    Every attempted rung is recorded in ``policy.degrades``."""
+    run = dict(executor=executor, torch_device=torch_device)
+    if faults is None:
+        return _run_factor(A, spec, nstreams, nbuf, validate, evict, **run)
+    from repro_torch.fault.errors import OomError
+    from repro_torch.fault.policy import FaultPolicy
+    policy = policy or FaultPolicy()
+    try:
+        return _run_factor(A, spec, nstreams, nbuf, validate, evict,
+                           faults=faults, policy=policy, **run)
+    except OomError as e:
+        # without its traceback, whose frames hold the failed run's device
+        # buffers until the re-run would have ended
+        oom = e.with_traceback(None)
+    obs = get_observability()
+    n = A.shape[0]
+    kernel = f"{kind}-factor"
+    for step in policy.degrade_ladder(nbuf=nbuf, lookahead=spec.lookahead,
+                                      budget_bytes=budget_bytes):
+        policy.degrades.append(step)
+        obs.instant(f"fault:degrade:{step.action}", kernel=kernel)
+        try:
+            spec2 = _plan_factor_spec(
+                kind, n, panel, step.budget_bytes, A.element_size(),
+                step.lookahead, step.nbuf, torch_device)
+            result = _run_factor(A, spec2, nstreams, step.nbuf, validate,
+                                 evict, **run)
+        except ValueError:
+            continue
+        obs.record_fault_recovery(kernel, "degrade")
+        return result
+    raise oom
+
+
 def _check_square(A: torch.Tensor) -> int:
     n = A.shape[0]
     if A.dim() != 2 or tuple(A.shape) != (n, n):
@@ -155,10 +207,9 @@ def _check_square(A: torch.Tensor) -> int:
     return n
 
 
-def _prepare(A, backend, tune, tuner, devices, tolerance, faults,
-             fault_policy, executor, torch_device
-             ) -> Tuple[torch.Tensor, int, torch.device]:
-    _check_slice(backend, tune, devices, faults, fault_policy)
+def _prepare(A, backend, tune, tuner, devices, tolerance, faults, executor,
+             torch_device) -> Tuple[torch.Tensor, int, torch.device]:
+    _check_slice(backend, tune, devices, faults)
     if tuner is not None:
         raise not_ported("tune")
     if tolerance is not None:
@@ -196,14 +247,16 @@ def ooc_cholesky(A, panel: int = 256, *, budget_bytes: int,
     ~1e-15), as in the reference.
     """
     A, n, dev = _prepare(A, backend, tune, tuner, devices, tolerance,
-                         faults, fault_policy, executor, torch_device)
+                         faults, executor, torch_device)
     if backend != "host":
         with prefer_cusolver(dev):
             return _loop_cholesky(A, panel, budget_bytes, backend, dev)
     spec = _plan_factor_spec("cholesky", n, panel, budget_bytes,
                              A.element_size(), lookahead, nbuf, dev)
-    out, _ = _run_factor(A, spec, nstreams, nbuf, validate, evict=evict,
-                         executor=executor, torch_device=dev)
+    out, _ = _run_factor_resilient(
+        A, "cholesky", spec, nstreams, nbuf, validate, evict, faults=faults,
+        policy=fault_policy, panel=panel, budget_bytes=budget_bytes,
+        executor=executor, torch_device=dev)
     return torch.tril(out)
 
 
@@ -234,14 +287,16 @@ def ooc_lu(A, panel: int = 256, *, budget_bytes: int,
     computed in float32.
     """
     A, n, dev = _prepare(A, backend, tune, tuner, devices, tolerance,
-                         faults, fault_policy, executor, torch_device)
+                         faults, executor, torch_device)
     if backend != "host":
         with prefer_cusolver(dev):
             return _loop_lu(A, panel, budget_bytes, backend, dev)
     spec = _plan_factor_spec("lu", n, panel, budget_bytes,
                              A.element_size(), lookahead, nbuf, dev)
-    out, state = _run_factor(A, spec, nstreams, nbuf, validate, evict=evict,
-                             executor=executor, torch_device=dev)
+    out, state = _run_factor_resilient(
+        A, "lu", spec, nstreams, nbuf, validate, evict, faults=faults,
+        policy=fault_policy, panel=panel, budget_bytes=budget_bytes,
+        executor=executor, torch_device=dev)
     return out, state.scratch.get("perm", torch.arange(n))
 
 

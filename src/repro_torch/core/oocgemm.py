@@ -19,9 +19,14 @@ versions).  The host backend takes and returns host data (numpy arrays or
 CPU tensors in, a CPU tensor out); the vmem backend moves its operands to
 the device and returns a device tensor.
 
+``faults=``/``fault_policy=`` (host backend) arm fault injection on the
+executor (``repro_torch.fault``): transfer faults retry, compute faults
+replay, and an injected oom in ``ooc_gemm`` walks the degrade ladder
+(halve nbuf, then halve the budget) and re-executes clean.
+
 Not in this slice: ``tune="auto"`` (ROADMAP module item 7), ``devices=``
-(item 8), ``faults=``/``fault_policy=`` (item 6) and ``backend="mesh"``
-(item 10); each raises ``NotImplementedError``.
+(item 8) and ``backend="mesh"`` (item 10); each raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -37,6 +42,7 @@ from repro_torch.core.runtime import (HostOocRuntime, OocRuntime,
                                       device_tensor, host_tensor, not_ported,
                                       resolve_device)
 from repro_torch.core.streams import Device, validate_schedule
+from repro_torch.obs import get_observability
 
 
 def is_in_core(M: int, N: int, K: int, budget_bytes: int,
@@ -45,15 +51,17 @@ def is_in_core(M: int, N: int, K: int, budget_bytes: int,
     return (M * K + K * N + M * N) * bytes_per_el <= budget_bytes
 
 
-def _check_slice(backend: str, tune, devices, faults, fault_policy) -> None:
+def _check_slice(backend: str, tune, devices, faults) -> None:
     if tune not in (None, "auto"):
         raise ValueError(f"unknown tune mode {tune!r}; expected None/'auto'")
     if tune == "auto":
         raise not_ported("tune")
+    if faults is not None and (devices is not None or backend != "host"):
+        raise ValueError("fault injection is supported on the host "
+                         "pipeline backend only (hybrid paths take "
+                         "fault_plans on run_hybrid_*)")
     if devices is not None:
         raise not_ported("devices")
-    if faults is not None or fault_policy is not None:
-        raise not_ported("faults")
     if backend == "mesh":
         raise not_ported("MESH")
     if backend not in ("host", "vmem"):
@@ -82,6 +90,45 @@ def _in_core(A, B, C, alpha, beta, backend: str, dev: torch.device
     out = block_gemm(device_tensor(A, dev), device_tensor(B, dev),
                      device_tensor(C, dev), alpha=alpha, beta=beta)
     return out.cpu() if backend == "host" else out
+
+
+def _host_gemm_resilient(rt, A, B, C, alpha, beta, part, sched, *, faults,
+                         policy, nstreams, nbuf, traversal, evict,
+                         budget_bytes, bpe) -> torch.Tensor:
+    """Host-backend GEMM under fault injection with the oom degrade ladder
+    (DESIGN.md §12): an injected oom aborts the run, then halve-nbuf /
+    halve-budget rungs replan, rebuild the schedule and re-execute clean.
+    The attempted rungs are recorded in ``policy.degrades``."""
+    from repro_torch.fault.errors import OomError
+    from repro_torch.fault.policy import FaultPolicy
+
+    M, K = A.shape
+    N = B.shape[1]
+    policy = policy or FaultPolicy()
+    try:
+        return rt.gemm(A, B, C, alpha, beta, part, schedule=sched,
+                       faults=faults, policy=policy)
+    except OomError as e:
+        # without its traceback, whose frames hold the failed run's device
+        # buffers until the re-run would have ended
+        oom = e.with_traceback(None)
+    obs = get_observability()
+    for step in policy.degrade_ladder(nbuf=nbuf, lookahead=0,
+                                      budget_bytes=budget_bytes):
+        policy.degrades.append(step)
+        obs.instant(f"fault:degrade:{step.action}", kernel="gemm")
+        try:
+            part2 = plan_gemm_partition(M, N, K, step.budget_bytes, bpe)
+            sched2 = plib.build_gemm_schedule(
+                part2, nstreams=nstreams, nbuf=step.nbuf,
+                traversal=traversal, evict=evict)
+            # clean re-run: the oom occurrence was consumed above
+            out = rt.gemm(A, B, C, alpha, beta, part2, schedule=sched2)
+        except ValueError:
+            continue
+        obs.record_fault_recovery("gemm", "degrade")
+        return out
+    raise oom
 
 
 def ooc_gemm(
@@ -118,8 +165,15 @@ def ooc_gemm(
     runtime: a prepared :class:`HostOocRuntime` / :class:`VmemOocRuntime`
     (for instance one whose executor runs ``mode="concurrent"``); its torch
     device is used.
+
+    faults / fault_policy (host backend): a :class:`~repro_torch.fault.
+    FaultPlan` (or ``sched -> plan`` callable) armed on the executor, with
+    a :class:`~repro_torch.fault.FaultPolicy`.  Transfer faults retry,
+    compute faults replay; an injected oom walks the degrade ladder (halve
+    nbuf, then halve the budget) and re-executes clean.  The in-core path
+    ignores them.
     """
-    _check_slice(backend, tune, devices, faults, fault_policy)
+    _check_slice(backend, tune, devices, faults)
     dev = _torch_device(runtime, torch_device)
     A = _operand(A, backend, dev)
     B = _operand(B, backend, dev)
@@ -144,7 +198,13 @@ def ooc_gemm(
             validate_schedule(sched)
         rt = runtime or HostOocRuntime(Device("HBM", 0, budget_bytes),
                                        torch_device=dev)
-        return rt.gemm(A, B, C, alpha, beta, part, schedule=sched)
+        if faults is None:
+            return rt.gemm(A, B, C, alpha, beta, part, schedule=sched)
+        return _host_gemm_resilient(
+            rt, A, B, C, alpha, beta, part, sched, faults=faults,
+            policy=fault_policy, nstreams=nstreams, nbuf=nbuf,
+            traversal=traversal, evict=evict, budget_bytes=budget_bytes,
+            bpe=bpe)
     rt = runtime or VmemOocRuntime(Device("VMEM", 0, budget_bytes),
                                    torch_device=dev)
     return rt.gemm(A, B, C, alpha, beta, part)
@@ -177,8 +237,11 @@ def ooc_syrk(
     ``dgemm`` handler as MMOOC; only individual blocks are transposed, on
     the host, into staging.  The vmem and in-core paths materialize
     ``P^T`` on the device and run the dense block GEMM.
+
+    faults / fault_policy: as in :func:`ooc_gemm`, without the degrade
+    ladder (an injected oom raises, as in the reference).
     """
-    _check_slice(backend, tune, devices, faults, fault_policy)
+    _check_slice(backend, tune, devices, faults)
     dev = _torch_device(runtime, torch_device)
     P = _operand(P, backend, dev)
     n, K = P.shape
@@ -199,7 +262,8 @@ def ooc_syrk(
             validate_schedule(sched)
         rt = runtime or HostOocRuntime(Device("HBM", 0, budget_bytes),
                                        torch_device=dev)
-        return rt.syrk(P, C, alpha, beta, part, schedule=sched)
+        return rt.syrk(P, C, alpha, beta, part, schedule=sched,
+                       faults=faults, policy=fault_policy)
     rt = runtime or VmemOocRuntime(Device("VMEM", 0, budget_bytes),
                                    torch_device=dev)
     return rt.gemm(P, P.T.contiguous(), C, alpha, beta, part)

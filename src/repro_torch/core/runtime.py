@@ -19,10 +19,16 @@ of out-of-core attention (``core/ooc_attention.py``, registered when
 ``repro_torch.core`` is imported) run the hand-written flash-decoding
 kernel pair (``csrc/flash_attention.cu``).
 
+The factorizations' panel handlers (``panel_chol``, ``panel_trsm``,
+``panel_lu``, ``lu_trsm``, ``lu_writeback``) run on the executor's device
+through ``torch.linalg``.  ``ScheduleExecutor.run(faults=..., policy=...)``
+is the fault-injected path (``repro_torch.fault``): transfer retries with
+backoff and block-granular replay of corrupted compute blocks, from
+copy-on-write device snapshots.
+
 Not in this slice, and asking for them raises ``NotImplementedError``
-naming the ROADMAP module item: ``MeshOocRuntime`` (item 10), the hybrid
-composite (item 8), the factorization panel handlers (item 5) and the
-fault-injected executor path (item 6).
+naming the ROADMAP module item: ``MeshOocRuntime`` (item 10) and the
+hybrid composite (item 8).
 
 Every entry point takes ``torch_device`` (default: CUDA).  Without a card
 and without ``torch_device="cpu"`` from the caller they raise; on the CPU
@@ -52,7 +58,6 @@ from repro_torch.obs import get_observability
 NOT_PORTED = {
     "MESH": "the MESH tier (MeshOocRuntime) is ROADMAP module item 10",
     "HYBRID": "the HYBRID composite runtime is ROADMAP module item 8",
-    "faults": "fault injection and recovery are ROADMAP module item 6",
     "tune": "tune='auto' (the autotuner) is ROADMAP module item 7",
     "devices": "hybrid co-execution (devices=) is ROADMAP module item 8",
 }
@@ -316,6 +321,120 @@ def _land(dest: torch.Tensor, arr: torch.Tensor, ref: SliceRef) -> None:
         dest[rs:rs + rn].copy_(arr)
 
 
+class _Snapshot:
+    """What one parity buffer held at one point of a run: the buffer itself
+    while it still holds it, else a device clone."""
+
+    __slots__ = ("key", "clone", "refs")
+
+    def __init__(self, key: Hashable):
+        self.key = key
+        self.clone: Optional[torch.Tensor] = None
+        self.refs = 0
+
+
+class _ReplayLog:
+    """Block-granular replay state of a fault-injected run.
+
+    For each parity key: what it held at its last host-consistent point
+    (``clean``: an H2D landing or a slice write-back) and the compute chain
+    applied since, each op with what the buffers it read held.  The
+    reference's buffers are immutable arrays, so keeping a reference is a
+    snapshot; the port's are updated in place, by landings and by the
+    compute handlers.  So a snapshot names its buffer until something is
+    about to overwrite it (:meth:`before_write`) and only then, if a live
+    chain still holds it, is the buffer cloned, on the current stream.  A
+    key's chain and its snapshots are released at the key's next
+    host-consistent point (:meth:`reset`).  A replay then re-binds exactly
+    the inputs the first pass used.
+    """
+
+    def __init__(self, bufs: Dict[Hashable, torch.Tensor]):
+        self.bufs = bufs
+        self.current: Dict[Hashable, _Snapshot] = {}
+        self.clean: Dict[Hashable, _Snapshot] = {}
+        self.chains: Dict[Hashable, List[Tuple[Op, BlockRef,
+                                               Dict[Hashable, _Snapshot]]]] \
+            = {}
+        self.live_bytes = 0
+        self.peak_bytes = 0   # most clone bytes alive at once
+
+    def _hold(self, key: Hashable) -> _Snapshot:
+        snap = self.current.get(key)
+        if snap is None:
+            snap = self.current[key] = _Snapshot(key)
+        snap.refs += 1
+        return snap
+
+    def _release(self, snap: _Snapshot) -> None:
+        snap.refs -= 1
+        if snap.refs:
+            return
+        if snap.clone is not None:
+            self.live_bytes -= snap.clone.numel() * snap.clone.element_size()
+            snap.clone = None
+        elif self.current.get(snap.key) is snap:
+            del self.current[snap.key]
+
+    def value(self, snap: _Snapshot) -> torch.Tensor:
+        return snap.clone if snap.clone is not None else self.bufs[snap.key]
+
+    def before_write(self, key: Hashable) -> None:
+        """``key``'s buffer is about to be overwritten: clone what it holds
+        if a live chain holds it."""
+        snap = self.current.pop(key, None)
+        if snap is not None:
+            snap.clone = self.bufs[key].clone()
+            self.live_bytes += snap.clone.numel() * snap.clone.element_size()
+            self.peak_bytes = max(self.peak_bytes, self.live_bytes)
+
+    def reset(self, key: Hashable) -> None:
+        """Release ``key``'s chain and clean snapshot (its buffer reaches a
+        new host-consistent point; call :meth:`mark_clean` after)."""
+        for _, _, reads in self.chains.pop(key, ()):
+            for snap in reads.values():
+                self._release(snap)
+        old = self.clean.pop(key, None)
+        if old is not None:
+            self._release(old)
+
+    def mark_clean(self, key: Hashable) -> None:
+        self.clean[key] = self._hold(key)
+        self.chains[key] = []
+
+    def record(self, op: Op, ref: BlockRef) -> None:
+        """A successful compute extends the chains of the buffers it wrote,
+        holding what the buffers it only read hold now."""
+        for k in op.buffers_written:
+            chain = self.chains.get(k)
+            if chain is not None:
+                chain.append((op, ref, {
+                    r: self._hold(r) for r in op.buffers_read
+                    if r in self.bufs and r not in op.buffers_written}))
+
+    def replay(self, key: Hashable, st: "ExecState", handler_of) -> int:
+        """Restore ``key``'s buffer to its clean snapshot and re-run its
+        chain, each op on the inputs it first read.  Returns the chain's
+        length."""
+        self.bufs[key].copy_(self.value(self.clean[key]))
+        chain = self.chains[key]
+        for op, ref, reads in chain:
+            views = {r: self.bufs[r] for r in reads}
+            for r, snap in reads.items():
+                self.bufs[r] = self.value(snap)
+            try:
+                handler_of(ref)(st, op, ref)
+            finally:
+                self.bufs.update(views)
+        return len(chain)
+
+
+def _poison(buf: torch.Tensor) -> None:
+    """A corrupted compute result: NaN in a float buffer, 0 in an integer
+    one (what the reference's ``jnp.full_like(buf, nan)`` gives)."""
+    buf.fill_(float("nan") if buf.is_floating_point() else 0)
+
+
 class ScheduleExecutor:
     """Executes a :class:`Schedule` against host arrays on one torch device.
 
@@ -386,6 +505,27 @@ class ScheduleExecutor:
     on a card, PyTorch's linalg calls go to cuSOLVER
     (:func:`prefer_cusolver`): the setting is process-wide, so a run
     should not share its process with another thread's linalg calls.
+    ``faults=``/``policy=`` arm deterministic fault injection, as in the
+    reference: a :class:`~repro_torch.fault.FaultPlan` (or a prepared
+    injector, or a ``sched -> plan`` callable; ``policy`` defaults to a
+    :class:`~repro_torch.fault.FaultPolicy`) is consulted once per op
+    *attempt*, before the op runs.  An injected transfer error on an H2D or
+    a slice write-back is retried with the policy's backoff (a failed H2D
+    attempt adds its bytes to ``replayed_h2d_bytes``), and so is a
+    ``TransferError`` raised while a write-back lands; a corrupted compute
+    runs, its output is poisoned, and the written buffer is restored to its
+    last host-consistent point and its compute chain re-run
+    (block-granular replay, bounded by ``max_retries``); ``device_lost``
+    and ``oom`` raise at once for the entry points' degrade ladders.  The
+    reference's buffers are immutable, the port's are updated in place,
+    so what a replay needs is kept as copy-on-write device clones
+    (:class:`_ReplayLog`): ``last_snapshot_bytes`` is the most clone bytes
+    alive at once, beyond ``last_buffer_bytes``.  ``last_fault_stats``
+    holds the reference's seven counters, published even when the run
+    raises; the nominal byte counters still equal ``schedule_stats``.  An
+    armed run takes the issue-order loop in either mode.  Only the
+    injected taxonomy is recovered: a real CUDA error or out-of-memory
+    propagates.  ``faults=None`` costs one branch per op.
     ``record_spans=True`` fills ``last_spans`` with
     ``(tag, stream, start_s, end_s)``: on a card from CUDA events
     around each op's device work (H2D spans exclude the host staging
@@ -422,6 +562,11 @@ class ScheduleExecutor:
         self.last_stage_wait_seconds = 0.0
         self.last_buffer_bytes = 0
         self.last_handler_seconds: Dict[str, float] = {}
+        # fault-injection accounting of the most recent run (None when it
+        # was fault-free): injected / retries / replayed_ops /
+        # replayed_h2d_bytes / backoff_seconds / recovered_{retry,replay}
+        self.last_fault_stats: Optional[Dict[str, float]] = None
+        self.last_snapshot_bytes = 0
         # pinned host staging, (direction, parity key) -> flat tensor
         self._staging: Dict[Tuple[str, Hashable], torch.Tensor] = {}
         # concurrent mode's engine streams on self.torch_device, by engine
@@ -474,9 +619,8 @@ class ScheduleExecutor:
         """Run ``sched``; ``operands``/``outputs`` are numpy arrays or CPU
         tensors (outputs are updated in place; an ml_dtypes ``bfloat16``
         output, which :func:`host_tensor` copies, gets the result copied
-        back)."""
-        if faults is not None or policy is not None:
-            raise not_ported("faults")
+        back).  ``faults``/``policy`` arm fault injection (see the class
+        docstring)."""
         st = ExecState(bufs={},
                        operands={k: host_tensor(v)
                                  for k, v in operands.items()},
@@ -505,9 +649,32 @@ class ScheduleExecutor:
                     return fn
             return self._handler(ref)
 
+        # ---- fault injection state (armed only when a plan is passed) ----
+        fi = faults
+        fstats: Optional[Dict[str, float]] = None
+        log: Optional[_ReplayLog] = None
+        if fi is not None:
+            from repro_torch.fault.errors import (ComputeFault,
+                                                  DeviceLostError, OomError,
+                                                  TransferError)
+            from repro_torch.fault.plan import REPLAYABLE_KERNELS
+            if callable(fi) and not hasattr(fi, "check"):
+                fi = fi(sched)            # a sched -> plan factory
+            if hasattr(fi, "injector"):   # a FaultPlan: fresh one-shot state
+                fi = fi.injector()
+            if policy is None:
+                from repro_torch.fault.policy import FaultPolicy
+                policy = FaultPolicy()
+            fstats = {"injected": 0, "retries": 0, "replayed_ops": 0,
+                      "replayed_h2d_bytes": 0, "backoff_seconds": 0.0,
+                      "recovered_retry": 0, "recovered_replay": 0}
+            log = _ReplayLog(st.bufs)
+
         dev = self.torch_device
         cuda = dev.type == "cuda"
-        concurrent = cuda and self.mode == "concurrent"
+        # an armed plan runs the issue-order loop (one stream), as the
+        # reference runs it serially
+        concurrent = cuda and self.mode == "concurrent" and fi is None
 
         self.last_spans = []
         self.last_completion_order = []
@@ -515,6 +682,8 @@ class ScheduleExecutor:
         self.last_d2h_bytes = 0
         self.last_stage_seconds = 0.0
         self.last_stage_wait_seconds = 0.0
+        self.last_fault_stats = None
+        self.last_snapshot_bytes = 0
         obs = get_observability()
         tracer = obs.tracer
         trace = self.record_spans or tracer is not None
@@ -561,19 +730,52 @@ class ScheduleExecutor:
             _land(st.outputs[ref.operand], stage, ref)
             del pending[key]
 
+        def back_off(attempt: int) -> None:
+            fstats["retries"] += 1
+            delay = policy.backoff(attempt)
+            fstats["backoff_seconds"] += delay
+            policy.sleep(delay)
+
+        def flush_retrying(key) -> None:
+            # a write-back landing can itself fail transiently; under a
+            # policy it gets the same retry treatment as an injected
+            # transfer fault (flush keeps the entry in flight until its
+            # landing succeeds)
+            if fi is None:
+                flush(key)
+                return
+            attempt = 0
+            while True:
+                try:
+                    flush(key)
+                except TransferError:
+                    attempt += 1
+                    if attempt > policy.max_retries:
+                        raise
+                    back_off(attempt)
+                    continue
+                if attempt:
+                    fstats["recovered_retry"] += 1
+                return
+
         def exec_h2d(op: Op, ref: SliceRef) -> None:
             self.last_h2d_bytes += op.bytes
             key = op.buffers_written[0]
             if key in pending:           # schedule's wC wait point: the
-                flush(key)               # previous occupant lands now
+                flush_retrying(key)      # previous occupant lands now
             if ref.operand in st.outputs:  # host coherence on re-read
                 src_shape = st.outputs[ref.operand].shape
                 for k in [k for k, (_, _, pref) in pending.items()
                           if _spans_overlap(ref, pref, src_shape)]:
-                    flush(k)
+                    flush_retrying(k)
             src = _take(st.host(ref.operand), ref)
+            if log is not None:          # a fresh load: the old chain goes
+                log.reset(key)
+                log.before_write(key)
             view = flat[key][:src.numel()].view(src.shape)
             st.bufs[key] = view
+            if log is not None:
+                log.mark_clean(key)
             if not cuda:
                 _fill(view, src, ref)
                 return
@@ -596,13 +798,13 @@ class ScheduleExecutor:
             self.last_d2h_bytes += op.bytes
             if isinstance(ref, BlockRef):  # finalize handler
                 for key in list(pending):  # finalizers read/patch host
-                    flush(key)             # state: land in-flight blocks
+                    flush_retrying(key)    # state: land in-flight blocks
                 device_work()
                 handler_for(i, ref)(st, op, ref)
                 return
             key = op.buffers_read[0]
             if key in pending:
-                flush(key)
+                flush_retrying(key)
             blk = st.bufs[key]
             stage = self._stage("d2h", key, blk)
             if cuda:
@@ -614,46 +816,125 @@ class ScheduleExecutor:
                 stage.copy_(blk)
                 ev = None
             pending[key] = (stage, ev, ref)
+            if log is not None:   # write-back: replay restores from here
+                log.reset(key)
+                log.mark_clean(key)
             if not self.async_writeback:
-                flush(key)
+                flush_retrying(key)
+
+        def exec_compute(i: int, op: Op, ref: BlockRef) -> None:
+            if log is not None:
+                for k in op.buffers_written:
+                    log.before_write(k)
+            device_work()
+            handler_for(i, ref)(st, op, ref)
 
         def exec_op(i: int, op: Op) -> None:
             ref = op.payload
             if op.kind == OpKind.H2D:
                 exec_h2d(op, ref)
             elif op.kind == OpKind.COMPUTE:
-                device_work()
-                handler_for(i, ref)(st, op, ref)
+                exec_compute(i, op, ref)
+                if log is not None:
+                    log.record(op, ref)
             else:
                 exec_d2h(i, op, ref)
 
-        with prefer_cusolver(dev):
-            for i, op in enumerate(sched.ops):
-                if not cuda:
-                    t0 = time.perf_counter() - t_run0
+        def run_faulted(i: int, op: Op) -> None:
+            ref = op.payload
+            attempt = 0              # faulted attempts of this op so far
+            while True:
+                cls = fi.check(i, op)
+                if cls is None:
                     exec_op(i, op)
-                    if trace:
-                        self.last_spans.append(
-                            (op.tag, op.stream, t0,
-                             time.perf_counter() - t_run0))
-                else:
-                    stream = main
-                    if concurrent:
-                        stream = engine_streams[plan.engine_of[i]]
-                        for p in plan.preds[i]:
-                            stream.wait_event(done[p])
-                    with torch.cuda.stream(stream):
-                        exec_op(i, op)
+                    if attempt:
+                        fstats["recovered_replay"
+                               if op.kind == OpKind.COMPUTE
+                               else "recovered_retry"] += 1
+                    return
+                fstats["injected"] += 1
+                obs.instant(f"fault:{cls}", op=i, tag=op.tag,
+                            stream=op.stream)
+                if cls == "device_lost":
+                    raise DeviceLostError(
+                        f"injected device_lost at op {i} ({op.tag})")
+                if cls == "oom":
+                    raise OomError(f"injected oom at op {i} ({op.tag})")
+                attempt += 1
+                if cls == "h2d_error":
+                    if op.kind == OpKind.COMPUTE:
+                        raise ValueError(
+                            f"fault plan injects h2d_error into compute "
+                            f"op {i} ({op.tag})")
+                    if attempt > policy.max_retries:
+                        raise TransferError(
+                            f"op {i} ({op.tag}): transfer failed after "
+                            f"{policy.max_retries} retries")
+                    if op.kind == OpKind.H2D:
+                        # the failed attempt still moved the bytes: extra
+                        # traffic is recovery's, nominal counters are not
+                        fstats["replayed_h2d_bytes"] += op.bytes
+                    back_off(attempt)
+                    continue
+                # compute_nan: the op runs but its output is corrupt;
+                # recover by block-granular replay — restore the written
+                # buffer's last host-consistent value and redo the chain
+                replayable = (
+                    op.kind == OpKind.COMPUTE
+                    and len(op.buffers_written) == 1
+                    and op.buffers_written[0] in log.clean
+                    and ref.kernel in REPLAYABLE_KERNELS)
+                if op.kind == OpKind.COMPUTE:
+                    exec_compute(i, op, ref)
+                    for k in op.buffers_written:
+                        if k in st.bufs:
+                            _poison(st.bufs[k])
+                if not replayable or attempt > policy.max_retries:
+                    raise ComputeFault(
+                        f"op {i} ({op.tag}): compute fault "
+                        + ("retries exhausted" if replayable
+                           else "not replayable"))
+                fstats["replayed_ops"] += log.replay(
+                    op.buffers_written[0], st, self._handler) + 1
+                # loop: the next attempt re-consults the injector and
+                # either faults again (times > 1) or dispatches cleanly
+
+        step = exec_op if fi is None else run_faulted
+        try:
+            with prefer_cusolver(dev):
+                for i, op in enumerate(sched.ops):
+                    if not cuda:
+                        t0 = time.perf_counter() - t_run0
+                        step(i, op)
                         if trace:
-                            t1 = torch.cuda.Event(enable_timing=True)
-                            t1.record()
-                            marks.append((op, started[0], t1))
-                        if concurrent and i in needed:
-                            done[i] = torch.cuda.Event()
-                            done[i].record()
-                self.last_completion_order.append(i)
-        for key in list(pending):
-            flush(key)
+                            self.last_spans.append(
+                                (op.tag, op.stream, t0,
+                                 time.perf_counter() - t_run0))
+                    else:
+                        stream = main
+                        if concurrent:
+                            stream = engine_streams[plan.engine_of[i]]
+                            for p in plan.preds[i]:
+                                stream.wait_event(done[p])
+                        with torch.cuda.stream(stream):
+                            step(i, op)
+                            if trace:
+                                t1 = torch.cuda.Event(enable_timing=True)
+                                t1.record()
+                                marks.append((op, started[0], t1))
+                            if concurrent and i in needed:
+                                done[i] = torch.cuda.Event()
+                                done[i].record()
+                    self.last_completion_order.append(i)
+            for key in list(pending):
+                flush_retrying(key)
+        finally:
+            if fi is not None:
+                # publish even when an unrecoverable fault propagates: the
+                # caller's degrade handler still needs the record
+                self.last_fault_stats = fstats
+                self.last_snapshot_bytes = log.peak_bytes
+                obs.record_fault_run(sched.meta.get("kernel", "run"), fstats)
         if cuda:
             if concurrent:
                 for s in engine_streams:
@@ -949,8 +1230,6 @@ class HostOocRuntime(OocRuntime):
              nstreams: int = 2, nbuf: int = 2,
              schedule: Optional[Schedule] = None,
              faults=None, policy=None) -> torch.Tensor:
-        if faults is not None or policy is not None:
-            raise not_ported("faults")
         sched = schedule or plib.build_gemm_schedule(
             part, nstreams=nstreams, nbuf=nbuf
         )
@@ -960,6 +1239,7 @@ class HostOocRuntime(OocRuntime):
             operands={"A": host_tensor(A), "B": host_tensor(B)},
             outputs={"C": out},
             ctx={"alpha": alpha, "beta": beta},
+            faults=faults, policy=policy,
         )
         return out
 
@@ -968,8 +1248,6 @@ class HostOocRuntime(OocRuntime):
              schedule: Optional[Schedule] = None,
              faults=None, policy=None) -> torch.Tensor:
         """C = alpha * P @ P^T + beta * C via the SYRK pipeline spec."""
-        if faults is not None or policy is not None:
-            raise not_ported("faults")
         sched = schedule or plib.build_syrk_schedule(
             part, nstreams=nstreams, nbuf=nbuf
         )
@@ -979,6 +1257,7 @@ class HostOocRuntime(OocRuntime):
             operands={"P": host_tensor(P)},
             outputs={"C": out},
             ctx={"alpha": alpha, "beta": beta},
+            faults=faults, policy=policy,
         )
         return out
 

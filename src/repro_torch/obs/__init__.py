@@ -2,14 +2,15 @@
 
 Port of ``src/repro/obs/__init__.py``: the process-wide
 :class:`Observability` bundle (metrics registry, tracer, drift monitor) with
-the per-run publication helpers this slice's executor and entry points call,
-``record_executor_run`` and ``record_drift``.  Everything starts disabled;
-instrumented paths guard on ``obs.metrics.enabled`` / ``obs.tracer is None``
-and publish per-run aggregates only.
+the per-run publication helpers the executor and entry points call:
+``record_executor_run``, ``record_drift``, and the fault-recovery pair
+``record_fault_run`` / ``record_fault_recovery``.  Everything starts
+disabled; instrumented paths guard on ``obs.metrics.enabled`` /
+``obs.tracer is None`` and publish per-run aggregates only.
 
-Not in this slice: the fault, analysis and what-if publishers and the lazy
+Not in this slice: the analysis and what-if publishers and the lazy
 ``TraceAnalysis`` / ``WhatIfReport`` / ``whatif`` exports, which wait for
-ROADMAP module items 6 and 9.
+ROADMAP module item 9.
 """
 
 from __future__ import annotations
@@ -18,8 +19,8 @@ import threading
 from typing import Dict, List, Optional
 
 from repro_torch.obs.drift import DriftMonitor, DriftRecord, key_str
-from repro_torch.obs.metrics import (Counter, Gauge, Histogram, Metric,
-                                     MetricRegistry)
+from repro_torch.obs.metrics import (BACKOFF_BUCKETS, Counter, Gauge,
+                                     Histogram, Metric, MetricRegistry)
 from repro_torch.obs.spans import FlatSpan, Tracer, TraceSpan
 
 __all__ = [
@@ -171,6 +172,50 @@ class Observability:
                 m.gauge("repro_executor_stream_busy_seconds",
                         "recorded busy seconds per stream, last run").set(
                             b, kernel=kernel, stream=str(stream))
+
+    def record_fault_run(self, kernel: str, stats: Dict[str, float]) -> None:
+        """Publish one fault-injected executor run's recovery accounting
+        (DESIGN.md §12) — the ``repro_fault_*`` family.  Called once per
+        faulted run, including runs that end in an unrecoverable raise."""
+        if not self.metrics.enabled:
+            return
+        m = self.metrics
+        m.counter("repro_fault_injected_total",
+                  "faults injected into executor runs").inc(
+                      stats.get("injected", 0), kernel=kernel)
+        m.counter("repro_fault_retries_total",
+                  "transfer retry attempts").inc(
+                      stats.get("retries", 0), kernel=kernel)
+        m.counter("repro_fault_replayed_ops_total",
+                  "compute ops re-executed by block-granular replay").inc(
+                      stats.get("replayed_ops", 0), kernel=kernel)
+        m.counter("repro_fault_replayed_h2d_bytes",
+                  "extra H2D traffic caused by recovery (separate from "
+                  "the nominal executor byte counters)").inc(
+                      stats.get("replayed_h2d_bytes", 0), kernel=kernel)
+        for action in ("retry", "replay"):
+            n = stats.get(f"recovered_{action}", 0)
+            if n:
+                m.counter("repro_fault_recoveries_total",
+                          "successful recovery actions").inc(
+                              n, kernel=kernel, action=action)
+        backoff = stats.get("backoff_seconds", 0.0)
+        if backoff:
+            m.histogram("repro_fault_backoff_seconds",
+                        "total backoff slept per faulted run",
+                        buckets=BACKOFF_BUCKETS).observe(backoff,
+                                                         kernel=kernel)
+
+    def record_fault_recovery(self, kernel: str, action: str,
+                              **labels) -> None:
+        """Publish one out-of-executor recovery action (``degrade`` for the
+        oom ladders) into the same ``repro_fault_recoveries_total`` family
+        the executor uses."""
+        if not self.metrics.enabled:
+            return
+        self.metrics.counter("repro_fault_recoveries_total",
+                             "successful recovery actions").inc(
+                                 kernel=kernel, action=action, **labels)
 
     def record_drift(self, kernel: str, tier: str, fingerprint: str,
                      **kw) -> Optional[DriftRecord]:

@@ -22,6 +22,7 @@ from repro_torch.kernels import _build
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.core.ooc_factor import (_plan_factor_spec,
                                          panel_workspace_bytes)
+from repro_torch import fault as TF
 from repro_torch.kernels.block_matmul import block_matmul, block_matmul_plain
 from _torch_helpers import overlap_schedule
 
@@ -711,3 +712,130 @@ def test_integer_and_mixed_operands_on_card(card, mode):
         assert h.dtype == torch.float16
         np.testing.assert_allclose(h.cpu().float().numpy(), exact,
                                    rtol=2e-2, atol=2e-2)
+
+
+# ------------------------------------------------------------ fault recovery
+def _quiet():
+    return TF.FaultPolicy(sleep=lambda s: None)
+
+
+def _dgemm_ops(sched):
+    return sum(1 for op in sched.ops if isinstance(op.payload, T.BlockRef)
+               and op.payload.kernel == "dgemm")
+
+
+def _replayed_dgemms(sched, injected):
+    """Kernel 1's extra launches: the ``dgemm`` ops of the redo-set of each
+    injected compute fault (the faulted attempt and its chain)."""
+    return sum(sum(1 for j in TF.redo_set(sched, i)
+                   if sched.ops[j].payload.kernel == "dgemm")
+               for i, cls in injected if cls == "compute_nan")
+
+
+class _Capture:
+    """``faults=`` factory that keeps the schedule and the injector."""
+
+    def __init__(self, seed, rate):
+        self.seed, self.rate = seed, rate
+        self.sched = self.inj = None
+
+    def __call__(self, sched):
+        self.sched = sched
+        self.inj = TF.FaultPlan.random(self.seed, sched,
+                                       self.rate).injector()
+        return self.inj
+
+
+@pytest.mark.parametrize("mode", ["issue_order", "concurrent"])
+def test_faulted_mmooc_on_card_bitwise(card, mode):
+    """Transfer retries and compute replays on the card give the clean
+    run's bits; kernel 1 launches once per ``dgemm`` op and once more per
+    replayed one; the nominal bytes equal ``schedule_stats``.  With faults
+    armed, ``concurrent`` runs the issue-order loop and equals it."""
+    M, N, K = 1536, 1024, 512
+    A, B, C = _inputs(41, M, N, K)
+    budget = (A.nbytes + B.nbytes + C.nbytes) // 5
+    clean = T.ooc_gemm(A, B, C, 1.5, 0.5, budget_bytes=budget)
+    ex = T.ScheduleExecutor(mode=mode)
+    cap = _Capture(3, 0.3)
+    before = block_matmul.launches
+    out = T.ooc_gemm(A, B, C, 1.5, 0.5, budget_bytes=budget,
+                     runtime=T.HostOocRuntime(executor=ex), faults=cap,
+                     fault_policy=_quiet())
+    launches = block_matmul.launches - before
+    st = ex.last_fault_stats
+    assert torch.equal(out, clean)
+    assert st["replayed_ops"] > 0 and st["retries"] > 0
+    assert st["replayed_ops"] == sum(len(TF.redo_set(cap.sched, i))
+                                     for i, c in cap.inj.injected
+                                     if c == "compute_nan")
+    assert launches == _dgemm_ops(cap.sched) + st["replayed_ops"]
+    stats = T.schedule_stats(cap.sched)
+    assert (ex.last_h2d_bytes, ex.last_d2h_bytes) \
+        == (stats["h2d_bytes"], stats["d2h_bytes"])
+    assert ex.last_snapshot_bytes > 0
+
+
+def test_faulted_lu_on_card_bitwise(card):
+    """A faulted LU on the card — GETRF replays re-park their pivots — has
+    the clean run's bits and permutation."""
+    n, panel = 512, 128
+    A = _factor_input("lu", n, 42)
+    budget = _card_budget("lu", n, panel, A.nbytes)
+    clean = T.ooc_lu(A, panel=panel, budget_bytes=budget)
+    cap = _Capture(5, 0.2)
+    ex = T.ScheduleExecutor()
+    before = block_matmul.launches
+    LU, perm = T.ooc_lu(A, panel=panel, budget_bytes=budget, executor=ex,
+                        faults=cap, fault_policy=_quiet())
+    launches = block_matmul.launches - before
+    assert torch.equal(LU, clean[0]) and torch.equal(perm, clean[1])
+    assert ex.last_fault_stats["replayed_ops"] > 0
+    assert launches == _dgemm_ops(cap.sched) \
+        + _replayed_dgemms(cap.sched, cap.inj.injected)
+
+
+def test_replay_after_a_landing_reuses_the_buffer_on_card(card):
+    """C accumulates two K halves through one A and one B parity buffer;
+    the second update is corrupted, so its replay re-runs the first on
+    what A and B held before the second halves landed over them — the
+    copy-on-write clones, taken on the stream before the landings."""
+    A, B, C = _inputs(43, 256, 192, 512)
+    dev = T.Device("HBM", 0, 1 << 30)
+    sched = T.Schedule(dev, T.StreamFactory.create(dev, 1))
+    for h in range(2):
+        sched.issue(T.Op(kind=T.OpKind.H2D, tag=f"S(a[{h}])", stream=0,
+                         buffers_written=(("A", 0),), bytes=256 * 256 * 4,
+                         payload=T.SliceRef("A", h, cols=(256 * h, 256))))
+        sched.issue(T.Op(kind=T.OpKind.H2D, tag=f"S(b[{h}])", stream=0,
+                         buffers_written=(("B", 0),), bytes=256 * 192 * 4,
+                         payload=T.SliceRef("B", h, rows=(256 * h, 256))))
+        if h == 0:
+            sched.issue(T.Op(kind=T.OpKind.H2D, tag="S(c)", stream=0,
+                             buffers_written=(("C", 0),),
+                             bytes=256 * 192 * 4,
+                             payload=T.SliceRef("C", 0)))
+        sched.issue(T.Op(kind=T.OpKind.COMPUTE, tag=f"DGEMM[{h}]",
+                         stream=0, buffers_read=(("A", 0), ("B", 0)),
+                         buffers_written=(("C", 0),),
+                         flops=2 * 256 * 192 * 256,
+                         payload=T.BlockRef("dgemm", h)))
+    sched.issue(T.Op(kind=T.OpKind.D2H, tag="R(c)", stream=0,
+                     buffers_read=(("C", 0),), bytes=256 * 192 * 4,
+                     payload=T.SliceRef("C", 0)))
+    second = max(i for i, op in enumerate(sched.ops)
+                 if op.kind == T.OpKind.COMPUTE)
+    outs = []
+    for plan in (None, TF.FaultPlan(specs=(
+            TF.FaultSpec(op=second, cls="compute_nan"),))):
+        out = torch.from_numpy(C.copy())
+        ex = T.ScheduleExecutor()
+        ex.run(sched, {"A": A, "B": B}, {"C": out},
+               {"alpha": 1.0, "beta": 1.0}, faults=plan, policy=_quiet())
+        outs.append(out)
+    assert torch.equal(outs[0], outs[1])
+    assert ex.last_fault_stats["replayed_ops"] == 2
+    assert ex.last_snapshot_bytes == (256 * 192 * 2 + 256 * 256) * 4
+    exact = A.astype(np.float64) @ B + C
+    assert np.abs(outs[1].numpy() - exact).max() < 1e-3
+

@@ -141,7 +141,8 @@ def test_direct_vmem_checks_its_arguments():
                        call(A, B, C, 1.5, 0.5))
 
 
-@pytest.mark.parametrize("name", ["mmooc_via_api", "quickstart"])
+@pytest.mark.parametrize("name", ["mmooc_via_api", "quickstart",
+                                  "concurrent_gemm", "ooc_attention_demo"])
 def test_example_ports_run_on_cpu(name):
     res = subprocess.run(
         [sys.executable, "-m", f"repro_torch.examples.{name}", "--cpu"],
@@ -150,8 +151,9 @@ def test_example_ports_run_on_cpu(name):
              "OMP_NUM_THREADS": "1"})
     assert res.returncode == 0, res.stderr
     assert f"{name} OK" in res.stdout.splitlines()[-1]
-    if name == "quickstart":
+    if name in ("quickstart", "ooc_attention_demo"):
         assert "model estimate" in res.stdout and "tpu" not in res.stdout
+        assert "v5e" not in res.stdout
 
 
 def test_mmooc_port_matches_reference_example():

@@ -267,13 +267,6 @@ def test_spans_and_metrics_published_per_run():
     assert all(0.0 <= s[2] <= s[3] for s in ex.last_spans)
 
 
-def test_faults_are_not_ported():
-    *_, rpart, _ = _gemm_case(24)
-    sched = T.build_gemm_schedule(from_reference(rpart))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        T.ScheduleExecutor(torch_device=CPU).run(sched, {}, {}, faults=[1])
-
-
 def test_drift_and_run_publication_match_the_reference():
     """The port's obs bundle publishes what the reference's does, for the
     same inputs (fresh instances; the process singletons stay untouched)."""

@@ -402,8 +402,6 @@ def test_factor_rejects_non_square_and_infeasible_budget(rng):
     (dict(tuner=object()), "item 7"),
     (dict(devices=[("gpu0", None, 1 << 20)]), "item 8"),
     (dict(tolerance=1e-3), "item 8"),
-    (dict(faults=object()), "item 6"),
-    (dict(fault_policy=object()), "item 6"),
 ])
 def test_paths_outside_the_slice_raise(rng, kind, kw, item):
     fn = {"cholesky": T.ooc_cholesky, "lu": T.ooc_lu}[kind]

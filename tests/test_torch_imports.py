@@ -33,6 +33,8 @@ bad = sorted(n for n in sys.modules
              or (n.split(".")[0] == "jax" and sys.modules[n] is not None))
 print("LOADED", len([n for n in sys.modules if n.startswith("repro_torch")]))
 assert not bad, bad
+assert {"repro_torch.fault." + m for m in ("errors", "plan", "policy",
+        "replay")} <= set(sys.modules)
 """
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT,

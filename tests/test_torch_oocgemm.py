@@ -182,7 +182,6 @@ def test_float64_operands_follow_the_reference():
 @pytest.mark.parametrize("kw,item", [
     (dict(tune="auto"), "item 7"),
     (dict(devices=[("gpu0", None, 1 << 20)]), "item 8"),
-    (dict(faults=object()), "item 6"),
     (dict(backend="mesh"), "item 10"),
 ])
 def test_paths_outside_the_slice_raise(kw, item):
