@@ -82,6 +82,26 @@ printing any result.  Phases (each raises on failure; none is skipped):
      within the parity buffers, the snapshots and the panel ops'
      workspace (its excess over the budget printed).  Backoff sleeps are
      a no-op here.
+ 11. the autotuner (``[tune]`` lines; after phase 10, on phase 3's and
+     phase 9's inputs and results): ``calibrate()`` on the card at its
+     defaults and at the reference's sizes (both profiles beside kernel
+     1's f32 and bf16 rates at the cells' block, the fingerprint twice),
+     then ``tune="auto"`` with an ``AutoTuner`` on the measured profile
+     and a temporary plan cache, each key searched once (its seconds
+     printed) and served from the cache after: ``ooc_gemm`` 24576^3 f32
+     under 2 GiB and bf16 under 1 GiB, ``ooc_syrk`` n = 16384, K = 8192
+     under 1 GiB, ``ooc_cholesky`` and ``ooc_lu`` at n = 24576 under
+     1 GiB (panel 2048; searched at the budget less the panel ops'
+     workspace) and ``ooc_attention`` at phase 6's cell.  Each tuned call
+     beside the untuned one: the plan, warm walls, the predicted makespan
+     and measured/predicted, bytes against the tuned schedule's
+     ``schedule_stats``, launches against its compute ops, peak memory
+     over the budget; tuned MMOOC and SYRK bit for bit equal to untuned, a
+     factorization at the requested panel width bit for bit equal to
+     phase 9's (else held to its float64 oracle), attention to phase 6's
+     tolerance.  Last, the tuned oom ladder: an oom at MMOOC's first
+     compute under ``tune="auto"`` takes one ``halve_budget`` rung whose
+     re-run equals a tuned run at half the budget bit for bit.
 
 With ``--baseline DIR`` (another checkout, e.g. ``git archive`` of the
 parent commit unpacked into a directory ``.gitignore`` lists), phase 5 is
@@ -100,14 +120,16 @@ line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
-import json
 import contextlib
+import dataclasses
+import json
 import math
 import os
 import shutil
 import statistics
 import subprocess
 import sys
+import tempfile
 import time
 from concurrent.futures import ThreadPoolExecutor
 
@@ -1289,6 +1311,487 @@ def phase_faults(report, A, B, C, host_out, params, factors):
         del res
 
 
+# ---------------------------------------------------------------------------
+# Phase 11: the autotuner on the card ([tune] lines)
+# ---------------------------------------------------------------------------
+# the reference's calibration sizes (its defaults, sized for a CPU host):
+# 1 MiB and 8 MiB f32 transfers and a 512^3 dgemm
+REF_CALIBRATION = dict(small=(256, 1024), large=(2048, 1024), gemm_n=512)
+# decode attention at llama3.2-3b's widths over long_500k (phase 6's cell):
+# S, Hkv, d, H, budget
+TUNE_ATTN = (524288, 8, 128, 24, 512 * 2**20)
+# phase 7's bf16 MMOOC budget, and phase 4's SYRK: n, K, budget
+TUNE_BF16_BUDGET = 2**30
+TUNE_SYRK = (16384, 8192, 2**30)
+
+
+def profile_text(prof):
+    return (f"H2D {prof.h2d_bw / 1e9:.2f} GB/s, D2H {prof.d2h_bw / 1e9:.2f} "
+            f"GB/s, {prof.flops / 1e12:.2f} TFLOP/s, per-op overhead "
+            f"{prof.per_op_overhead * 1e6:.2f} us")
+
+
+def tune_calibrate(gen, report, card):
+    """Calibrate the card at its defaults and at the reference's sizes,
+    print both profiles beside kernel 1's measured f32 and bf16 rates at
+    the cells' block, and the fingerprint twice (they must be equal).
+    Returns the card-default calibration."""
+    from repro_torch.kernels.block_matmul import block_matmul
+    from repro_torch.tune import calibrate, hardware_fingerprint
+
+    zero_counts(block_matmul)
+    t0 = time.perf_counter()
+    res = calibrate(torch_device="cuda")
+    t_card = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    ref = calibrate(torch_device="cuda", **REF_CALIBRATION)
+    t_ref = time.perf_counter() - t0
+    read_counts(block_matmul, report, "tune_calibrate")
+    fp = hardware_fingerprint()
+    require(res.fingerprint == ref.fingerprint == fp,
+            f"fingerprints differ: {res.fingerprint}, {ref.fingerprint}, "
+            f"{fp}")
+    for prof in (res.profile, ref.profile):
+        require(all(math.isfinite(r) and r > 0 for r in (
+            prof.h2d_bw, prof.d2h_bw, prof.flops)),
+            f"calibrated rates not finite and positive: {prof}")
+    M, N, K = TIMING_SHAPE
+    rates = {}
+    saved = block_matmul.launches
+    for dt in (torch.float32, torch.bfloat16):
+        a, b, c = (rand(s, gen, dt) for s in ((M, K), (K, N), (M, N)))
+        ms = time_ms(lambda: block_matmul(a, b, c, alpha=1.0, beta=0.0,
+                                          out=c), reps=3)
+        rates[str(dt)[6:]] = 2 * M * N * K / ms / 1e9
+        del a, b, c
+    block_matmul.launches = saved      # timing launches are not the path's
+    report["tune_calibration"] = {
+        "card_defaults": {**dataclasses.asdict(res.profile),
+                          "samples": res.samples, "seconds": t_card},
+        "reference_sizes": {**dataclasses.asdict(ref.profile),
+                            "samples": ref.samples, "seconds": t_ref},
+        "kernel1_tflops": rates, "fingerprint": fp, "card": card}
+    say("tune", f"calibrate() at the card defaults (8 MiB and 128 MiB f32 "
+                f"transfers, a 4096^3 dgemm on kernel 1), {t_card:.1f} s: "
+                f"{profile_text(res.profile)}; samples "
+                f"{json.dumps(res.samples)}")
+    say("tune", f"calibrate() at the reference's sizes (1 MiB and 8 MiB, a "
+                f"512^3 dgemm), {t_ref:.1f} s: {profile_text(ref.profile)}; "
+                f"samples {json.dumps(ref.samples)}")
+    say("tune", f"kernel 1 at the cells' block {M}x{N}x{K}: "
+                f"{rates['float32']:.2f} TFLOP/s f32, "
+                f"{rates['bfloat16']:.2f} TFLOP/s bf16 "
+                f"({rates['bfloat16'] / rates['float32']:.1f}x f32); the "
+                f"profile holds one rate, the f32 dgemm's, so bf16 plans are "
+                f"ranked as if kernel 1 ran at it; fingerprint {fp} (card "
+                f"defaults) == {res.fingerprint} == {ref.fingerprint}; card "
+                f"{card}")
+    return res
+
+
+def timed_search(tuner, fn):
+    """(plan, seconds) of one plan request that must search."""
+    before = tuner.searches
+    t0 = time.perf_counter()
+    plan = fn()
+    seconds = time.perf_counter() - t0
+    require(tuner.searches == before + 1 and not tuner.last_from_cache,
+            "the first request for a key did not search")
+    return plan, seconds
+
+
+def plan_text(plan):
+    p = dict(plan.params)
+    if "bs" in p:
+        blocks = f"{p['nblocks']} KV blocks of {p['bs']}"
+    elif "panel" in p:
+        blocks = (f"panel {p['panel']}, lookahead {p['lookahead']}, "
+                  f"trailing blocks {p['bm']}x{p['bn']}")
+    else:
+        blocks = f"{p['h']}x{p['w']} blocks of {p['bm']}x{p['bn']}"
+    return (f"{blocks}, nstreams {plan.nstreams}, nbuf {plan.nbuf}, "
+            f"traversal {plan.traversal}, eviction {plan.evict}")
+
+
+def last_drift():
+    from repro_torch.obs import get_observability
+
+    return get_observability().drift.snapshot()["records"][-1]
+
+
+def tuned_pair(tag, run, key, report, tuner, expect):
+    """The untuned call (cold, warm) and the tuned call (cold from the
+    cache, warm), each on its own executor.  ``run(tuned, ex)`` makes one
+    call and returns its result as a tuple; ``expect`` holds the tuned
+    schedule's stats and compute ops, the plan, the budget, the
+    reference result (or None: the untuned cold result) and the result
+    check.  Kernel 1's launches on the tuned cold run are kept under
+    ``key``; checks raise."""
+    from repro_torch.core import ScheduleExecutor
+
+    plan, stats, n_ops, budget, count = (
+        expect["plan"], expect["stats"], expect["ops"], expect["budget"],
+        expect["count"])
+    rows = {}
+    for tuned in (False, True):
+        ex = ScheduleExecutor()
+        for rep in ("cold", "warm"):
+            ex.record_spans = rep == "warm"
+            searches = tuner.searches
+            torch.cuda.synchronize()
+            torch.cuda.reset_peak_memory_stats()
+            base = torch.cuda.memory_allocated()
+            count.zero()
+            res = run(tuned, ex)
+            torch.cuda.synchronize()
+            peak = torch.cuda.max_memory_allocated() - base
+            launches = count.read()
+            wall = ex.last_wall_seconds
+            row = {"run": tag, "tuned": tuned, "rep": rep, "wall_s": wall,
+                   "peak_bytes": peak, "budget_bytes": budget,
+                   "launches": launches, "parity_bytes": ex.last_buffer_bytes,
+                   "h2d_bytes": ex.last_h2d_bytes,
+                   "d2h_bytes": ex.last_d2h_bytes,
+                   "stage_s": ex.last_stage_seconds}
+            if ex.last_spans:
+                covered, reach = 0.0, 0.0   # union of the op spans
+                for _, _, a, b in sorted(ex.last_spans, key=lambda s: s[2]):
+                    covered += max(0.0, b - max(a, reach))
+                    reach = max(reach, b)
+                row["device_idle_share"] = 1.0 - covered / wall
+            if tuned:
+                require(tuner.searches == searches and tuner.last_from_cache,
+                        f"{tag}: the tuned call searched again")
+                require(launches == n_ops,
+                        f"{tag}: {launches} launches, the tuned schedule has "
+                        f"{n_ops} compute ops")
+                require((ex.last_h2d_bytes, ex.last_d2h_bytes)
+                        == (stats["h2d_bytes"], stats["d2h_bytes"]),
+                        f"{tag}: moved {ex.last_h2d_bytes}/"
+                        f"{ex.last_d2h_bytes} B, the tuned schedule's "
+                        f"schedule_stats says {stats['h2d_bytes']}/"
+                        f"{stats['d2h_bytes']}")
+                drift = last_drift()
+                require(drift["byte_ratio"] == 1.0,
+                        f"{tag}: drift byte ratio {drift['byte_ratio']}")
+                row["predicted_s"] = plan.makespan
+                row["measured_over_predicted"] = wall / plan.makespan
+                row["drift_time_ratio"] = drift["time_ratio"]
+                if rep == "cold":
+                    count.keep(report, key)
+                    expect["check"](res, rows["untuned cold"]["result"])
+            rows[f"{'tuned' if tuned else 'untuned'} {rep}"] = {
+                **row, "result": res if rep == "cold" else None}
+            del res
+    untuned, tuned = rows["untuned cold"], rows["tuned cold"]
+    if untuned["peak_bytes"] <= budget:
+        require(tuned["peak_bytes"] <= budget,
+                f"{tag}: tuned peak {tuned['peak_bytes']} B above the "
+                f"budget {budget} B, where the untuned run's "
+                f"{untuned['peak_bytes']} B is within it")
+    slack = 64 * 2**20
+    require(tuned["peak_bytes"] <= tuned["parity_bytes"]
+            + expect.get("workspace", 0) + slack,
+            f"{tag}: tuned peak {tuned['peak_bytes']} B above parity "
+            f"{tuned['parity_bytes']} B + workspace + {slack} B")
+    for r in rows.values():
+        r.pop("result")
+        report["tune"].append(r)
+    tw, uw = rows["tuned warm"], rows["untuned warm"]
+    say("tune", f"{tag}: tuned plan {plan_text(plan)}; warm wall tuned "
+                f"{tw['wall_s']:.3f} s against untuned {uw['wall_s']:.3f} s "
+                f"(same call; device idle {100 * tw['device_idle_share']:.1f}"
+                f" / {100 * uw['device_idle_share']:.1f} % of the wall); "
+                f"predicted makespan {plan.makespan:.4f} s (untuned plan "
+                f"{plan.baseline_makespan:.4f} s), measured/predicted "
+                f"{tw['measured_over_predicted']:.2f} (drift record "
+                f"{tw['drift_time_ratio']:.2f}; host staging fill "
+                f"{tw['stage_s']:.3f} s is not in the model); bytes "
+                f"{tw['h2d_bytes']}/{tw['d2h_bytes']} = the tuned schedule's "
+                f"schedule_stats; {tuned['launches']} launches = its "
+                f"{n_ops} compute ops (untuned {untuned['launches']}); peak "
+                f"{tuned['peak_bytes'] / budget:.3f}x the budget (untuned "
+                f"{untuned['peak_bytes'] / budget:.3f}x); the repeat calls "
+                f"came from the cache ({tuner.searches} searches so far)")
+    return rows
+
+
+class Counter1:
+    """Kernel 1's launches as ``tuned_pair`` zeroes, reads and keeps
+    them."""
+
+    def zero(self):
+        from repro_torch.kernels.block_matmul import block_matmul
+        zero_counts(block_matmul)
+
+    def read(self):
+        from repro_torch.kernels.block_matmul import block_matmul
+        return block_matmul.launches
+
+    def keep(self, report, key):
+        from repro_torch.kernels.block_matmul import block_matmul
+        read_counts(block_matmul, report, key)
+
+
+class CounterAttn:
+    """Kernel 2's launches (both passes), the same way."""
+
+    def zero(self):
+        from repro_torch.kernels import flash_attention as kfa
+        kfa.flash_partial.launches = kfa.flash_combine.launches = 0
+
+    def read(self):
+        from repro_torch.kernels import flash_attention as kfa
+        return kfa.flash_partial.launches + kfa.flash_combine.launches
+
+    def keep(self, report, key):
+        from repro_torch.kernels import flash_attention as kfa
+        report["launches"][key] = {"partial": kfa.flash_partial.launches,
+                                   "combine": kfa.flash_combine.launches}
+
+
+def phase_tune(gen, report, card, A, B, C, host_out, params, factors):
+    """Phase 11: ``calibrate()`` on the card, then ``tune="auto"`` through
+    every entry point that the reference tunes, with an ``AutoTuner`` on
+    the measured profile and a temporary plan cache: each key searched
+    once (its seconds printed) and every later call served from the
+    cache.  Each tuned call beside the untuned one in the same call;
+    tuned MMOOC and SYRK bit for bit equal to untuned, a factorization at
+    the requested panel width bit for bit equal to phase 9's (else held
+    to its float64 oracle), attention to phase 6's tolerance; bytes equal
+    to the tuned schedule's ``schedule_stats``; launches equal to its
+    compute ops; peak memory within the budget wherever the untuned
+    run's is.  Then the tuned oom ladder: one ``halve_budget`` rung, its
+    re-run bit for bit equal to a tuned run at half the budget."""
+    from repro_torch.core import (HostOocRuntime, ScheduleExecutor,
+                                  build_attention_schedule,
+                                  build_gemm_schedule, build_syrk_schedule,
+                                  compile_factor_pipeline, ooc_attention,
+                                  ooc_cholesky, ooc_gemm, ooc_lu, ooc_syrk,
+                                  schedule_stats)
+    from repro_torch.core.ooc_factor import (_tuned_factor_spec,
+                                             panel_workspace_bytes)
+    from repro_torch.fault import FaultPolicy
+    from repro_torch.kernels.block_matmul import block_matmul
+    from repro_torch.obs import get_observability
+    from repro_torch.tune import AutoTuner, PlanCache
+
+    cal = tune_calibrate(gen, report, card)
+    obs = get_observability()
+    obs.enable(metrics=True)           # the drift records of tuned runs
+    tmp = tempfile.TemporaryDirectory()
+    tuner = AutoTuner(profile=cal.profile, fingerprint=cal.fingerprint,
+                      cache=PlanCache(os.path.join(tmp.name, "plans.json")))
+    report["tune_searches"] = searches = {}
+    k1 = Counter1()
+
+    def gemm_expect(plan, kernel, budget, check):
+        build = build_gemm_schedule if kernel == "gemm" \
+            else build_syrk_schedule
+        sched = build(plan.gemm_partition(), nstreams=plan.nstreams,
+                      nbuf=plan.nbuf, traversal=plan.traversal,
+                      evict=plan.evict)
+        return {"plan": plan, "stats": schedule_stats(sched),
+                "ops": dgemm_ops(sched), "budget": budget, "check": check,
+                "count": k1}
+
+    def bitwise(tag):
+        def check(res, ref):
+            require(all(torch.equal(a, b) for a, b in zip(res, ref)),
+                    f"{tag}: the tuned result differs from the untuned one")
+            say("tune", f"{tag}: tuned == untuned, bitwise")
+        return check
+
+    try:
+        # MMOOC f32 (phase 3's operands; its result is the untuned one)
+        alpha, beta, budget = params
+        M, K = A.shape
+        N = B.shape[1]
+        plan, secs = timed_search(tuner, lambda: tuner.gemm_plan(
+            M, N, K, budget, "float32"))
+        searches["gemm f32"] = secs
+        say("tune", f"search gemm {M}x{N}x{K} f32 under {budget} B: "
+                    f"{secs:.1f} s, {plan_text(plan)}")
+
+        def mmooc(tuned, ex, A=A, B=B, C=C, budget=budget):
+            return (ooc_gemm(A, B, C, alpha, beta, budget_bytes=budget,
+                             tune="auto" if tuned else None, tuner=tuner,
+                             runtime=HostOocRuntime(executor=ex)),)
+
+        def f32_check(res, ref):
+            bitwise("mmooc f32")(res, ref)
+            require(torch.equal(res[0], host_out),
+                    "mmooc f32: the tuned result differs from phase 3's")
+
+        tuned_pair("mmooc f32", mmooc, "tune_gemm", report, tuner,
+                   gemm_expect(plan, "gemm", budget, f32_check))
+        # MMOOC bf16 (the phase 7 cell, operands made again from the seed)
+        t0 = time.perf_counter()
+        Ah, Bh, Ch = (rand(s, gen, torch.bfloat16, device="cpu")
+                      for s in ((M, K), (K, N), (M, N)))
+        bbudget = TUNE_BF16_BUDGET
+        plan, secs = timed_search(tuner, lambda: tuner.gemm_plan(
+            M, N, K, bbudget, "bfloat16"))
+        searches["gemm bf16"] = secs
+        say("tune", f"search gemm {M}x{N}x{K} bf16 under {bbudget} B: "
+                    f"{secs:.1f} s, {plan_text(plan)} (operands made in "
+                    f"{time.perf_counter() - t0 - secs:.1f} s)")
+        tuned_pair("mmooc bf16", lambda tuned, ex: mmooc(
+            tuned, ex, Ah, Bh, Ch, bbudget), "tune_gemm_bf16", report, tuner,
+            gemm_expect(plan, "gemm", bbudget, bitwise("mmooc bf16")))
+        del Ah, Bh, Ch
+        # SYRK at phase 4's shape
+        n, Ks, sbudget = TUNE_SYRK
+        P = rand((n, Ks), gen, device="cpu")
+        Cs = rand((n, n), gen, device="cpu")
+        plan, secs = timed_search(tuner, lambda: tuner.syrk_plan(
+            n, Ks, sbudget, "float32"))
+        searches["syrk f32"] = secs
+        say("tune", f"search syrk n={n} K={Ks} f32 under {sbudget} B: "
+                    f"{secs:.1f} s, {plan_text(plan)}")
+        tuned_pair("syrk f32", lambda tuned, ex: (ooc_syrk(
+            P, Cs, -1.0, 0.5, budget_bytes=sbudget,
+            tune="auto" if tuned else None, tuner=tuner,
+            runtime=HostOocRuntime(executor=ex)),), "tune_syrk", report,
+            tuner, gemm_expect(plan, "syrk", sbudget, bitwise("syrk f32")))
+        del P, Cs
+        # the factorizations (phase 9's inputs and results)
+        nf, pw, fbudget = FACTOR_N, FACTOR_PANEL, FACTOR_BUDGET
+        for kind, entry in (("cholesky", ooc_cholesky), ("lu", ooc_lu)):
+            Af, first = factors[kind]
+            ws = panel_workspace_bytes(kind, nf, pw, 4, "cuda")
+            plan, secs = timed_search(tuner, lambda: tuner.factor_plan(
+                kind, nf, pw, fbudget - ws, "float32"))
+            searches[kind] = secs
+            spec, ns, nb, ev, cached = _tuned_factor_spec(
+                tuner, kind, nf, pw, fbudget, 4, torch.float32, "cuda")
+            require(cached == plan, f"{kind}: the entry point's plan is not "
+                                    f"the searched one")
+            sched = compile_factor_pipeline(spec, nstreams=ns, nbuf=nb,
+                                            evict=ev)
+            say("tune", f"search {kind} n={nf} panel {pw} f32 under "
+                        f"{fbudget} B less {ws} B of panel-op workspace "
+                        f"({fbudget - ws} B, the key's budget): {secs:.1f} "
+                        f"s, {plan_text(plan)}")
+
+            def check(res, ref, kind=kind, Af=Af, first=first, plan=plan):
+                if plan.param("panel") == pw:
+                    require(all(torch.equal(a, b)
+                                for a, b in zip(res, first)),
+                            f"{kind}: tuned at panel {pw} differs from "
+                            f"phase 9's result")
+                    say("tune", f"{kind}: tuned keeps panel {pw}: == phase "
+                                f"9's result, bitwise")
+                else:
+                    factor_oracle(kind, Af, res, nf)
+                    say("tune", f"{kind}: tuned panel {plan.param('panel')}"
+                                f" != {pw}: held to phase 9's float64 "
+                                f"oracle")
+
+            def factor(tuned, ex, entry=entry, Af=Af):
+                res = entry(Af, pw, budget_bytes=fbudget,
+                            tune="auto" if tuned else None, tuner=tuner,
+                            lookahead=1, nstreams=2, nbuf=2, executor=ex)
+                return res if isinstance(res, tuple) else (res,)
+
+            rows = tuned_pair(
+                kind, factor, f"tune_{kind}", report, tuner,
+                {"plan": plan, "stats": schedule_stats(sched),
+                 "ops": dgemm_ops(sched), "budget": fbudget, "check": check,
+                 "count": k1, "workspace": ws})
+            for r in ("untuned cold", "tuned cold"):
+                require(rows[r]["peak_bytes"] <= fbudget,
+                        f"{kind} {r}: peak {rows[r]['peak_bytes']} B above "
+                        f"the budget {fbudget} B")
+        # decode attention at phase 6's cell
+        S, hkv, d, H, abudget = TUNE_ATTN
+        K_ = rand((S, hkv, d), gen, torch.bfloat16, device="cpu")
+        V_ = rand((S, hkv, d), gen, torch.bfloat16, device="cpu")
+        q = rand((H, d), gen, device="cpu")
+        plan, secs = timed_search(tuner, lambda: tuner.attention_plan(
+            S, hkv, d, H, abudget, "bfloat16"))
+        searches["attention bf16"] = secs
+        say("tune", f"search attention S={S} Hkv={hkv} d={d} H={H} bf16 "
+                    f"under {abudget} B: {secs:.2f} s, {plan_text(plan)}")
+        asched = build_attention_schedule(plan.attention_partition(), hkv,
+                                          d, H, nstreams=plan.nstreams,
+                                          nbuf=plan.nbuf)
+
+        def attn_check(res, ref):
+            exact = attn_oracle(q, K_.cuda(), V_.cuda())
+            err = (res[0].cuda().double() - exact).abs().max().item()
+            require(err <= 2e-4, f"tuned attention: max err {err} vs "
+                                 f"float64 beyond 2e-4")
+            same = all(torch.equal(a, b) for a, b in zip(res, ref))
+            say("tune", f"attention: tuned vs float64 on the card max abs "
+                        f"err {err:.3g} (phase 6's limit 2e-4); equal to "
+                        f"the untuned result bit for bit: {same}")
+
+        def attn(tuned, ex):
+            return (ooc_attention(q, K_, V_, budget_bytes=abudget,
+                                  tune="auto" if tuned else None,
+                                  tuner=tuner, executor=ex),)
+
+        tuned_pair("attention bf16", attn, "tune_attention", report, tuner,
+                   {"plan": plan, "stats": schedule_stats(asched),
+                    "ops": 2 * plan.param("nblocks") + 1, "budget": abudget,
+                    "check": attn_check, "count": CounterAttn()})
+        del K_, V_, q
+        # the tuned oom ladder on the MMOOC f32 cell
+        pol = FaultPolicy(sleep=lambda s: None)
+        cap = FaultCapture(oom=True)
+        ex = ScheduleExecutor()
+        before = tuner.searches
+        t0 = time.perf_counter()
+        out, launches, peak = measured(lambda: ooc_gemm(
+            A, B, C, alpha, beta, budget_bytes=budget, tune="auto",
+            tuner=tuner, runtime=HostOocRuntime(executor=ex), faults=cap,
+            fault_policy=pol))
+        call_s = time.perf_counter() - t0
+        read_counts(block_matmul, report, "tune_oom")
+        rerun_s = ex.last_wall_seconds
+        rungs = [(s.action, s.budget_bytes) for s in pol.degrades]
+        require(rungs == [("halve_budget", budget // 2)],
+                f"tuned mmooc oom: ladder {rungs}")
+        require(tuner.searches == before + 1,
+                "tuned mmooc oom: the rung did not search its budget")
+        half = tuner.gemm_plan(M, N, K, budget // 2, "float32")
+        require(tuner.last_from_cache, "the half-budget plan is not cached")
+        hsched = build_gemm_schedule(half.gemm_partition(),
+                                     nstreams=half.nstreams, nbuf=half.nbuf,
+                                     traversal=half.traversal,
+                                     evict=half.evict)
+        require(launches == dgemm_ops(hsched),
+                f"tuned mmooc oom: {launches} launches, the half-budget "
+                f"plan has {dgemm_ops(hsched)} dgemm ops")
+        direct = ooc_gemm(A, B, C, alpha, beta, budget_bytes=budget // 2,
+                          tune="auto", tuner=tuner)
+        require(torch.equal(out, direct),
+                "tuned mmooc oom: the re-run differs from a tuned run at "
+                "half the budget")
+        require(torch.equal(out, host_out),
+                "tuned mmooc oom: the re-run differs from phase 3's result")
+        searches["gemm f32 half budget (in the ladder)"] = call_s - rerun_s
+        report["tune"].append({"run": "mmooc oom tuned", "rungs": rungs,
+                               "call_s": call_s, "rerun_wall_s": rerun_s,
+                               "launches": launches, "peak_bytes": peak,
+                               "budget_bytes": budget})
+        say("tune", f"tuned mmooc oom at the first compute: ladder {rungs} "
+                    f"(budget halvings only); the rung searched "
+                    f"{budget // 2} B ({call_s - rerun_s:.1f} s of the "
+                    f"{call_s:.1f} s call) and re-ran {plan_text(half)} in "
+                    f"{rerun_s:.3f} s, {launches} launches, peak {peak} B "
+                    f"({peak / budget:.3f}x the budget); == a tuned run at "
+                    f"half the budget, bitwise, and == phase 3's result")
+        del out, direct
+        say("tune", f"searches (s): {json.dumps(searches)}; plan cache "
+                    f"{tuner.cache.hits} hits, {tuner.cache.misses} misses, "
+                    f"{len(tuner.cache)} plans")
+    finally:
+        obs.reset().disable()
+        tmp.cleanup()
+
+
 def phase_vmem_syrk(gen, report, A, B, C, host_out, params):
     from repro_torch.core import ooc_gemm, ooc_syrk, build_syrk_schedule, \
         plan_gemm_partition, HostOocRuntime, ScheduleExecutor
@@ -1722,9 +2225,8 @@ def phase_timing_attention(gen, report, card):
         "source": "src/repro_torch/csrc/flash_attention.cu",
         "replaces": "src/repro/kernels/flash_attention.py:33",
         "launches": sum(la[c]["partial"] + la[c]["combine"]
-                        for c in ("attention", "attention_f32")),
-        "launches_by_pass": {c: la[c] for c in ("attention",
-                                                "attention_f32")},
+                        for c in ATTENTION_PATHS),
+        "launches_by_pass": {c: la[c] for c in ATTENTION_PATHS},
         "max_abs_err": a["max_abs_err"], "ms": a["ms"],
         "plain_ms": a["plain_ms"], "bound_ms": a["bound_ms"],
         "bound_by": a["bound_by"], "library_ms": a["library_ms"],
@@ -1831,7 +2333,11 @@ def launches_of(report, paths, dt):
 BLOCK_MATMUL_PATHS = ("host", "in_core", "vmem", "syrk_host", "direct_host",
                       "host_bf16", "in_core_bf16", "cholesky", "lu",
                       "fault_host", "fault_host_empty", "fault_host_oom",
-                      "fault_cholesky", "fault_cholesky_oom", "fault_lu")
+                      "fault_cholesky", "fault_cholesky_oom", "fault_lu",
+                      "tune_calibrate", "tune_gemm", "tune_gemm_bf16",
+                      "tune_syrk", "tune_cholesky", "tune_lu", "tune_oom")
+# the paths that launch kernel 2
+ATTENTION_PATHS = ("attention", "attention_f32", "tune_attention")
 
 
 def phase_timing(gen, report, card):
@@ -2103,7 +2609,7 @@ def main(argv=None) -> int:
     phase_kernels_attention(gen)
     phase_kernels_direct(gen)
     report = {"main_path": [], "attention": [], "c1": [], "factor": [],
-              "fault": [],
+              "fault": [], "tune": [],
               "factor_panel_ms": {}, "factor_dgemm_check": {},
               "launches": {}, "launches_by_dtype": {}}
     A, B, C, host_out, params = phase_main(gen, report)
@@ -2115,6 +2621,7 @@ def main(argv=None) -> int:
     phase_main_bf16(gen, report, args.baseline)
     factors = phase_factor(gen, report)
     phase_faults(report, A, B, C, host_out, params, factors)
+    phase_tune(gen, report, card, A, B, C, host_out, params, factors)
     del A, B, C, host_out, factors
     entries = [*phase_timing(gen, report, card),
                phase_timing_attention(gen, report, card),
@@ -2127,6 +2634,9 @@ def main(argv=None) -> int:
                       "factor_panel_ms": report["factor_panel_ms"],
                       "factor_dgemm_check": report["factor_dgemm_check"],
                       "fault": report["fault"],
+                      "tune": report["tune"],
+                      "tune_calibration": report.get("tune_calibration"),
+                      "tune_searches": report.get("tune_searches"),
                       "baseline": report.get("baseline"),
                       "baseline_bf16": report.get("baseline_bf16"),
                       "card": card}))

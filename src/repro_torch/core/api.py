@@ -2,11 +2,11 @@
 
 Port of ``src/repro/core/api.py`` for what this slice has: devices,
 runtimes, streams, the partitioner, the pipeline compiler, the executor,
-observability, the factorizations and the fault policy.  Tier sizes are
-the card's own (:func:`~repro_torch.core.runtime.tier_bytes`): ``HBM`` is
-the device memory, ``VMEM`` the shared memory a block may use.  Without a
-card the caller passes ``mem_bytes``.  The hybrid, analysis and tuner facades
-arrive with their ROADMAP module items (8, 9, 7).
+observability, the factorizations, the fault policy and the autotuner.
+Tier sizes are the card's own (:func:`~repro_torch.core.runtime.
+tier_bytes`): ``HBM`` is the device memory, ``VMEM`` the shared memory a
+block may use.  Without a card the caller passes ``mem_bytes``.  The
+hybrid and analysis facades arrive with their ROADMAP module items (8, 9).
 """
 
 from __future__ import annotations
@@ -119,6 +119,27 @@ def hclOocFactor(A, kind: str = "cholesky", **kw):
         return ooc_lu(A, **kw)
     raise ValueError(f"unknown factor kind {kind!r}; expected "
                      f"'cholesky' or 'lu'")
+
+
+def hclAutoTuner(device: Optional[Device] = None, **kw):
+    """Facade over :class:`repro_torch.tune.AutoTuner` (DESIGN.md §6):
+    calibrate the card once, then dispense cached ``TunedPlan``s —
+    partition geometry, stream count, buffer depth — per problem shape and
+    tier.
+
+        tuner = hclAutoTuner(device)                # calibrates lazily
+        plan = tuner.gemm_plan(M, N, K, hclGetMemSize(device))
+        C = ooc_gemm(A, B, budget_bytes=..., tune="auto", tuner=tuner)
+
+    Keyword arguments forward to ``AutoTuner`` (``profile``, ``cache``,
+    ``torch_device``, ...).  Resolved lazily: ``repro_torch.tune`` imports
+    ``repro_torch.core`` submodules, so the facade must not import the
+    tuner package at module load."""
+    from repro_torch.tune import AutoTuner
+
+    if device is not None:
+        kw.setdefault("tier", device.name.upper())
+    return AutoTuner(**kw)
 
 
 def hclFaultPolicy(**kw):

@@ -19,8 +19,13 @@ run on different streams and ``attn_out`` on the D2H stream, ordered by the
 schedule's ``carry`` buffer edges: a tensor freed and re-made per block
 could be freed on one stream while another still reads it.
 
-Not in this slice: ``tune="auto"`` (ROADMAP module item 7) and
-``devices=`` (item 8); each raises ``NotImplementedError``.
+``tune="auto"`` plans the KV block length, stream count and buffer depth
+through an :class:`~repro_torch.tune.AutoTuner` and records the run's
+measured wall and bytes against the plan's prediction
+(``obs.record_drift``).
+
+Not in this slice: ``devices=`` (ROADMAP module item 8), which raises
+``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -30,6 +35,7 @@ from typing import Optional
 
 import torch
 
+from repro_torch.core.oocgemm import _record_host_drift
 from repro_torch.core.partitioner import plan_attention_partition
 from repro_torch.core.pipeline import build_attention_schedule
 from repro_torch.core.runtime import (ExecState, ScheduleExecutor,
@@ -144,13 +150,16 @@ def ooc_attention(
     ``mode="concurrent"`` or ``record_spans=True``); its torch device is
     used.  ``torch_device`` (default: CUDA) otherwise; with no card pass
     ``torch_device="cpu"`` for the kernels' plain versions.
+
+    tune: ``None`` uses the defaults above; ``"auto"`` plans the KV block
+    length, stream count and buffer depth through an
+    :class:`~repro_torch.tune.AutoTuner` (``tuner`` or the process
+    default), served from the plan cache on repeat calls.
     """
     if tune not in (None, "auto"):
         raise ValueError(f"unknown tune mode {tune!r}; expected None/'auto'")
     if devices is not None:
         raise not_ported("devices")
-    if tune == "auto":
-        raise not_ported("tune")
     if executor is None:
         dev = resolve_device(torch_device)
         obs = get_observability()
@@ -166,8 +175,20 @@ def ooc_attention(
     S, hkv, d = k_cache.shape
     H = q.shape[0]
 
-    part = plan_attention_partition(S, hkv, d, budget_bytes,
-                                    bytes_per_el=k_cache.element_size())
+    plan = None
+    if tune == "auto":
+        from repro_torch.tune import get_default_tuner
+        from repro_torch.tune.search import dtype_name
+
+        if tuner is None:
+            tuner = get_default_tuner()
+        plan = tuner.attention_plan(S, hkv, d, H, budget_bytes,
+                                    dtype=dtype_name(k_cache.dtype))
+        part = plan.attention_partition()
+        nstreams, nbuf = plan.nstreams, plan.nbuf
+    else:
+        part = plan_attention_partition(S, hkv, d, budget_bytes,
+                                        bytes_per_el=k_cache.element_size())
     sched = build_attention_schedule(part, hkv, d, H,
                                      nstreams=nstreams, nbuf=nbuf)
     if validate:
@@ -180,4 +201,5 @@ def ooc_attention(
         outputs={"out": out},
         ctx={"q": q.to(device=executor.torch_device, dtype=torch.float32)},
     )
+    _record_host_drift(plan, executor, sched)
     return out.to(compute_dtype(q.dtype))

@@ -35,6 +35,14 @@ as the schedule's buffers (:func:`panel_workspace_bytes`): the planner
 sizes the trailing blocks for what is left.  On the CPU nothing is charged
 for the panel ops, as in the reference, so the plans are the reference's.
 
+``tune="auto"`` (``tuner=`` or the process default) plans the panel
+width, trailing block dims, stream count, buffer depth, lookahead and
+eviction policy with one cached search over the whole factorization.  On
+a card that search runs at the budget less the panel ops' workspace at
+the *requested* panel width — the most any candidate's narrower panel
+needs — and the plan-cache key carries that charged budget; on the CPU
+the charge is 0, so the tuned plans are the reference's.
+
 ``torch_device`` (default: CUDA) selects where blocks and panels are
 computed; with no card the caller passes ``torch_device="cpu"``.
 ``executor`` runs the host pipeline on a prepared
@@ -43,13 +51,13 @@ device).
 
 ``faults=``/``fault_policy=`` (host backend) arm fault injection on the
 executor (``repro_torch.fault``); an oom, injected, walks the degrade
-ladder (halve nbuf, drop lookahead, halve the budget), each rung planned
-through :func:`_plan_factor_spec` (on a card, with the panel ops'
-workspace charged), and re-executes clean.
+ladder (halve nbuf, drop lookahead, halve the budget; tuned runs halve
+the budget only, each rung re-searched), each rung planned through
+:func:`_plan_factor_spec` or :func:`_tuned_factor_spec` (on a card, with
+the panel ops' workspace charged), and re-executes clean.
 
-Not in this slice: ``tune="auto"`` and ``tuner=`` (ROADMAP module item 7)
-and ``devices=`` and ``tolerance=`` (item 8); each raises
-``NotImplementedError``.
+Not in this slice: ``devices=`` and ``tolerance=`` (ROADMAP module item
+8); each raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -59,8 +67,8 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.core import pipeline as plib
-from repro_torch.core.oocgemm import (_check_slice, _torch_device, ooc_gemm,
-                                      ooc_syrk)
+from repro_torch.core.oocgemm import (_check_slice, _record_host_drift,
+                                      _torch_device, ooc_gemm, ooc_syrk)
 from repro_torch.core.pipeline import FactorPipelineSpec, factor_pipeline_spec
 from repro_torch.core.runtime import (ScheduleExecutor, apply_panel_pivots,
                                       chol_panel_solve, device_tensor,
@@ -119,8 +127,39 @@ def _plan_factor_spec(kind: str, n: int, panel: int, budget_bytes: int,
         f"no feasible {kind} pipeline for n={n} within {budget_bytes}B")
 
 
+def _tuned_factor_spec(tuner, kind: str, n: int, panel: int,
+                       budget_bytes: int, bytes_per_el: int, dtype,
+                       torch_device="cpu"):
+    """(spec, nstreams, nbuf, evict, plan) from the autotuner's factor plan
+    — one cached search covers every shrinking per-panel trailing shape;
+    the plan rides along so the caller can record prediction drift.  On a
+    card the search and the spec take the budget less the panel ops'
+    workspace at the requested panel width (:func:`panel_workspace_bytes`
+    grows with the width, and the search tries ``panel``, ``panel/2`` and
+    ``panel/4``, so that charge bounds every candidate's)."""
+    from repro_torch.tune import get_default_tuner
+    from repro_torch.tune.search import dtype_name
+
+    if tuner is None:
+        tuner = get_default_tuner()
+    ws = panel_workspace_bytes(kind, n, min(panel, n), bytes_per_el,
+                               torch_device)
+    charged = budget_bytes - ws
+    if charged <= 0:
+        raise ValueError(f"no feasible {kind} pipeline for n={n}: the "
+                         f"budget of {budget_bytes}B less {ws}B of "
+                         f"panel-op workspace")
+    plan = tuner.factor_plan(kind, n, panel, charged,
+                             dtype=dtype_name(dtype))
+    spec = factor_pipeline_spec(
+        n, plan.param("panel"), charged, bytes_per_el, kind=kind,
+        lookahead=plan.param("lookahead"), nbuf=plan.nbuf,
+        bm=plan.param("bm"), bn=plan.param("bn"))
+    return spec, plan.nstreams, plan.nbuf, plan.evict, plan
+
+
 def _run_factor(A: torch.Tensor, spec: FactorPipelineSpec, nstreams: int,
-                nbuf: int, validate: bool, evict: str = "lru",
+                nbuf: int, validate: bool, evict: str = "lru", plan=None,
                 executor: Optional[ScheduleExecutor] = None,
                 torch_device=None, faults=None, policy=None):
     """Compile + execute the factor schedule over a copy of ``A``; returns
@@ -128,7 +167,8 @@ def _run_factor(A: torch.Tensor, spec: FactorPipelineSpec, nstreams: int,
 
     When a trace is active the executor records its pipeline as the
     ``factor:<kind>`` lane group, and the ``repro_factor_*`` gauges expose
-    the lookahead/panel shape."""
+    the lookahead/panel shape; a tuned ``plan`` also yields a drift record
+    (whole-factorization predicted vs measured)."""
     obs = get_observability()
     sched = plib.compile_factor_pipeline(spec, nstreams=nstreams, nbuf=nbuf,
                                          evict=evict)
@@ -152,29 +192,33 @@ def _run_factor(A: torch.Tensor, spec: FactorPipelineSpec, nstreams: int,
             "repro_factor_panel_width",
             "resident panel width of the last factorization").set(
                 spec.panel, kernel=kernel)
+    _record_host_drift(plan, ex, sched)
     return out, state
 
 
 def _run_factor_resilient(A: torch.Tensor, kind: str,
                           spec: FactorPipelineSpec, nstreams: int, nbuf: int,
-                          validate: bool, evict: str, *, faults, policy,
-                          panel: int, budget_bytes: int,
+                          validate: bool, evict: str, plan=None, *, faults,
+                          policy, panel: int, budget_bytes: int,
                           executor: Optional[ScheduleExecutor],
-                          torch_device):
+                          torch_device, tune=None, tuner=None):
     """:func:`_run_factor` with the oom degrade ladder (DESIGN.md §12)
     around it: an injected oom aborts the run, after which successive
-    rungs — halve nbuf, drop lookahead, halve the budget — replan through
-    :func:`_plan_factor_spec` until one executes.  The degraded re-run is
-    fault-free: the oom occurrence was consumed by the failed attempt.
-    Every attempted rung is recorded in ``policy.degrades``."""
+    rungs — halve nbuf, drop lookahead, halve the budget (tuned plans:
+    budget halvings only, each re-searched) — replan through
+    :func:`_plan_factor_spec` or :func:`_tuned_factor_spec` until one
+    executes.  The degraded re-run is fault-free: the oom occurrence was
+    consumed by the failed attempt.  Every attempted rung is recorded in
+    ``policy.degrades``."""
     run = dict(executor=executor, torch_device=torch_device)
     if faults is None:
-        return _run_factor(A, spec, nstreams, nbuf, validate, evict, **run)
+        return _run_factor(A, spec, nstreams, nbuf, validate, evict, plan,
+                           **run)
     from repro_torch.fault.errors import OomError
     from repro_torch.fault.policy import FaultPolicy
     policy = policy or FaultPolicy()
     try:
-        return _run_factor(A, spec, nstreams, nbuf, validate, evict,
+        return _run_factor(A, spec, nstreams, nbuf, validate, evict, plan,
                            faults=faults, policy=policy, **run)
     except OomError as e:
         # without its traceback, whose frames hold the failed run's device
@@ -184,15 +228,22 @@ def _run_factor_resilient(A: torch.Tensor, kind: str,
     n = A.shape[0]
     kernel = f"{kind}-factor"
     for step in policy.degrade_ladder(nbuf=nbuf, lookahead=spec.lookahead,
-                                      budget_bytes=budget_bytes):
+                                      budget_bytes=budget_bytes,
+                                      tuned=tune == "auto"):
         policy.degrades.append(step)
         obs.instant(f"fault:degrade:{step.action}", kernel=kernel)
         try:
-            spec2 = _plan_factor_spec(
-                kind, n, panel, step.budget_bytes, A.element_size(),
-                step.lookahead, step.nbuf, torch_device)
-            result = _run_factor(A, spec2, nstreams, step.nbuf, validate,
-                                 evict, **run)
+            if tune == "auto":
+                spec2, ns2, nb2, ev2, plan2 = _tuned_factor_spec(
+                    tuner, kind, n, panel, step.budget_bytes,
+                    A.element_size(), A.dtype, torch_device)
+            else:
+                spec2 = _plan_factor_spec(
+                    kind, n, panel, step.budget_bytes, A.element_size(),
+                    step.lookahead, step.nbuf, torch_device)
+                ns2, nb2, ev2, plan2 = nstreams, step.nbuf, evict, None
+            result = _run_factor(A, spec2, ns2, nb2, validate, ev2, plan2,
+                                 **run)
         except ValueError:
             continue
         obs.record_fault_recovery(kernel, "degrade")
@@ -207,16 +258,28 @@ def _check_square(A: torch.Tensor) -> int:
     return n
 
 
-def _prepare(A, backend, tune, tuner, devices, tolerance, faults, executor,
+def _prepare(A, backend, tune, devices, tolerance, faults, executor,
              torch_device) -> Tuple[torch.Tensor, int, torch.device]:
     _check_slice(backend, tune, devices, faults)
-    if tuner is not None:
-        raise not_ported("tune")
     if tolerance is not None:
         raise not_ported("devices")
     dev = _torch_device(executor, torch_device)
     A = host_tensor(A)
     return A, _check_square(A), dev
+
+
+def _factor_spec(kind: str, A: torch.Tensor, n: int, panel: int,
+                 budget_bytes: int, lookahead: int, nstreams: int, nbuf: int,
+                 evict: str, tune, tuner, dev: torch.device):
+    """(spec, nstreams, nbuf, evict, tuned plan or None) of an entry
+    point's host pipeline: the tuner's, or the caller's knobs planned
+    through :func:`_plan_factor_spec`."""
+    if tune == "auto":
+        return _tuned_factor_spec(tuner, kind, n, panel, budget_bytes,
+                                  A.element_size(), A.dtype, dev)
+    return (_plan_factor_spec(kind, n, panel, budget_bytes,
+                              A.element_size(), lookahead, nbuf, dev),
+            nstreams, nbuf, evict, None)
 
 
 def ooc_cholesky(A, panel: int = 256, *, budget_bytes: int,
@@ -238,6 +301,11 @@ def ooc_cholesky(A, panel: int = 256, *, budget_bytes: int,
     eviction policy (``"lru"``/``"belady"``) — it changes only H2D traffic,
     never the factor.
 
+    ``tune="auto"`` resolves panel width, trailing block dims, stream
+    count, buffer depth, lookahead and eviction policy from the autotuner
+    (``tuner`` or the process default); on a card it searches at the
+    budget less the panel ops' workspace (see the module docstring).
+
     ``backend="vmem"`` takes the per-panel loop instead: panel ops on the
     device, the trailing update through :func:`~repro_torch.core.oocgemm.
     ooc_syrk` on that backend.
@@ -246,17 +314,20 @@ def ooc_cholesky(A, panel: int = 256, *, budget_bytes: int,
     float64 with f32-accurate residuals (~1e-6 relative, not LAPACK's
     ~1e-15), as in the reference.
     """
-    A, n, dev = _prepare(A, backend, tune, tuner, devices, tolerance,
-                         faults, executor, torch_device)
+    A, n, dev = _prepare(A, backend, tune, devices, tolerance, faults,
+                         executor, torch_device)
     if backend != "host":
         with prefer_cusolver(dev):
-            return _loop_cholesky(A, panel, budget_bytes, backend, dev)
-    spec = _plan_factor_spec("cholesky", n, panel, budget_bytes,
-                             A.element_size(), lookahead, nbuf, dev)
+            return _loop_cholesky(A, panel, budget_bytes, backend, dev,
+                                  tune, tuner)
+    spec, nstreams, nbuf, evict, plan = _factor_spec(
+        "cholesky", A, n, panel, budget_bytes, lookahead, nstreams, nbuf,
+        evict, tune, tuner, dev)
     out, _ = _run_factor_resilient(
-        A, "cholesky", spec, nstreams, nbuf, validate, evict, faults=faults,
-        policy=fault_policy, panel=panel, budget_bytes=budget_bytes,
-        executor=executor, torch_device=dev)
+        A, "cholesky", spec, nstreams, nbuf, validate, evict, plan,
+        faults=faults, policy=fault_policy, panel=panel,
+        budget_bytes=budget_bytes, executor=executor, torch_device=dev,
+        tune=tune, tuner=tuner)
     return torch.tril(out)
 
 
@@ -281,22 +352,25 @@ def ooc_lu(A, panel: int = 256, *, budget_bytes: int,
     the host columns outside the panel at panel write-back
     (``lu_writeback`` handler), so the trailing stream always reads
     consistently permuted rows.  ``lookahead`` overlaps the next panel's
-    transfer+GETRF with the current trailing update; ``backend="vmem"``
-    behaves as in :func:`ooc_cholesky`, with :func:`~repro_torch.core.
-    oocgemm.ooc_gemm` as the trailing update.  As there, float64 input is
-    computed in float32.
+    transfer+GETRF with the current trailing update; ``tune="auto"`` and
+    ``backend="vmem"`` behave as in :func:`ooc_cholesky`, with
+    :func:`~repro_torch.core.oocgemm.ooc_gemm` as the loop's trailing
+    update.  As there, float64 input is computed in float32.
     """
-    A, n, dev = _prepare(A, backend, tune, tuner, devices, tolerance,
-                         faults, executor, torch_device)
+    A, n, dev = _prepare(A, backend, tune, devices, tolerance, faults,
+                         executor, torch_device)
     if backend != "host":
         with prefer_cusolver(dev):
-            return _loop_lu(A, panel, budget_bytes, backend, dev)
-    spec = _plan_factor_spec("lu", n, panel, budget_bytes,
-                             A.element_size(), lookahead, nbuf, dev)
+            return _loop_lu(A, panel, budget_bytes, backend, dev, tune,
+                            tuner)
+    spec, nstreams, nbuf, evict, plan = _factor_spec(
+        "lu", A, n, panel, budget_bytes, lookahead, nstreams, nbuf, evict,
+        tune, tuner, dev)
     out, state = _run_factor_resilient(
-        A, "lu", spec, nstreams, nbuf, validate, evict, faults=faults,
-        policy=fault_policy, panel=panel, budget_bytes=budget_bytes,
-        executor=executor, torch_device=dev)
+        A, "lu", spec, nstreams, nbuf, validate, evict, plan,
+        faults=faults, policy=fault_policy, panel=panel,
+        budget_bytes=budget_bytes, executor=executor, torch_device=dev,
+        tune=tune, tuner=tuner)
     return out, state.scratch.get("perm", torch.arange(n))
 
 
@@ -305,10 +379,12 @@ def ooc_lu(A, panel: int = 256, *, budget_bytes: int,
 # update through the out-of-core kernels)
 # ---------------------------------------------------------------------------
 def _loop_cholesky(A: torch.Tensor, panel: int, budget_bytes: int,
-                   backend: str, dev: torch.device) -> torch.Tensor:
+                   backend: str, dev: torch.device, tune=None,
+                   tuner=None) -> torch.Tensor:
     A = A.clone()
     n = A.shape[0]
-    kw = dict(budget_bytes=budget_bytes, backend=backend, torch_device=dev)
+    kw = dict(budget_bytes=budget_bytes, backend=backend, tune=tune,
+              tuner=tuner, torch_device=dev)
     infos: List[Tuple[str, torch.Tensor]] = []
     for k0 in range(0, n, panel):
         k1 = min(n, k0 + panel)
@@ -328,11 +404,13 @@ def _loop_cholesky(A: torch.Tensor, panel: int, budget_bytes: int,
 
 
 def _loop_lu(A: torch.Tensor, panel: int, budget_bytes: int, backend: str,
-             dev: torch.device) -> Tuple[torch.Tensor, torch.Tensor]:
+             dev: torch.device, tune=None, tuner=None
+             ) -> Tuple[torch.Tensor, torch.Tensor]:
     A = A.clone()
     n = A.shape[0]
     perm = torch.arange(n)
-    kw = dict(budget_bytes=budget_bytes, backend=backend, torch_device=dev)
+    kw = dict(budget_bytes=budget_bytes, backend=backend, tune=tune,
+              tuner=tuner, torch_device=dev)
     for k0 in range(0, n, panel):
         k1 = min(n, k0 + panel)
         d = k1 - k0

@@ -22,11 +22,19 @@ the device and returns a device tensor.
 ``faults=``/``fault_policy=`` (host backend) arm fault injection on the
 executor (``repro_torch.fault``): transfer faults retry, compute faults
 replay, and an injected oom in ``ooc_gemm`` walks the degrade ladder
-(halve nbuf, then halve the budget) and re-executes clean.
+(halve nbuf, then halve the budget; tuned runs halve the budget only,
+each rung re-searched) and re-executes clean.
 
-Not in this slice: ``tune="auto"`` (ROADMAP module item 7), ``devices=``
-(item 8) and ``backend="mesh"`` (item 10); each raises
-``NotImplementedError``.
+``tune="auto"`` (host backend) plans the partition, stream count, buffer
+depth, traversal and eviction policy through an
+:class:`~repro_torch.tune.AutoTuner` (``tuner=`` or the process default,
+which calibrates the card), searched once per (shape, dtype, tier,
+budget, hardware) and served from its plan cache after; a tuned run
+records its measured wall and bytes against the plan's prediction
+(``obs.record_drift``).
+
+Not in this slice: ``devices=`` (ROADMAP module item 8) and
+``backend="mesh"`` (item 10); each raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -41,7 +49,7 @@ from repro_torch.core.runtime import (HostOocRuntime, OocRuntime,
                                       VmemOocRuntime, block_gemm,
                                       device_tensor, host_tensor, not_ported,
                                       resolve_device)
-from repro_torch.core.streams import Device, validate_schedule
+from repro_torch.core.streams import Device, OpKind, validate_schedule
 from repro_torch.obs import get_observability
 
 
@@ -54,8 +62,6 @@ def is_in_core(M: int, N: int, K: int, budget_bytes: int,
 def _check_slice(backend: str, tune, devices, faults) -> None:
     if tune not in (None, "auto"):
         raise ValueError(f"unknown tune mode {tune!r}; expected None/'auto'")
-    if tune == "auto":
-        raise not_ported("tune")
     if faults is not None and (devices is not None or backend != "host"):
         raise ValueError("fault injection is supported on the host "
                          "pipeline backend only (hybrid paths take "
@@ -80,6 +86,44 @@ def _torch_device(runtime, torch_device) -> torch.device:
     return runtime.torch_device
 
 
+def _tuned_gemm_plan(tuner, kernel: str, M: int, N: int, K: int,
+                     budget_bytes: int, dtype):
+    """Resolve the full :class:`~repro_torch.tune.TunedPlan` from the
+    (default) autotuner's plan cache — searched once per (shape, dtype,
+    tier, hardware).  Returning the plan (not just its pipeline knobs)
+    keeps the predicted makespan available for drift recording."""
+    from repro_torch.tune import get_default_tuner
+    from repro_torch.tune.search import dtype_name
+
+    if tuner is None:
+        tuner = get_default_tuner()
+    plan = tuner.gemm_plan(M, N, K, budget_bytes, dtype=dtype_name(dtype),
+                           kernel=kernel)
+    if not plan.write_back:
+        # "keep"-mode plans describe resident-C (SUMMA-style) pipelines;
+        # this entry point must land C in host memory
+        raise ValueError(
+            f"tuned plan for {kernel} {(M, N, K)} was searched with "
+            f"write_back=False; ooc_{kernel} requires write-back plans")
+    return plan
+
+
+def _record_host_drift(plan, ex, sched) -> None:
+    """After a tuned run of ``sched`` on executor ``ex``: log measured
+    wall/bytes against the plan's simulated makespan and the schedule's
+    modeled byte totals (every tuned entry point's drift record)."""
+    if plan is None:
+        return
+    get_observability().record_drift(
+        plan.kernel, plan.tier, plan.fingerprint,
+        predicted_makespan=plan.makespan,
+        measured_seconds=ex.last_wall_seconds,
+        predicted_h2d_bytes=sched.total_bytes(OpKind.H2D),
+        measured_h2d_bytes=ex.last_h2d_bytes,
+        predicted_d2h_bytes=sched.total_bytes(OpKind.D2H),
+        measured_d2h_bytes=ex.last_d2h_bytes)
+
+
 def _operand(x, backend: str, dev: torch.device) -> torch.Tensor:
     return host_tensor(x) if backend == "host" else device_tensor(x, dev)
 
@@ -93,12 +137,14 @@ def _in_core(A, B, C, alpha, beta, backend: str, dev: torch.device
 
 
 def _host_gemm_resilient(rt, A, B, C, alpha, beta, part, sched, *, faults,
-                         policy, nstreams, nbuf, traversal, evict,
-                         budget_bytes, bpe) -> torch.Tensor:
+                         policy, tuned, tune, tuner, nstreams, nbuf,
+                         traversal, evict, budget_bytes, bpe
+                         ) -> torch.Tensor:
     """Host-backend GEMM under fault injection with the oom degrade ladder
     (DESIGN.md §12): an injected oom aborts the run, then halve-nbuf /
-    halve-budget rungs replan, rebuild the schedule and re-execute clean.
-    The attempted rungs are recorded in ``policy.degrades``."""
+    halve-budget rungs replan, rebuild the schedule and re-execute clean
+    (tuned runs: budget halvings only, each re-searched).  The attempted
+    rungs are recorded in ``policy.degrades``."""
     from repro_torch.fault.errors import OomError
     from repro_torch.fault.policy import FaultPolicy
 
@@ -106,22 +152,33 @@ def _host_gemm_resilient(rt, A, B, C, alpha, beta, part, sched, *, faults,
     N = B.shape[1]
     policy = policy or FaultPolicy()
     try:
-        return rt.gemm(A, B, C, alpha, beta, part, schedule=sched,
-                       faults=faults, policy=policy)
+        out = rt.gemm(A, B, C, alpha, beta, part, schedule=sched,
+                      faults=faults, policy=policy)
+        _record_host_drift(tuned, rt.executor, sched)
+        return out
     except OomError as e:
         # without its traceback, whose frames hold the failed run's device
         # buffers until the re-run would have ended
         oom = e.with_traceback(None)
     obs = get_observability()
     for step in policy.degrade_ladder(nbuf=nbuf, lookahead=0,
-                                      budget_bytes=budget_bytes):
+                                      budget_bytes=budget_bytes,
+                                      tuned=tune == "auto"):
         policy.degrades.append(step)
         obs.instant(f"fault:degrade:{step.action}", kernel="gemm")
         try:
-            part2 = plan_gemm_partition(M, N, K, step.budget_bytes, bpe)
+            if tune == "auto":
+                t2 = _tuned_gemm_plan(tuner, "gemm", M, N, K,
+                                      step.budget_bytes, A.dtype)
+                part2, ns2, nb2 = (t2.gemm_partition(), t2.nstreams,
+                                   t2.nbuf)
+                tr2, ev2 = t2.traversal, t2.evict
+            else:
+                part2 = plan_gemm_partition(M, N, K, step.budget_bytes, bpe)
+                ns2, nb2, tr2, ev2 = (nstreams, step.nbuf, traversal,
+                                      evict)
             sched2 = plib.build_gemm_schedule(
-                part2, nstreams=nstreams, nbuf=step.nbuf,
-                traversal=traversal, evict=evict)
+                part2, nstreams=ns2, nbuf=nb2, traversal=tr2, evict=ev2)
             # clean re-run: the oom occurrence was consumed above
             out = rt.gemm(A, B, C, alpha, beta, part2, schedule=sched2)
         except ValueError:
@@ -147,6 +204,7 @@ def ooc_gemm(
     validate: bool = False,
     runtime: Optional[OocRuntime] = None,
     tune: Optional[str] = None,
+    tuner=None,
     devices: Optional[Sequence] = None,
     faults=None,
     fault_policy=None,
@@ -166,12 +224,19 @@ def ooc_gemm(
     (for instance one whose executor runs ``mode="concurrent"``); its torch
     device is used.
 
+    tune: ``None`` uses the defaults above; ``"auto"`` asks an
+    :class:`~repro_torch.tune.AutoTuner` (``tuner`` or the process
+    default) for a plan — partition geometry, stream count, buffer depth,
+    traversal and eviction policy — served from its plan cache on repeat
+    calls (host backend; the vmem backend plans its own launch).
+
     faults / fault_policy (host backend): a :class:`~repro_torch.fault.
     FaultPlan` (or ``sched -> plan`` callable) armed on the executor, with
     a :class:`~repro_torch.fault.FaultPolicy`.  Transfer faults retry,
     compute faults replay; an injected oom walks the degrade ladder (halve
-    nbuf, then halve the budget) and re-executes clean.  The in-core path
-    ignores them.
+    nbuf, then halve the budget; tuned runs halve the budget only, each
+    rung re-searched) and re-executes clean.  The in-core path ignores
+    them.
     """
     _check_slice(backend, tune, devices, faults)
     dev = _torch_device(runtime, torch_device)
@@ -190,7 +255,15 @@ def ooc_gemm(
     if is_in_core(M, N, K, budget_bytes, bpe):
         return _in_core(A, B, C, alpha, beta, backend, dev)
 
-    part = plan_gemm_partition(M, N, K, budget_bytes, bpe)
+    tuned = None
+    if tune == "auto" and backend == "host":
+        tuned = _tuned_gemm_plan(tuner, "gemm", M, N, K, budget_bytes,
+                                 A.dtype)
+        part, nstreams, nbuf = (tuned.gemm_partition(), tuned.nstreams,
+                                tuned.nbuf)
+        traversal, evict = tuned.traversal, tuned.evict
+    else:
+        part = plan_gemm_partition(M, N, K, budget_bytes, bpe)
     if backend == "host":
         sched = plib.build_gemm_schedule(part, nstreams=nstreams, nbuf=nbuf,
                                          traversal=traversal, evict=evict)
@@ -199,12 +272,14 @@ def ooc_gemm(
         rt = runtime or HostOocRuntime(Device("HBM", 0, budget_bytes),
                                        torch_device=dev)
         if faults is None:
-            return rt.gemm(A, B, C, alpha, beta, part, schedule=sched)
+            out = rt.gemm(A, B, C, alpha, beta, part, schedule=sched)
+            _record_host_drift(tuned, rt.executor, sched)
+            return out
         return _host_gemm_resilient(
             rt, A, B, C, alpha, beta, part, sched, faults=faults,
-            policy=fault_policy, nstreams=nstreams, nbuf=nbuf,
-            traversal=traversal, evict=evict, budget_bytes=budget_bytes,
-            bpe=bpe)
+            policy=fault_policy, tuned=tuned, tune=tune, tuner=tuner,
+            nstreams=nstreams, nbuf=nbuf, traversal=traversal, evict=evict,
+            budget_bytes=budget_bytes, bpe=bpe)
     rt = runtime or VmemOocRuntime(Device("VMEM", 0, budget_bytes),
                                    torch_device=dev)
     return rt.gemm(A, B, C, alpha, beta, part)
@@ -225,6 +300,7 @@ def ooc_syrk(
     validate: bool = False,
     runtime: Optional[OocRuntime] = None,
     tune: Optional[str] = None,
+    tuner=None,
     devices: Optional[Sequence] = None,
     faults=None,
     fault_policy=None,
@@ -237,6 +313,10 @@ def ooc_syrk(
     ``dgemm`` handler as MMOOC; only individual blocks are transposed, on
     the host, into staging.  The vmem and in-core paths materialize
     ``P^T`` on the device and run the dense block GEMM.
+
+    tune: as in :func:`ooc_gemm` — ``"auto"`` plans partition, streams,
+    buffers, traversal and eviction through the autotuner (keyed as the
+    ``syrk`` kernel, since the panel is streamed twice).
 
     faults / fault_policy: as in :func:`ooc_gemm`, without the degrade
     ladder (an injected oom raises, as in the reference).
@@ -254,7 +334,15 @@ def ooc_syrk(
         Pd = device_tensor(P, dev)
         return _in_core(Pd, Pd.T.contiguous(), C, alpha, beta, backend, dev)
 
-    part = plan_gemm_partition(n, n, K, budget_bytes, bpe)
+    tuned = None
+    if tune == "auto" and backend == "host":
+        tuned = _tuned_gemm_plan(tuner, "syrk", n, n, K, budget_bytes,
+                                 P.dtype)
+        part, nstreams, nbuf = (tuned.gemm_partition(), tuned.nstreams,
+                                tuned.nbuf)
+        traversal, evict = tuned.traversal, tuned.evict
+    else:
+        part = plan_gemm_partition(n, n, K, budget_bytes, bpe)
     if backend == "host":
         sched = plib.build_syrk_schedule(part, nstreams=nstreams, nbuf=nbuf,
                                          traversal=traversal, evict=evict)
@@ -262,8 +350,10 @@ def ooc_syrk(
             validate_schedule(sched)
         rt = runtime or HostOocRuntime(Device("HBM", 0, budget_bytes),
                                        torch_device=dev)
-        return rt.syrk(P, C, alpha, beta, part, schedule=sched,
-                       faults=faults, policy=fault_policy)
+        out = rt.syrk(P, C, alpha, beta, part, schedule=sched,
+                      faults=faults, policy=fault_policy)
+        _record_host_drift(tuned, rt.executor, sched)
+        return out
     rt = runtime or VmemOocRuntime(Device("VMEM", 0, budget_bytes),
                                    torch_device=dev)
     return rt.gemm(P, P.T.contiguous(), C, alpha, beta, part)

@@ -58,7 +58,6 @@ from repro_torch.obs import get_observability
 NOT_PORTED = {
     "MESH": "the MESH tier (MeshOocRuntime) is ROADMAP module item 10",
     "HYBRID": "the HYBRID composite runtime is ROADMAP module item 8",
-    "tune": "tune='auto' (the autotuner) is ROADMAP module item 7",
     "devices": "hybrid co-execution (devices=) is ROADMAP module item 8",
 }
 

@@ -839,3 +839,86 @@ def test_replay_after_a_landing_reuses_the_buffer_on_card(card):
     exact = A.astype(np.float64) @ B + C
     assert np.abs(outs[1].numpy() - exact).max() < 1e-3
 
+
+
+# ------------------------------------------------------------ the tuner
+def test_calibrate_on_card_rates_finite(card):
+    """``calibrate()`` times one-op schedules on the card (CUDA events):
+    finite positive rates at the card defaults, and the fingerprint is the
+    card's, stable across calls."""
+    from repro_torch.tune import calibrate, hardware_fingerprint
+
+    res = calibrate(repeats=2)
+    prof = res.profile
+    for rate in (prof.h2d_bw, prof.d2h_bw, prof.flops):
+        assert np.isfinite(rate) and rate > 0
+    assert 0 < prof.per_op_overhead <= 1e-3
+    assert "dgemm_4096_s" in res.samples
+    assert res.fingerprint == hardware_fingerprint() \
+        == hardware_fingerprint("cuda")
+    assert res.fingerprint != hardware_fingerprint("cpu")
+
+
+def _card_tuner(tmp_path):
+    from repro_torch.tune import AutoTuner, PlanCache, gpu_profile
+
+    return AutoTuner(profile=gpu_profile(flops=42e12, pcie=45e9),
+                     cache=PlanCache(str(tmp_path / "plans.json")),
+                     nbuf_options=(1, 2), max_steps=128)
+
+
+def test_tuned_mmooc_on_card_bitwise(card, tmp_path):
+    """``tune="auto"`` on the card: the tuned plan's schedule moves
+    ``schedule_stats``'s bytes with one launch per ``dgemm`` op, its
+    result equals the untuned run's bit for bit (K is never split and
+    kernel 1 sums each element in one order), and the repeat call is
+    served from the cache."""
+    A, B, C = _inputs(51, 1536, 1024, 512)
+    budget = (A.nbytes + B.nbytes + C.nbytes) // 5
+    tuner = _card_tuner(tmp_path)
+    ex = T.ScheduleExecutor()
+    rt = T.HostOocRuntime(executor=ex)
+    before = block_matmul.launches
+    out = T.ooc_gemm(A, B, C, 1.5, 0.5, budget_bytes=budget, tune="auto",
+                     tuner=tuner, runtime=rt)
+    plan = tuner.gemm_plan(1536, 1024, 512, budget)
+    sched = T.build_gemm_schedule(plan.gemm_partition(), plan.nstreams,
+                                  plan.nbuf, traversal=plan.traversal,
+                                  evict=plan.evict)
+    stats = T.schedule_stats(sched)
+    n_dgemm = sum(1 for op in sched.ops if op.kind == T.OpKind.COMPUTE)
+    assert block_matmul.launches - before == n_dgemm
+    assert (ex.last_h2d_bytes, ex.last_d2h_bytes) \
+        == (stats["h2d_bytes"], stats["d2h_bytes"])
+    untuned = T.ooc_gemm(A, B, C, 1.5, 0.5, budget_bytes=budget)
+    assert torch.equal(out, untuned)
+    again = T.ooc_gemm(A, B, C, 1.5, 0.5, budget_bytes=budget, tune="auto",
+                       tuner=tuner)
+    assert tuner.searches == 1 and tuner.last_from_cache
+    assert torch.equal(again, out)
+
+
+def test_tuned_cholesky_on_card(card, tmp_path):
+    """A tuned Cholesky on the card: the search ran at the budget less the
+    panel ops' workspace (the cache key carries it), peak device memory
+    stays within the budget, and the factor equals the untuned factor at
+    the tuned panel width bit for bit."""
+    n, panel = 512, 128
+    A = _factor_input("cholesky", n, 52)
+    budget = _card_budget("cholesky", n, panel, A.nbytes // 2)
+    tuner = _card_tuner(tmp_path)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    L = T.ooc_cholesky(A, panel=panel, budget_bytes=budget, tune="auto",
+                       tuner=tuner)
+    peak = torch.cuda.max_memory_allocated() - base
+    assert peak <= budget
+    charged = budget - panel_workspace_bytes("cholesky", n, panel, 4, "cuda")
+    plan = tuner.factor_plan("cholesky", n, panel, charged)
+    assert tuner.last_from_cache and plan.budget == charged
+    untuned = T.ooc_cholesky(A, panel=plan.param("panel"),
+                             budget_bytes=budget)
+    assert torch.equal(L, untuned)
+    exact = np.linalg.cholesky(A.astype(np.float64))
+    assert np.abs(L.numpy() - exact).max() <= 5e-6 * np.abs(exact).max()

@@ -156,6 +156,27 @@ def test_example_ports_run_on_cpu(name):
         assert "v5e" not in res.stdout
 
 
+@pytest.mark.parametrize("name,last,expect", [
+    ("autotune_gemm", "autotune quickstart OK",
+     ("second call: served from plan cache",
+      "gpu-like: picked nstreams=2", "phi-like: picked nstreams=1")),
+    ("ooc_lu", "ooc factorization quickstart OK",
+     ("rows pivoted", "(1 search, then cache hits)"))])
+def test_tune_example_ports_run_on_cpu(name, last, expect):
+    """The ports of the two tuner examples, with the reference's last
+    lines: the one-liner calibrates this CPU, and the canned profiles
+    reproduce claim C5's stream choice."""
+    res = subprocess.run(
+        [sys.executable, "-m", f"repro_torch.examples.{name}", "--cpu"],
+        capture_output=True, text=True, cwd=ROOT, timeout=240,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
+             "OMP_NUM_THREADS": "1"})
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.splitlines()[-1] == last
+    for text in expect:
+        assert text in res.stdout, text
+
+
 def test_mmooc_port_matches_reference_example():
     from examples.mmooc_via_api import mmooc as R_mmooc
 

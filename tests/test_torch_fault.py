@@ -17,8 +17,7 @@ plain path sums each element in one order):
 The port's buffers are updated in place, so a replay's inputs are
 copy-on-write clones (``runtime._ReplayLog``);
 ``test_replay_rebinds_inputs_a_landing_overwrote`` drives the case where
-they matter.  The hybrid device-lost tests wait for ROADMAP module item 8
-and the tuned-ladder and fault-aware-search tests for item 7.
+they matter.  The hybrid device-lost tests wait for ROADMAP module item 8.
 """
 
 import numpy as np
@@ -761,14 +760,170 @@ def test_faults_rejected_on_non_host_backends():
                    backend="vmem", faults=RF.FaultPlan())
 
 
+# ----------------------------------------------------- tuned runs (item 7)
+@pytest.fixture
+def default_tuners(tmp_path):
+    """``tune="auto"`` without ``tuner=`` in both packages on one canned
+    profile: each package's default tuner is an ``AutoTuner`` on
+    ``gpu_profile()`` with a plan cache under ``tmp_path`` (nothing is
+    calibrated, nothing touches the home directory); the defaults are
+    restored after the test."""
+    import repro.tune as RT
+    import repro.tune.tuner as RT_tuner
+    import repro_torch.tune as TT
+    import repro_torch.tune.tuner as TT_tuner
+
+    saved = (RT_tuner._default_tuner, TT_tuner._default_tuner)
+    RT.set_default_tuner(RT.AutoTuner(
+        profile=RT.gpu_profile(),
+        cache=RT.PlanCache(str(tmp_path / "reference.json"))))
+    TT.set_default_tuner(TT.AutoTuner(
+        profile=TT.gpu_profile(),
+        cache=TT.PlanCache(str(tmp_path / "port.json")), torch_device=CPU))
+    yield TT.get_default_tuner()
+    RT.set_default_tuner(saved[0])
+    TT.set_default_tuner(saved[1])
+
+
+def test_oom_tuned_gemm_lands_on_reduced_budget_plan(default_tuners):
+    rng = np.random.default_rng(6)
+    m, n, k = 256, 64, 32
+    A = rng.standard_normal((m, k))
+    B = rng.standard_normal((k, n))
+    C = rng.standard_normal((m, n))
+    budget = 120_000
+    kw = dict(budget_bytes=budget, tune="auto", torch_device=CPU)
+    clean = T.ooc_gemm(A, B, C, 1.0, 0.5, **kw)
+    pol = TF.FaultPolicy(**_quiet())
+    out = T.ooc_gemm(A, B, C, 1.0, 0.5, faults=_oom_at_first_compute(TF),
+                     fault_policy=pol, **kw)
+    # tuned runs: the tuner owns nbuf/lookahead, so the ladder is budget
+    # halvings only, re-searched — the degraded run IS the tuner's plan at
+    # the reduced budget
+    assert [d.action for d in pol.degrades] == ["halve_budget"]
+    assert pol.degrades[0].budget_bytes == budget // 2
+    assert torch.equal(out, clean)
+    direct = T.ooc_gemm(A, B, C, 1.0, 0.5, budget_bytes=budget // 2,
+                        tune="auto", torch_device=CPU)
+    assert torch.equal(out, direct)
+    assert default_tuners.searches == 2 and default_tuners.last_from_cache
+    rpol = RF.FaultPolicy(**_quiet())
+    rout = R.ooc_gemm(A, B, C, 1.0, 0.5, budget_bytes=budget, tune="auto",
+                      faults=_oom_at_first_compute(RF), fault_policy=rpol)
+    assert [vars(d) for d in pol.degrades] == [vars(d) for d in
+                                               rpol.degrades]
+    np.testing.assert_allclose(out.numpy(), rout, rtol=RTOL, atol=ATOL)
+
+
+def test_oom_degraded_rerun_is_fault_free_and_ladder_exhaustion_raises(
+        default_tuners):
+    rng = np.random.default_rng(7)
+    m, n, k = 128, 48, 32
+    A = rng.standard_normal((m, k))
+    B = rng.standard_normal((k, n))
+    C = rng.standard_normal((m, n))
+    clean = T.ooc_gemm(A, B, C, 1.0, 0.5, budget_bytes=60_000,
+                       torch_device=CPU)
+    pol = TF.FaultPolicy(**_quiet())
+    out = T.ooc_gemm(A, B, C, 1.0, 0.5, budget_bytes=60_000,
+                     faults=_oom_at_first_compute(TF, 10), fault_policy=pol,
+                     torch_device=CPU)
+    assert [d.action for d in pol.degrades] == ["halve_nbuf"]
+    assert torch.equal(out, clean)
+
+    # tuned ladder at this budget: both halvings (30k, 15k) are below the
+    # 53248B aligned working-set floor, so every rung fails to replan and
+    # the oom propagates to the caller, as in the reference
+    pols = []
+    for mod, err, call in (
+            (TF, TF.OomError, lambda **kw: T.ooc_gemm(
+                A, B, C, 1.0, 0.5, torch_device=CPU, **kw)),
+            (RF, RF.OomError, lambda **kw: R.ooc_gemm(
+                A, B, C, 1.0, 0.5, **kw))):
+        pols.append(mod.FaultPolicy(**_quiet(max_budget_halvings=2)))
+        with pytest.raises(err):
+            call(budget_bytes=60_000, tune="auto",
+                 faults=_oom_at_first_compute(mod, 10),
+                 fault_policy=pols[-1])
+    assert [d.action for d in pols[0].degrades] == ["halve_budget"] * 2
+    assert [vars(d) for d in pols[0].degrades] == [vars(d) for d in
+                                                   pols[1].degrades]
+
+
+def test_search_ranks_under_fault_model():
+    import repro.tune as RT
+    import repro_torch.tune as TT
+
+    prof = TT.gpu_profile()
+    best = TT.search_gemm(512, 256, 128, 1 << 22, prof)
+    faulted = TT.search_gemm(512, 256, 128, 1 << 22, prof, fault_rate=0.05)
+    assert faulted.makespan >= best.makespan
+    # the policy bridge produces the same model the tuner consumes
+    pol = TF.FaultPolicy(backoff_base=0.02)
+    fm = pol.fault_model(0.05)
+    assert fm.rate == 0.05 and fm.mean_backoff == 0.02
+    via_model = TT.search_gemm(512, 256, 128, 1 << 22, prof, fault_model=fm)
+    assert via_model.makespan >= best.makespan
+    # plan for plan the reference's, makespans included
+    rprof = RT.gpu_profile()
+    for got, want in (
+            (best, RT.search_gemm(512, 256, 128, 1 << 22, rprof)),
+            (faulted, RT.search_gemm(512, 256, 128, 1 << 22, rprof,
+                                     fault_rate=0.05)),
+            (via_model, RT.search_gemm(
+                512, 256, 128, 1 << 22, rprof,
+                fault_model=RF.FaultPolicy(backoff_base=0.02).fault_model(
+                    0.05)))):
+        assert got.to_json() == want.to_json()
+
+
+def _tuned_call(mod, entry, A, **kw):
+    """``entry`` of ``mod`` with ``tune="auto"`` on its default tuner; the
+    executor that ran it rides along (the port's by argument, the
+    reference's through its runtime or the factor helper)."""
+    if entry in ("ooc_gemm", "ooc_syrk"):
+        if mod is T:
+            rt = _rt()
+        else:
+            rt = R.HostOocRuntime()
+        args = (A, A.T.copy(), A) if entry == "ooc_gemm" else (A,)
+        out = getattr(mod, entry)(*args, budget_bytes=A.nbytes * 3 // 2,
+                                  tune="auto", runtime=rt, **kw)
+        return out, rt.executor
+    return _factor_run(mod, entry[4:], A, A.nbytes // 2, 32, tune="auto",
+                       **kw)
+
+
 @pytest.mark.parametrize("entry", ["ooc_gemm", "ooc_syrk", "ooc_cholesky",
                                    "ooc_lu"])
-def test_tune_auto_with_faults_still_raises_item_7(entry):
-    A = np.eye(64, dtype=np.float32) * 2.0
-    args = (A, A) if entry == "ooc_gemm" else (A,)
-    with pytest.raises(NotImplementedError, match="item 7"):
-        getattr(T, entry)(*args, budget_bytes=1 << 12, tune="auto",
-                          faults=TF.FaultPlan(), torch_device=CPU)
+def test_tune_auto_with_faults_recovers_bitwise(default_tuners, entry):
+    """``tune="auto"`` with ``faults=``: transfer retries and compute
+    replays recover on the tuned schedule, the result equals the clean
+    tuned run bit for bit, and ``last_fault_stats`` equals the
+    reference's on its tuned schedule under the same seeded plan (the two
+    tuners pick the same plan)."""
+    rng = np.random.default_rng(31)
+    n = 256
+    A = _spd(rng, n) if entry == "ooc_cholesky" \
+        else rng.standard_normal((n, n)) + n * np.eye(n)
+
+    def plan(mod):
+        return lambda sched: mod.FaultPlan.random(3, sched, 0.3)
+
+    clean, _ = _tuned_call(T, entry, A)
+    out, ex = _tuned_call(T, entry, A, faults=plan(TF),
+                          fault_policy=TF.FaultPolicy(**_quiet()))
+    assert default_tuners.last_from_cache and default_tuners.searches == 1
+    clean, out = (c if isinstance(c, tuple) else (c,) for c in (clean, out))
+    assert all(torch.equal(a, b) for a, b in zip(out, clean))
+    assert ex.last_fault_stats["injected"] > 0
+    ref, rex = _tuned_call(R, entry, A, faults=plan(RF),
+                           fault_policy=RF.FaultPolicy(**_quiet()))
+    assert ex.last_fault_stats == rex.last_fault_stats
+    ref = ref if isinstance(ref, tuple) else (ref,)
+    scale = np.abs(np.asarray(ref[0])).max()
+    np.testing.assert_allclose(out[0].numpy(), np.asarray(ref[0]), rtol=0,
+                               atol=1e-4 * scale)
 
 
 def test_in_core_path_and_a_lone_policy_ignore_faults():

