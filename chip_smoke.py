@@ -102,6 +102,29 @@ printing any result.  Phases (each raises on failure; none is skipped):
      tolerance.  Last, the tuned oom ladder: an oom at MMOOC's first
      compute under ``tune="auto"`` takes one ``halve_budget`` rung whose
      re-run equals a tuned run at half the budget bit for bit.
+ 12. hybrid co-execution (``[hybrid]`` lines; after phase 11, on phase
+     3's, 4's and 6's inputs and results): the reference's member pair,
+     ``DeviceSpec("gpu0", gpu_profile(), b)`` and ``DeviceSpec("phi0",
+     phi_profile(), b)``, both on this card (two executors with their own
+     streams, issuing from two pool threads), planned with the reference
+     tests' search knobs (``nbuf_options=(1, 2), max_steps=256``; each
+     plan's seconds printed).  ``run_hybrid_gemm`` at 24576^3 f32 with
+     1 GiB each, cold and warm, bit for bit equal to phase 3's result,
+     then with ``device_lost`` at the first compute of gpu0 and then of
+     phi0 (the band rebalanced onto the survivor), bit for bit equal to
+     the clean hybrid run, with ``(rebalance <dead>)`` lane groups;
+     ``run_hybrid_syrk`` at n = 16384, K = 8192 with 512 MiB each, bit
+     for bit equal to phase 4's result; ``run_hybrid_attention`` at phase
+     6's cell with 256 MiB each, within 2e-4 of phase 6's result and of
+     float64, and ``ooc_attention(devices=)``; ``ooc_cholesky(devices=)``
+     at n = 8192, panel 2048, against float64 on the card and beside the
+     same loop on ``backend="vmem"``.  Each call: summed bytes against
+     the members' ``schedule_stats``, kernel 1's launches against the
+     members' ``dgemm`` ops (plus the rebalanced band's), kernel 2's
+     against twice their ``attn`` ops, peak device memory within the
+     members' parity buffers (its ratio to the summed budgets printed),
+     cudaMalloc calls, each member's wall, the lag, and the predicted
+     makespan (canned profiles) beside the measured one.
 
 With ``--baseline DIR`` (another checkout, e.g. ``git archive`` of the
 parent commit unpacked into a directory ``.gitignore`` lists), phase 5 is
@@ -1792,6 +1815,406 @@ def phase_tune(gen, report, card, A, B, C, host_out, params, factors):
         tmp.cleanup()
 
 
+# ---------------------------------------------------------------------------
+# Phase 12: hybrid co-execution on one card ([hybrid] lines)
+# ---------------------------------------------------------------------------
+# the reference's hybrid tests' and example's search knobs
+HYBRID_OPTS = dict(nbuf_options=(1, 2), max_steps=256)
+# the hybrid Cholesky: n, panel, each member's budget
+HYBRID_CHOL = (8192, 2048, 128 * 2**20)
+
+
+def hybrid_pair(budget):
+    """The reference's member pair, both on this card: the canned GPU and
+    Xeon Phi profiles (fixed inputs, so the split does not move between
+    calls), each with ``budget`` bytes."""
+    from repro_torch.hybrid import DeviceSpec
+    from repro_torch.tune import gpu_profile, phi_profile
+
+    return [DeviceSpec("gpu0", gpu_profile(), budget),
+            DeviceSpec("phi0", phi_profile(), budget)]
+
+
+def parity_bytes(sched):
+    """Device bytes the executor allocates for ``sched``: one buffer per
+    H2D-landed parity key, sized for its largest block."""
+    from repro_torch.core import OpKind
+
+    need = {}
+    for op in sched.ops:
+        if op.kind == OpKind.H2D:
+            key = op.buffers_written[0]
+            need[key] = max(need.get(key, 0), op.bytes)
+    return sum(need.values())
+
+
+def compute_ops(sched, kernel):
+    from repro_torch.core import BlockRef, OpKind
+
+    return sum(1 for op in sched.ops if op.kind == OpKind.COMPUTE
+               and isinstance(op.payload, BlockRef)
+               and op.payload.kernel == kernel)
+
+
+def hybrid_plan(tag, fn):
+    """Plan with ``fn()`` and print the split: each member's rows or
+    positions, block shape, streams, buffers, predicted seconds (canned
+    profiles), and the plan's seconds on this host."""
+    t0 = time.perf_counter()
+    hp = fn()
+    secs = time.perf_counter() - t0
+    members = "; ".join(
+        f"{dp.device.name} [{dp.start}, {dp.start + dp.length}) "
+        f"{dict(dp.plan.params)} s{dp.plan.nstreams}b{dp.plan.nbuf} "
+        f"{dp.plan.traversal}/{dp.plan.evict} predicted "
+        f"{dp.plan.makespan:.3f} s" for dp in hp.device_plans)
+    say("hybrid", f"{tag}: planned in {secs:.2f} s on the host "
+                  f"({hp.balance.iterations} balance iterations, spread "
+                  f"{hp.balance.spread:.4f}): {members}")
+    return hp, secs
+
+
+def hybrid_expect(hp):
+    """What the members' schedules say: compute ops by kernel, summed
+    ``schedule_stats`` bytes, summed parity bytes."""
+    from repro_torch.core import schedule_stats
+    from repro_torch.hybrid import device_schedule
+
+    out = {"dgemm": 0, "attn": 0, "h2d": 0, "d2h": 0, "parity": 0,
+           "by_member": {}}
+    for dp in hp.device_plans:
+        s = device_schedule(hp, dp)
+        st = schedule_stats(s)
+        row = {"dgemm": compute_ops(s, "dgemm"),
+               "attn": compute_ops(s, "attn"), "h2d": st["h2d_bytes"],
+               "d2h": st["d2h_bytes"], "parity": parity_bytes(s)}
+        out["by_member"][dp.device.name] = row
+        for k in ("dgemm", "attn", "h2d", "d2h", "parity"):
+            out[k] += row[k]
+    return out
+
+
+def member_busy(spans, wall):
+    """A member's device busy time (union of its op spans) and idle share
+    of its wall."""
+    covered, reach = 0.0, 0.0
+    for _, _, a, b in sorted(spans, key=lambda s: s[2]):
+        covered += max(0.0, b - max(a, reach))
+        reach = max(reach, b)
+    return covered, 1.0 - covered / wall if wall else 0.0
+
+
+def hybrid_call(tag, fn, report, key, counter, extra=0):
+    """``fn()`` once, measured: launches (``counter``), cudaMalloc calls,
+    peak device memory above what was allocated before, the call's wall,
+    and the run's stats (``last_run_stats``).  Launches are kept under
+    ``key``."""
+    from repro_torch.hybrid.executor import last_run_stats
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    mallocs = torch.cuda.memory_stats()["num_device_alloc"]
+    counter.zero()
+    t0 = time.perf_counter()
+    res = fn()
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    mallocs = torch.cuda.memory_stats()["num_device_alloc"] - mallocs
+    launches = counter.read()
+    if key is not None:
+        counter.keep(report, key)
+    return res, {"tag": tag, "call_s": wall, "peak_bytes": peak,
+                 "cuda_mallocs": mallocs, "launches": launches,
+                 "stats": last_run_stats()}
+
+
+def hybrid_row(m, exp, budget_sum, report, spans=None):
+    """Check and print one clean hybrid call: summed bytes equal the
+    schedules' (measured and modeled), peak within the summed parity
+    buffers (+ ``exp["scratch"]``) and 64 MiB slack."""
+    st = m["stats"]
+    slack = 64 * 2**20
+    require(st["h2d_bytes"] == st["sched_h2d_bytes"] == exp["h2d"]
+            and st["d2h_bytes"] == st["sched_d2h_bytes"] == exp["d2h"],
+            f"{m['tag']}: moved {st['h2d_bytes']}/{st['d2h_bytes']} B, the "
+            f"members' schedule_stats say {exp['h2d']}/{exp['d2h']}")
+    bound = exp["parity"] + exp.get("scratch", 0)
+    require(m["peak_bytes"] <= bound + slack,
+            f"{m['tag']}: peak {m['peak_bytes']} B above the members' "
+            f"parity buffers {bound} B + 64 MiB")
+    walls = st["device_walls"]
+    stage = st["device_stage_seconds"]
+    row = {"path": m["tag"], "call_s": m["call_s"],
+           "member_walls_s": walls, "member_stage_s": stage,
+           "lag_s": st["lag_seconds"],
+           "launches": m["launches"], "peak_bytes": m["peak_bytes"],
+           "cuda_mallocs": m["cuda_mallocs"], "h2d_bytes": st["h2d_bytes"],
+           "d2h_bytes": st["d2h_bytes"], "parity_bytes": exp["parity"],
+           "budget_bytes": budget_sum}
+    busy = ""
+    if spans:
+        row["member_busy_s"], row["member_idle_share"] = {}, {}
+        for name, sp in spans:
+            b, idle = member_busy(sp, walls[name])
+            row["member_busy_s"][name] = b
+            row["member_idle_share"][name] = idle
+        busy = "; device busy " + ", ".join(
+            f"{n} {row['member_busy_s'][n]:.3f} s (idle "
+            f"{100 * row['member_idle_share'][n]:.1f} % of its wall)"
+            for n in row["member_busy_s"])
+    report["hybrid"].append(row)
+    say("hybrid", f"{m['tag']}: {m['call_s']:.3f} s call, member walls "
+                  + ", ".join(f"{n} {w:.3f} s" for n, w in walls.items())
+                  + f" (lag {st['lag_seconds']:.3f} s), host staging fill "
+                  + ", ".join(f"{n} {v:.3f} s" for n, v in stage.items())
+                  + f"; {m['launches']} "
+                  f"launches; bytes {st['h2d_bytes']}/{st['d2h_bytes']} = "
+                  f"the members' schedule_stats; peak {m['peak_bytes']} B "
+                  f"<= parity {bound} B + 64 MiB ("
+                  f"{m['peak_bytes'] / budget_sum:.3f}x the summed budgets"
+                  f"); {m['cuda_mallocs']} cudaMalloc" + busy)
+    return row
+
+
+def first_compute_lost(sched):
+    from repro_torch.core import OpKind
+    from repro_torch.fault import FaultPlan, FaultSpec
+
+    i = next(i for i, op in enumerate(sched.ops)
+             if op.kind == OpKind.COMPUTE)
+    return FaultPlan(specs=(FaultSpec(op=i, cls="device_lost"),))
+
+
+def hybrid_gemm_case(report, A, B, C, host_out, params):
+    """MMOOC 24576^3 f32 across the pair (1 GiB each, phase 3's 2 GiB in
+    all), cold and warm, then with gpu0 and then phi0 lost at its first
+    compute."""
+    from repro_torch.fault import FaultPolicy
+    from repro_torch.hybrid import (device_schedule, plan_hybrid_gemm,
+                                    run_hybrid_gemm)
+
+    alpha, beta, budget = params
+    M, K = A.shape
+    N = B.shape[1]
+    mb = budget // 2
+    hp, secs = hybrid_plan(f"mmooc {M}x{N}x{K} f32, {mb} B each",
+                           lambda: plan_hybrid_gemm(
+                               M, N, K, hybrid_pair(mb), **HYBRID_OPTS))
+    exp = hybrid_expect(hp)
+    report["hybrid_plans"]["mmooc"] = secs
+    require(len(hp.device_plans) == 2, "mmooc: a member took no rows")
+    clean = None
+    for rep in ("cold", "warm"):
+        (out, groups), m = hybrid_call(
+            f"mmooc {rep}",
+            lambda: run_hybrid_gemm(A, B, C, alpha, beta, hp,
+                                    record_spans=rep == "warm"),
+            report, "hybrid_gemm" if rep == "cold" else None, Counter1())
+        require(m["launches"] == exp["dgemm"],
+                f"mmooc {rep}: {m['launches']} launches, the members' "
+                f"schedules have {exp['dgemm']} dgemm ops")
+        require(torch.equal(out, host_out),
+                f"mmooc {rep}: differs from phase 3's result")
+        row = hybrid_row(m, exp, budget, report,
+                         groups if rep == "warm" else None)
+        row["predicted_s"] = hp.predicted_makespan
+        ratio = m["stats"]["wall_seconds"] / hp.predicted_makespan
+        say("hybrid", f"mmooc {rep}: == phase 3's single-device result bit "
+                      f"for bit; predicted makespan (canned profiles) "
+                      f"{hp.predicted_makespan:.3f} s, measured/predicted "
+                      f"{ratio:.3f}")
+        clean = out
+    del out
+    pol = FaultPolicy(sleep=lambda s: None)
+    for i, dead in enumerate(("gpu0", "phi0")):
+        (out, groups), m = hybrid_call(
+            f"mmooc {dead} lost",
+            lambda: run_hybrid_gemm(A, B, C, alpha, beta, hp,
+                                    fault_plans={dead: first_compute_lost},
+                                    fault_policy=pol),
+            report, f"hybrid_gemm_lost_{dead}", Counter1())
+        st = m["stats"]
+        require(st["lost"] == [dead], f"{dead} lost: lost {st['lost']}")
+        (reb,) = st["rebalanced"]
+        sub = reb["plan"]
+        sub_ops = sum(compute_ops(device_schedule(sub, dp), "dgemm")
+                      for dp in sub.device_plans)
+        live = sum(r["dgemm"] for n, r in exp["by_member"].items()
+                   if n != dead)
+        require(m["launches"] == live + sub_ops,
+                f"{dead} lost: {m['launches']} launches, expected {live} "
+                f"(survivors) + {sub_ops} (rebalanced band)")
+        live_h2d = sum(r["h2d"] for n, r in exp["by_member"].items()
+                       if n != dead)
+        require(st["h2d_bytes"] == st["sched_h2d_bytes"] == live_h2d
+                and reb["h2d_bytes"] == reb["sched_h2d_bytes"],
+                f"{dead} lost: bytes {st['h2d_bytes']} / rebalance "
+                f"{reb['h2d_bytes']} differ from the schedules'")
+        names = [g for g, _ in groups]
+        require(any(f"(rebalance {dead})" in g for g in names)
+                and dead not in names,
+                f"{dead} lost: lane groups {names}")
+        require(torch.equal(out, clean),
+                f"{dead} lost: differs from the clean hybrid run")
+        row = {"path": m["tag"], "call_s": m["call_s"],
+               "launches": m["launches"], "peak_bytes": m["peak_bytes"],
+               "survivor_wall_s": st["wall_seconds"],
+               "rebalance_wall_s": reb["wall_seconds"],
+               "rebalance_members": [(dp.device.name, dp.length)
+                                     for dp in sub.device_plans],
+               "lane_groups": names}
+        report["hybrid"].append(row)
+        say("hybrid", f"mmooc {dead} lost at its first compute: "
+                      f"{m['call_s']:.3f} s call (survivor "
+                      f"{st['wall_seconds']:.3f} s, band of "
+                      f"{sum(dp.length for dp in sub.device_plans)} rows "
+                      f"rebalanced, planned with the default search and run "
+                      f"in {reb['wall_seconds']:.3f} s); {m['launches']} = "
+                      f"{live} + {sub_ops} launches; bytes = the schedules'; "
+                      f"lane groups {names}; == the clean hybrid run bit "
+                      f"for bit")
+        del out
+    del clean
+
+
+def hybrid_syrk_case(report, syrk):
+    """``ooc_syrk`` n = 16384, K = 8192 across the pair (512 MiB each,
+    phase 4's 1 GiB in all), cold and warm."""
+    from repro_torch.hybrid import plan_hybrid_syrk, run_hybrid_syrk
+
+    P, Cs, ref = syrk
+    n, K = P.shape
+    mb = 2**29
+    hp, secs = hybrid_plan(f"syrk n={n} K={K} f32, {mb} B each",
+                           lambda: plan_hybrid_syrk(n, K, hybrid_pair(mb),
+                                                    **HYBRID_OPTS))
+    report["hybrid_plans"]["syrk"] = secs
+    exp = hybrid_expect(hp)
+    for rep in ("cold", "warm"):
+        (out, groups), m = hybrid_call(
+            f"syrk {rep}",
+            lambda: run_hybrid_syrk(P, Cs, -1.0, 0.5, hp,
+                                    record_spans=rep == "warm"),
+            report, "hybrid_syrk" if rep == "cold" else None, Counter1())
+        require(m["launches"] == exp["dgemm"],
+                f"syrk {rep}: {m['launches']} launches, expected "
+                f"{exp['dgemm']}")
+        require(torch.equal(out, ref),
+                f"syrk {rep}: differs from phase 4's result")
+        hybrid_row(m, exp, 2 * mb, report,
+                   groups if rep == "warm" else None)
+        say("hybrid", f"syrk {rep}: == phase 4's single-device result bit "
+                      f"for bit")
+
+
+def hybrid_attention_case(report, attn):
+    """``ooc_attention`` at phase 6's cell across the pair (256 MiB each,
+    phase 6's 512 MiB in all), cold and warm."""
+    from repro_torch.core import ooc_attention
+    from repro_torch.hybrid import plan_hybrid_attention, run_hybrid_attention
+    from repro_torch.kernels import flash_attention as kfa
+
+    q, Kc, Vc, single = attn
+    S, hkv, d = Kc.shape
+    H = q.shape[0]
+    mb = 2**28
+    hp, secs = hybrid_plan(
+        f"attention S={S} Hkv={hkv} d={d} H={H} bf16, {mb} B each",
+        lambda: plan_hybrid_attention(S, hkv, d, H, hybrid_pair(mb),
+                                      dtype=Kc.dtype))
+    report["hybrid_plans"]["attention"] = secs
+    exp = hybrid_expect(hp)
+    nsplit = max(kfa.nsplits(dp.plan.param("bs"), 512)
+                 for dp in hp.device_plans)
+    exp["scratch"] = len(hp.device_plans) * (
+        2 * H + 3 * H * d + nsplit * H * (d + 2)) * 4
+    exact = attn_oracle(q, Kc.cuda(), Vc.cuda())
+    for rep in ("cold", "warm"):
+        (out, groups), m = hybrid_call(
+            f"attention {rep}",
+            lambda: run_hybrid_attention(q, Kc, Vc, hp,
+                                         record_spans=rep == "warm"),
+            report, "hybrid_attention" if rep == "cold" else None,
+            CounterAttn())
+        require(m["launches"] == 2 * exp["attn"],
+                f"attention {rep}: {m['launches']} kernel 2 launches, "
+                f"expected 2 x {exp['attn']} attn ops")
+        require(out.dtype == torch.float32 and out.shape == (H, d)
+                and bool(torch.isfinite(out).all()),
+                f"attention {rep}: result {out.dtype} {tuple(out.shape)}")
+        err = (out.cuda().double() - exact).abs().max().item()
+        diff = (out - single).abs().max().item()
+        require(err <= 2e-4 and diff <= 2e-4,
+                f"attention {rep}: max err {err} vs float64, {diff} vs "
+                f"phase 6's result (limit 2e-4)")
+        row = hybrid_row(m, exp, 2 * mb, report,
+                         groups if rep == "warm" else None)
+        row["merge_s"] = m["stats"]["merge_seconds"]
+        say("hybrid", f"attention {rep}: vs float64 on the card max abs err "
+                      f"{err:.3g}, vs phase 6's single-device result "
+                      f"{diff:.3g} (limit 2e-4 each); {m['launches']} = 2 x "
+                      f"{exp['attn']} kernel 2 launches; host merge "
+                      f"{1e3 * m['stats']['merge_seconds']:.3f} ms")
+    out, m = hybrid_call(
+        "attention entry point",
+        lambda: ooc_attention(q, Kc, Vc, budget_bytes=1,
+                              devices=hybrid_pair(mb)),
+        report, None, CounterAttn())
+    err = (out.cuda().double() - exact).abs().max().item()
+    require(err <= 2e-4, f"ooc_attention(devices=): max err {err}")
+    say("hybrid", f"ooc_attention(devices=[gpu0, phi0]): {m['call_s']:.4f} "
+                  f"s call with its planning, max err vs float64 {err:.3g}")
+    del exact
+
+
+def hybrid_cholesky_case(gen, report):
+    """``ooc_cholesky(devices=)`` at n = 8192, panel 2048: three hybrid
+    trailing updates, each planned with the reference's default search;
+    held to a float64 Cholesky on the card and compared with the same
+    per-panel loop on ``backend="vmem"``."""
+    from repro_torch.core import ooc_cholesky
+
+    n, pw, mb = HYBRID_CHOL
+    A = factor_input(gen, "cholesky", n)
+    (L,), m = hybrid_call(
+        "cholesky",
+        lambda: (ooc_cholesky(A, panel=pw, budget_bytes=2 * mb,
+                              devices=hybrid_pair(mb)),),
+        report, "hybrid_cholesky", Counter1())
+    factor_oracle("cholesky", A, (L,), n)
+    t0 = time.perf_counter()
+    loop = ooc_cholesky(A, panel=pw, budget_bytes=2 * mb, backend="vmem")
+    loop_s = time.perf_counter() - t0
+    same = torch.equal(L, loop)
+    diff = (L - loop).abs().max().item()
+    report["hybrid"].append({"path": "cholesky", "call_s": m["call_s"],
+                             "launches": m["launches"],
+                             "peak_bytes": m["peak_bytes"],
+                             "vmem_loop_s": loop_s,
+                             "equal_to_vmem_loop": same})
+    say("hybrid", f"ooc_cholesky(devices=[gpu0, phi0] at {mb} B each) "
+                  f"n={n} panel {pw}: {m['call_s']:.3f} s call with the "
+                  f"three trailing updates' planning, {m['launches']} "
+                  f"kernel 1 launches, peak {m['peak_bytes']} B; the same "
+                  f"loop on backend='vmem' {loop_s:.3f} s; bit for bit "
+                  f"equal to it: {same} (max diff {diff:.3g})")
+
+
+def phase_hybrid(gen, report, A, B, C, host_out, params, syrk, attn):
+    """Phase 12: hybrid co-execution, the reference's gpu0 + phi0 pair both
+    on this card (two executors on their own streams, from two pool
+    threads), on phase 3's, 4's and 6's inputs and results, then a hybrid
+    Cholesky."""
+    t0 = time.perf_counter()
+    hybrid_gemm_case(report, A, B, C, host_out, params)
+    hybrid_syrk_case(report, syrk)
+    hybrid_attention_case(report, attn)
+    hybrid_cholesky_case(gen, report)
+    say("hybrid", f"phase 12 took {time.perf_counter() - t0:.1f} s")
+
+
 def phase_vmem_syrk(gen, report, A, B, C, host_out, params):
     from repro_torch.core import ooc_gemm, ooc_syrk, build_syrk_schedule, \
         plan_gemm_partition, HostOocRuntime, ScheduleExecutor
@@ -1834,6 +2257,7 @@ def phase_vmem_syrk(gen, report, A, B, C, host_out, params):
                 f"{part.h}x{part.w}, {report['launches']['syrk_host']} "
                 f"launches, {ex.last_wall_seconds:.3f} s wall, == in-core "
                 f"P @ P^T bitwise")
+    return P, Cs, out
 
 
 def interleaved(fns, reps):
@@ -2000,10 +2424,11 @@ def attn_oracle(q, Kd, Vd):
     return exact
 
 
-def attention_case(gen, report, S, dt, budget, tag):
+def attention_case(gen, report, S, dt, budget, tag, keep=None):
     """``ooc_attention`` at llama3.2-3b's attention widths over an S-position
     cache in ``dt`` under ``budget``: both modes, cold and warm, all
-    checks.  Returns the launches of both passes over the runs."""
+    checks.  Returns the launches of both passes over the runs; ``keep``
+    (a list) receives q, K, V and the result."""
     from repro_torch.core import (OpKind, ScheduleExecutor,
                                   build_attention_schedule, ooc_attention,
                                   plan_attention_partition, schedule_stats)
@@ -2137,15 +2562,20 @@ def attention_case(gen, report, S, dt, budget, tag):
                 f"max |out| {mag:.3g} (relative {err / mag:.3g}); vs "
                 f"flash_decode_attention on the whole cache at B = 1: max "
                 f"abs diff {werr:.3g} (limit 1e-5)")
+    if keep is not None:
+        keep.extend((q, K, V, outs["issue_order"]))
     return launches
 
 
 def phase_attention(gen, report):
+    """Phase 6; returns the long_500k cell's q, K, V and result."""
+    cell = []
     report["launches"]["attention"] = attention_case(
         gen, report, 524288, torch.bfloat16, 512 * 2**20,
-        "long_500k bf16")
+        "long_500k bf16", keep=cell)
     report["launches"]["attention_f32"] = attention_case(
         gen, report, 131072, torch.float32, 256 * 2**20, "S=131072 f32")
+    return tuple(cell)
 
 
 def phase_timing_attention(gen, report, card):
@@ -2335,9 +2765,13 @@ BLOCK_MATMUL_PATHS = ("host", "in_core", "vmem", "syrk_host", "direct_host",
                       "fault_host", "fault_host_empty", "fault_host_oom",
                       "fault_cholesky", "fault_cholesky_oom", "fault_lu",
                       "tune_calibrate", "tune_gemm", "tune_gemm_bf16",
-                      "tune_syrk", "tune_cholesky", "tune_lu", "tune_oom")
+                      "tune_syrk", "tune_cholesky", "tune_lu", "tune_oom",
+                      "hybrid_gemm", "hybrid_gemm_lost_gpu0",
+                      "hybrid_gemm_lost_phi0", "hybrid_syrk",
+                      "hybrid_cholesky")
 # the paths that launch kernel 2
-ATTENTION_PATHS = ("attention", "attention_f32", "tune_attention")
+ATTENTION_PATHS = ("attention", "attention_f32", "tune_attention",
+                   "hybrid_attention")
 
 
 def phase_timing(gen, report, card):
@@ -2609,20 +3043,22 @@ def main(argv=None) -> int:
     phase_kernels_attention(gen)
     phase_kernels_direct(gen)
     report = {"main_path": [], "attention": [], "c1": [], "factor": [],
-              "fault": [], "tune": [],
+              "fault": [], "tune": [], "hybrid": [], "hybrid_plans": {},
               "factor_panel_ms": {}, "factor_dgemm_check": {},
               "launches": {}, "launches_by_dtype": {}}
     A, B, C, host_out, params = phase_main(gen, report)
-    phase_vmem_syrk(gen, report, A, B, C, host_out, params)
+    syrk = phase_vmem_syrk(gen, report, A, B, C, host_out, params)
     phase_c1(gen, report, A, B, C, host_out, params)
     if args.baseline:
         phase_baseline(gen, report, card, args.baseline, A, B, C, params)
-    phase_attention(gen, report)
+    attn = phase_attention(gen, report)
     phase_main_bf16(gen, report, args.baseline)
     factors = phase_factor(gen, report)
     phase_faults(report, A, B, C, host_out, params, factors)
     phase_tune(gen, report, card, A, B, C, host_out, params, factors)
-    del A, B, C, host_out, factors
+    del factors
+    phase_hybrid(gen, report, A, B, C, host_out, params, syrk, attn)
+    del A, B, C, host_out, syrk, attn
     entries = [*phase_timing(gen, report, card),
                phase_timing_attention(gen, report, card),
                phase_timing_direct(gen, report, card)]
@@ -2635,6 +3071,8 @@ def main(argv=None) -> int:
                       "factor_dgemm_check": report["factor_dgemm_check"],
                       "fault": report["fault"],
                       "tune": report["tune"],
+                      "hybrid": report["hybrid"],
+                      "hybrid_plan_s": report["hybrid_plans"],
                       "tune_calibration": report.get("tune_calibration"),
                       "tune_searches": report.get("tune_searches"),
                       "baseline": report.get("baseline"),

@@ -6,7 +6,9 @@ observability, the factorizations, the fault policy and the autotuner.
 Tier sizes are the card's own (:func:`~repro_torch.core.runtime.
 tier_bytes`): ``HBM`` is the device memory, ``VMEM`` the shared memory a
 block may use.  Without a card the caller passes ``mem_bytes``.  The
-hybrid and analysis facades arrive with their ROADMAP module items (8, 9).
+``HYBRID`` composite has no size of its own: its placeholder reports 0,
+and the runtime made from it the sum of its members' budgets.  The
+analysis facade arrives with its ROADMAP module item (9).
 """
 
 from __future__ import annotations
@@ -28,10 +30,13 @@ class hclDeviceFactory:
                mem_bytes: Optional[int] = None,
                torch_device=None) -> Device:
         """The hcl tier tuple; ``mem_bytes`` defaults to the card's size of
-        the tier on ``torch_device``."""
+        the tier on ``torch_device`` (``HYBRID``: 0, the composite's
+        placeholder)."""
         name = name.upper()
         if name in NOT_PORTED:
             raise not_ported(name)
+        if name == "HYBRID":
+            return Device(name, dev_id, mem_bytes or 0)
         if name not in ("VMEM", "HBM"):
             raise ValueError(f"unknown device type {name!r}")
         return Device(name, dev_id,
@@ -96,6 +101,26 @@ def hclObservability(enable: bool = False, trace: bool = False, **kw):
     if enable or trace:
         obs.enable(metrics=True, trace=trace, **kw)
     return obs
+
+
+def hclHybridRuntime(devices, **kw):
+    """Facade over :class:`repro_torch.hybrid.HybridOocRuntime` (DESIGN.md
+    §7): one kernel call co-scheduled across a device set, load balanced
+    by the members' profiles.
+
+        gpu = DeviceSpec("gpu0", gpu_profile(), 2 * 2**30)
+        phi = DeviceSpec("phi0", phi_profile(), 2 * 2**30)
+        rt = hclHybridRuntime([gpu, phi])
+        C = rt.gemm(A, B, C, alpha, beta)
+
+    ``devices`` is a sequence of :class:`~repro_torch.hybrid.DeviceSpec`
+    (or bare ``(name, profile, budget_bytes)`` tuples); every member runs
+    on ``torch_device`` (default CUDA).  Resolved lazily —
+    ``repro_torch.hybrid`` imports ``repro_torch.tune``, which imports this
+    package."""
+    from repro_torch.hybrid import HybridOocRuntime
+
+    return HybridOocRuntime(devices, **kw)
 
 
 def hclOocFactor(A, kind: str = "cholesky", **kw):

@@ -24,8 +24,10 @@ through an :class:`~repro_torch.tune.AutoTuner` and records the run's
 measured wall and bytes against the plan's prediction
 (``obs.record_drift``).
 
-Not in this slice: ``devices=`` (ROADMAP module item 8), which raises
-``NotImplementedError``.
+``devices=`` co-executes the query across a device set
+(``repro_torch.hybrid``): the KV cache is split into contiguous position
+chunks, each member folds its chunk into an online-softmax partial on its
+own executor, and the partials merge exactly on the host.
 """
 
 from __future__ import annotations
@@ -35,13 +37,12 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.oocgemm import _record_host_drift
+from repro_torch.core.oocgemm import _hybrid_kwargs, _record_host_drift
 from repro_torch.core.partitioner import plan_attention_partition
 from repro_torch.core.pipeline import build_attention_schedule
 from repro_torch.core.runtime import (ExecState, ScheduleExecutor,
                                       as_tensor, compute_dtype, host_tensor,
-                                      not_ported, register_op_handler,
-                                      resolve_device)
+                                      register_op_handler, resolve_device)
 from repro_torch.core.streams import BlockRef, Op, validate_schedule
 from repro_torch.kernels import flash_attention as kfa
 from repro_torch.obs import get_observability
@@ -155,11 +156,33 @@ def ooc_attention(
     length, stream count and buffer depth through an
     :class:`~repro_torch.tune.AutoTuner` (``tuner`` or the process
     default), served from the plan cache on repeat calls.
+
+    devices: a set of :class:`~repro_torch.hybrid.DeviceSpec` co-executes
+    the query across all of them — the KV cache is split into contiguous
+    position chunks sized so the profiles predict equal finish times
+    (``tolerance`` overrides the balancer default), each member folds its
+    chunk into an online-softmax partial on ``torch_device`` (or the
+    executor's), and the partials merge exactly.  Budgets come from the
+    specs, so ``budget_bytes`` is ignored on this path.
     """
     if tune not in (None, "auto"):
         raise ValueError(f"unknown tune mode {tune!r}; expected None/'auto'")
     if devices is not None:
-        raise not_ported("devices")
+        from repro_torch.hybrid import (plan_hybrid_attention,
+                                        run_hybrid_attention)
+        from repro_torch.tune.search import dtype_name
+
+        dev = executor.torch_device if executor is not None \
+            else resolve_device(torch_device)
+        q = as_tensor(q)
+        k_cache = host_tensor(k_cache)
+        S, hkv, d = k_cache.shape
+        hplan = plan_hybrid_attention(S, hkv, d, q.shape[0], devices,
+                                      dtype=dtype_name(k_cache.dtype),
+                                      **_hybrid_kwargs(tolerance))
+        out, _ = run_hybrid_attention(q, k_cache, v_cache, hplan,
+                                      validate=validate, torch_device=dev)
+        return out.to(compute_dtype(q.dtype))
     if executor is None:
         dev = resolve_device(torch_device)
         obs = get_observability()

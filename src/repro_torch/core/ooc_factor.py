@@ -56,8 +56,10 @@ the budget only, each rung re-searched), each rung planned through
 :func:`_plan_factor_spec` or :func:`_tuned_factor_spec` (on a card, with
 the panel ops' workspace charged), and re-executes clean.
 
-Not in this slice: ``devices=`` and ``tolerance=`` (ROADMAP module item
-8); each raises ``NotImplementedError``.
+``devices=`` (with ``tolerance=``) takes the per-panel loop, as in the
+reference: the panel ops run on ``torch_device`` and each trailing update
+is a hybrid ``ooc_syrk``/``ooc_gemm`` across the device set
+(``repro_torch.hybrid``), fed from the host matrix.
 """
 
 from __future__ import annotations
@@ -73,8 +75,7 @@ from repro_torch.core.pipeline import FactorPipelineSpec, factor_pipeline_spec
 from repro_torch.core.runtime import (ScheduleExecutor, apply_panel_pivots,
                                       chol_panel_solve, device_tensor,
                                       getrf_panel, host_tensor, lu_row_solve,
-                                      not_ported, prefer_cusolver,
-                                      raise_on_info)
+                                      prefer_cusolver, raise_on_info)
 from repro_torch.core.streams import validate_schedule
 from repro_torch.obs import get_observability
 
@@ -258,11 +259,9 @@ def _check_square(A: torch.Tensor) -> int:
     return n
 
 
-def _prepare(A, backend, tune, devices, tolerance, faults, executor,
+def _prepare(A, backend, tune, devices, faults, executor,
              torch_device) -> Tuple[torch.Tensor, int, torch.device]:
     _check_slice(backend, tune, devices, faults)
-    if tolerance is not None:
-        raise not_ported("devices")
     dev = _torch_device(executor, torch_device)
     A = host_tensor(A)
     return A, _check_square(A), dev
@@ -306,20 +305,21 @@ def ooc_cholesky(A, panel: int = 256, *, budget_bytes: int,
     (``tuner`` or the process default); on a card it searches at the
     budget less the panel ops' workspace (see the module docstring).
 
-    ``backend="vmem"`` takes the per-panel loop instead: panel ops on the
-    device, the trailing update through :func:`~repro_torch.core.oocgemm.
-    ooc_syrk` on that backend.
+    ``backend="vmem"`` or ``devices=[...]`` takes the per-panel loop
+    instead: panel ops on the device, the trailing update through
+    :func:`~repro_torch.core.oocgemm.ooc_syrk` on that backend or across
+    that device set (``tolerance`` as in ``ooc_syrk``).
 
     Precision: float64 input is computed in float32 and returned as
     float64 with f32-accurate residuals (~1e-6 relative, not LAPACK's
     ~1e-15), as in the reference.
     """
-    A, n, dev = _prepare(A, backend, tune, devices, tolerance, faults,
-                         executor, torch_device)
-    if backend != "host":
+    A, n, dev = _prepare(A, backend, tune, devices, faults, executor,
+                         torch_device)
+    if devices is not None or backend != "host":
         with prefer_cusolver(dev):
             return _loop_cholesky(A, panel, budget_bytes, backend, dev,
-                                  tune, tuner)
+                                  tune, tuner, devices, tolerance)
     spec, nstreams, nbuf, evict, plan = _factor_spec(
         "cholesky", A, n, panel, budget_bytes, lookahead, nstreams, nbuf,
         evict, tune, tuner, dev)
@@ -352,17 +352,18 @@ def ooc_lu(A, panel: int = 256, *, budget_bytes: int,
     the host columns outside the panel at panel write-back
     (``lu_writeback`` handler), so the trailing stream always reads
     consistently permuted rows.  ``lookahead`` overlaps the next panel's
-    transfer+GETRF with the current trailing update; ``tune="auto"`` and
-    ``backend="vmem"`` behave as in :func:`ooc_cholesky`, with
-    :func:`~repro_torch.core.oocgemm.ooc_gemm` as the loop's trailing
-    update.  As there, float64 input is computed in float32.
+    transfer+GETRF with the current trailing update; ``tune="auto"``,
+    ``backend="vmem"`` and ``devices=[...]`` behave as in
+    :func:`ooc_cholesky`, with :func:`~repro_torch.core.oocgemm.ooc_gemm`
+    as the loop's trailing update.  As there, float64 input is computed
+    in float32.
     """
-    A, n, dev = _prepare(A, backend, tune, devices, tolerance, faults,
-                         executor, torch_device)
-    if backend != "host":
+    A, n, dev = _prepare(A, backend, tune, devices, faults, executor,
+                         torch_device)
+    if devices is not None or backend != "host":
         with prefer_cusolver(dev):
             return _loop_lu(A, panel, budget_bytes, backend, dev, tune,
-                            tuner)
+                            tuner, devices, tolerance)
     spec, nstreams, nbuf, evict, plan = _factor_spec(
         "lu", A, n, panel, budget_bytes, lookahead, nstreams, nbuf, evict,
         tune, tuner, dev)
@@ -375,16 +376,26 @@ def ooc_lu(A, panel: int = 256, *, budget_bytes: int,
 
 
 # ---------------------------------------------------------------------------
-# Per-panel loop: the non-host backends (panel math on the device, trailing
-# update through the out-of-core kernels)
+# Per-panel loop: the non-host backends and the hybrid device path (panel
+# math on the device, trailing update through the out-of-core kernels)
 # ---------------------------------------------------------------------------
-def _loop_cholesky(A: torch.Tensor, panel: int, budget_bytes: int,
-                   backend: str, dev: torch.device, tune=None,
-                   tuner=None) -> torch.Tensor:
-    A = A.clone()
-    n = A.shape[0]
+def _trailing_kwargs(budget_bytes, backend, tune, tuner, dev, devices,
+                     tolerance) -> dict:
     kw = dict(budget_bytes=budget_bytes, backend=backend, tune=tune,
               tuner=tuner, torch_device=dev)
+    if devices is not None:
+        kw.update(devices=devices, tolerance=tolerance)
+    return kw
+
+
+def _loop_cholesky(A: torch.Tensor, panel: int, budget_bytes: int,
+                   backend: str, dev: torch.device, tune=None,
+                   tuner=None, devices=None,
+                   tolerance=None) -> torch.Tensor:
+    A = A.clone()
+    n = A.shape[0]
+    kw = _trailing_kwargs(budget_bytes, backend, tune, tuner, dev, devices,
+                          tolerance)
     infos: List[Tuple[str, torch.Tensor]] = []
     for k0 in range(0, n, panel):
         k1 = min(n, k0 + panel)
@@ -397,20 +408,22 @@ def _loop_cholesky(A: torch.Tensor, panel: int, budget_bytes: int,
         A[k0:, k0:k1] = pnl.cpu()
         if k1 == n:
             break
-        A[k1:, k1:] = ooc_syrk(pnl[d:], A[k1:, k1:], alpha=-1.0, beta=1.0,
+        # a hybrid update streams host operands: the panel just landed
+        P = pnl[d:] if devices is None else A[k1:, k0:k1].contiguous()
+        A[k1:, k1:] = ooc_syrk(P, A[k1:, k1:], alpha=-1.0, beta=1.0,
                                **kw).cpu()
     raise_on_info(infos)
     return torch.tril(A)
 
 
 def _loop_lu(A: torch.Tensor, panel: int, budget_bytes: int, backend: str,
-             dev: torch.device, tune=None, tuner=None
-             ) -> Tuple[torch.Tensor, torch.Tensor]:
+             dev: torch.device, tune=None, tuner=None, devices=None,
+             tolerance=None) -> Tuple[torch.Tensor, torch.Tensor]:
     A = A.clone()
     n = A.shape[0]
     perm = torch.arange(n)
-    kw = dict(budget_bytes=budget_bytes, backend=backend, tune=tune,
-              tuner=tuner, torch_device=dev)
+    kw = _trailing_kwargs(budget_bytes, backend, tune, tuner, dev, devices,
+                          tolerance)
     for k0 in range(0, n, panel):
         k1 = min(n, k0 + panel)
         d = k1 - k0
@@ -423,6 +436,8 @@ def _loop_lu(A: torch.Tensor, panel: int, budget_bytes: int, backend: str,
         U = device_tensor(A[k0:k1, k1:], dev)
         lu_row_solve(pnl, U)
         A[k0:k1, k1:] = U.cpu()
-        A[k1:, k1:] = ooc_gemm(pnl[d:], U, A[k1:, k1:], alpha=-1.0,
-                               beta=1.0, **kw).cpu()
+        L, U = (pnl[d:], U) if devices is None else \
+            (A[k1:, k0:k1].contiguous(), A[k0:k1, k1:].contiguous())
+        A[k1:, k1:] = ooc_gemm(L, U, A[k1:, k1:], alpha=-1.0, beta=1.0,
+                               **kw).cpu()
     return A, perm

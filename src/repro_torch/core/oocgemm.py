@@ -33,8 +33,15 @@ budget, hardware) and served from its plan cache after; a tuned run
 records its measured wall and bytes against the plan's prediction
 (``obs.record_drift``).
 
-Not in this slice: ``devices=`` (ROADMAP module item 8) and
-``backend="mesh"`` (item 10); each raises ``NotImplementedError``.
+``devices=`` (a set of :class:`~repro_torch.hybrid.DeviceSpec`, or
+``(name, profile, budget_bytes)`` tuples) co-executes the call across the
+set (``repro_torch.hybrid``): C's rows are split so the members' profiles
+predict equal finish times (``tolerance=`` overrides the balancer's 5 %),
+each band runs on its member's executor, and every member computes on
+``torch_device``.  The member budgets replace ``budget_bytes``.
+
+Not in this slice: ``backend="mesh"`` (ROADMAP module item 10), which
+raises ``NotImplementedError``.
 """
 
 from __future__ import annotations
@@ -66,8 +73,6 @@ def _check_slice(backend: str, tune, devices, faults) -> None:
         raise ValueError("fault injection is supported on the host "
                          "pipeline backend only (hybrid paths take "
                          "fault_plans on run_hybrid_*)")
-    if devices is not None:
-        raise not_ported("devices")
     if backend == "mesh":
         raise not_ported("MESH")
     if backend not in ("host", "vmem"):
@@ -84,6 +89,10 @@ def _torch_device(runtime, torch_device) -> torch.device:
         raise ValueError(f"torch_device {torch_device} differs from the "
                          f"runtime's {runtime.torch_device}")
     return runtime.torch_device
+
+
+def _hybrid_kwargs(tolerance: Optional[float]) -> dict:
+    return {} if tolerance is None else {"tolerance": tolerance}
 
 
 def _tuned_gemm_plan(tuner, kernel: str, M: int, N: int, K: int,
@@ -206,6 +215,7 @@ def ooc_gemm(
     tune: Optional[str] = None,
     tuner=None,
     devices: Optional[Sequence] = None,
+    tolerance: Optional[float] = None,
     faults=None,
     fault_policy=None,
     torch_device=None,
@@ -237,9 +247,27 @@ def ooc_gemm(
     nbuf, then halve the budget; tuned runs halve the budget only, each
     rung re-searched) and re-executes clean.  The in-core path ignores
     them.
+
+    devices: a set of :class:`~repro_torch.hybrid.DeviceSpec` (or ``(name,
+    profile, budget_bytes)`` tuples) co-executes the GEMM across all of
+    them, splitting C's rows so their profiles predict equal per-device
+    finish times (``tolerance`` overrides the balancer default).  Budgets
+    come from the specs, so ``budget_bytes`` is ignored on this path; host
+    operands in, a CPU tensor out.
     """
     _check_slice(backend, tune, devices, faults)
     dev = _torch_device(runtime, torch_device)
+    if devices is not None:
+        from repro_torch.hybrid import plan_hybrid_gemm, run_hybrid_gemm
+
+        A = host_tensor(A)
+        B = host_tensor(B)
+        hplan = plan_hybrid_gemm(
+            A.shape[0], B.shape[1], A.shape[1], devices, dtype=A.dtype,
+            **_hybrid_kwargs(tolerance))
+        out, _ = run_hybrid_gemm(A, B, C, alpha, beta, hplan,
+                                 validate=validate, torch_device=dev)
+        return out
     A = _operand(A, backend, dev)
     B = _operand(B, backend, dev)
     M, K = A.shape
@@ -302,6 +330,7 @@ def ooc_syrk(
     tune: Optional[str] = None,
     tuner=None,
     devices: Optional[Sequence] = None,
+    tolerance: Optional[float] = None,
     faults=None,
     fault_policy=None,
     torch_device=None,
@@ -320,9 +349,22 @@ def ooc_syrk(
 
     faults / fault_policy: as in :func:`ooc_gemm`, without the degrade
     ladder (an injected oom raises, as in the reference).
+
+    devices: as in :func:`ooc_gemm` — co-execute across a device set,
+    splitting C's rows by profile (each band's transposed panel still
+    streams the full P, block by block).
     """
     _check_slice(backend, tune, devices, faults)
     dev = _torch_device(runtime, torch_device)
+    if devices is not None:
+        from repro_torch.hybrid import plan_hybrid_syrk, run_hybrid_syrk
+
+        P = host_tensor(P)
+        hplan = plan_hybrid_syrk(P.shape[0], P.shape[1], devices,
+                                 dtype=P.dtype, **_hybrid_kwargs(tolerance))
+        out, _ = run_hybrid_syrk(P, C, alpha, beta, hplan,
+                                 validate=validate, torch_device=dev)
+        return out
     P = _operand(P, backend, dev)
     n, K = P.shape
     if C is None:

@@ -26,9 +26,11 @@ is the fault-injected path (``repro_torch.fault``): transfer retries with
 backoff and block-granular replay of corrupted compute blocks, from
 copy-on-write device snapshots.
 
-Not in this slice, and asking for them raises ``NotImplementedError``
-naming the ROADMAP module item: ``MeshOocRuntime`` (item 10) and the
-hybrid composite (item 8).
+The hybrid composite (``HYBRID``, ``repro_torch.hybrid.executor``)
+registers itself when its module is imported, which
+:class:`RuntimeFactory` does on first use.
+Not in this slice, and asking for it raises ``NotImplementedError`` naming
+the ROADMAP module item: ``MeshOocRuntime`` (item 10).
 
 Every entry point takes ``torch_device`` (default: CUDA).  Without a card
 and without ``torch_device="cpu"`` from the caller they raise; on the CPU
@@ -40,6 +42,8 @@ from __future__ import annotations
 
 import contextlib
 import dataclasses
+import importlib
+import threading
 import time
 from typing import Any, Callable, Dict, Hashable, List, Optional, Tuple, Type
 
@@ -57,8 +61,8 @@ from repro_torch.obs import get_observability
 # what is left out of this slice, by the ROADMAP module item that ports it
 NOT_PORTED = {
     "MESH": "the MESH tier (MeshOocRuntime) is ROADMAP module item 10",
-    "HYBRID": "the HYBRID composite runtime is ROADMAP module item 8",
-    "devices": "hybrid co-execution (devices=) is ROADMAP module item 8",
+    "analyze_hybrid": "per-device analysis of a hybrid plan (HybridAnalysis, "
+                      "analyze_hybrid) is ROADMAP module item 9",
 }
 
 
@@ -202,6 +206,12 @@ class OocRuntime:
 # Runtime registry — tiers self-register instead of being if/elif'd
 # ===========================================================================
 _RUNTIME_REGISTRY: Dict[str, Type[OocRuntime]] = {}
+
+# Tiers whose runtime lives outside core (imported on first use so core
+# stays cycle-free: the hybrid composite pulls in repro_torch.tune, which
+# imports repro_torch.core).
+_LAZY_RUNTIME_MODULES: Dict[str, str] = {
+    "HYBRID": "repro_torch.hybrid.executor"}
 
 
 def register_runtime(name: str) -> Callable[[Type[OocRuntime]],
@@ -492,8 +502,12 @@ class ScheduleExecutor:
     ``last_h2d_bytes``/``last_d2h_bytes`` count the bytes of the transfer
     ops performed in the most recent :meth:`run` (they equal
     ``schedule_stats``); ``last_wall_seconds`` brackets the run, ending
-    with a device synchronize.  On a card, ``last_stage_seconds`` is the
-    host time spent filling pinned H2D staging from the host operands, and
+    when the run's streams have drained (the calling thread's current
+    stream and the engine streams, not the whole device: another thread
+    may run another executor on the same card).  A run that raises drains
+    them too before the error propagates.  On a card,
+    ``last_stage_seconds`` is the host time spent filling pinned H2D
+    staging from the host operands, and
     ``last_stage_wait_seconds`` the host time spent waiting for a staging
     buffer's previous copy to finish before refilling it.
     ``last_buffer_bytes`` is the size of the run's device parity buffers,
@@ -898,6 +912,14 @@ class ScheduleExecutor:
                 # loop: the next attempt re-consults the injector and
                 # either faults again (times > 1) or dispatches cleanly
 
+        def drain() -> None:
+            # the run's own streams only: another thread's executor (a
+            # hybrid member) may be running on the same card
+            if concurrent:
+                for s in engine_streams:
+                    main.wait_stream(s)
+            main.synchronize()
+
         step = exec_op if fi is None else run_faulted
         try:
             with prefer_cusolver(dev):
@@ -927,6 +949,13 @@ class ScheduleExecutor:
                     self.last_completion_order.append(i)
             for key in list(pending):
                 flush_retrying(key)
+        except BaseException:
+            if cuda:
+                # an aborted run (an injected device_lost or oom, a failed
+                # transfer): what it queued finishes before its buffers go
+                # back to the allocator and its caller recomputes the work
+                drain()
+            raise
         finally:
             if fi is not None:
                 # publish even when an unrecoverable fault propagates: the
@@ -935,10 +964,7 @@ class ScheduleExecutor:
                 self.last_snapshot_bytes = log.peak_bytes
                 obs.record_fault_run(sched.meta.get("kernel", "run"), fstats)
         if cuda:
-            if concurrent:
-                for s in engine_streams:
-                    main.wait_stream(s)
-            torch.cuda.synchronize(dev)
+            drain()
             if trace:
                 self.last_spans = [
                     (op.tag, op.stream, base.elapsed_time(t0) / 1e3,
@@ -988,6 +1014,10 @@ def _dgemm_handler(st: ExecState, op: Op, ref: BlockRef) -> None:
 # stream); nothing waits for the device on the host except the
 # ``lu_writeback`` finalizer, which must read the panel and its pivots.
 # ---------------------------------------------------------------------------
+_CUSOLVER_LOCK = threading.Lock()
+_cusolver = {"depth": 0, "prev": None}
+
+
 @contextlib.contextmanager
 def prefer_cusolver(dev: torch.device):
     """Within the block, PyTorch's linalg calls on a card go to cuSOLVER
@@ -998,16 +1028,25 @@ def prefer_cusolver(dev: torch.device):
     cuSOLVER enqueues on the current stream.  :meth:`ScheduleExecutor.run`
     and the factorizations' per-panel loop enter it once.  The setting is
     process-wide: another thread's linalg calls inside the block go to
-    cuSOLVER too."""
+    cuSOLVER too.  Blocks may nest and overlap across threads (the hybrid
+    members' runs): the first to enter sets it, the last to leave sets the
+    previous library back."""
     if dev.type != "cuda":
         yield
         return
-    prev = torch.backends.cuda.preferred_linalg_library()
-    torch.backends.cuda.preferred_linalg_library("cusolver")
+    with _CUSOLVER_LOCK:
+        if _cusolver["depth"] == 0:
+            _cusolver["prev"] = torch.backends.cuda.preferred_linalg_library()
+            torch.backends.cuda.preferred_linalg_library("cusolver")
+        _cusolver["depth"] += 1
     try:
         yield
     finally:
-        torch.backends.cuda.preferred_linalg_library(prev)
+        with _CUSOLVER_LOCK:
+            _cusolver["depth"] -= 1
+            if _cusolver["depth"] == 0:
+                torch.backends.cuda.preferred_linalg_library(
+                    _cusolver["prev"])
 
 
 def chol_panel_solve(pnl: torch.Tensor) -> None:
@@ -1300,6 +1339,9 @@ class RuntimeFactory:
         if name in NOT_PORTED:
             raise not_ported(name)
         cls = _RUNTIME_REGISTRY.get(name)
+        if cls is None and name in _LAZY_RUNTIME_MODULES:
+            importlib.import_module(_LAZY_RUNTIME_MODULES[name])
+            cls = _RUNTIME_REGISTRY.get(name)
         if cls is None:
             raise ValueError(
                 f"unknown device type {device.name!r}; registered tiers: "
@@ -1309,5 +1351,5 @@ class RuntimeFactory:
 
     @staticmethod
     def registered() -> List[str]:
-        """Tier names ``create`` accepts."""
-        return sorted(_RUNTIME_REGISTRY)
+        """Tier names ``create`` accepts (registered + lazily importable)."""
+        return sorted(set(_RUNTIME_REGISTRY) | set(_LAZY_RUNTIME_MODULES))

@@ -30,7 +30,8 @@ On a CPU tensor the wrapper runs :func:`block_matmul_plain`; on a CUDA
 tensor it launches the kernel or raises.  ``block_matmul.launches`` counts
 kernel launches, and nothing else; ``block_matmul.launches_by_dtype`` counts
 them by the operands' dtype name (``"float32"``, ``"bfloat16"``,
-``"float16"``), one count for each instance of the kernel.
+``"float16"``), one count for each instance of the kernel (both taken
+under a lock: the hybrid members launch from several threads).
 """
 
 from __future__ import annotations
@@ -39,6 +40,8 @@ import ctypes
 from typing import Optional, Tuple
 
 import torch
+
+from repro_torch.kernels import count_launch
 
 _DTYPE_CODE = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2}
 _c_void_p = ctypes.c_void_p
@@ -124,9 +127,7 @@ def block_matmul(a: torch.Tensor, b: torch.Tensor, c: torch.Tensor, *,
     if err != 0:
         raise RuntimeError(f"block_matmul kernel launch failed: CUDA error "
                            f"{err} (M={M}, N={N}, K={K}, dtype={a.dtype})")
-    block_matmul.launches += 1
-    by_dtype = block_matmul.launches_by_dtype
-    by_dtype[str(a.dtype)[6:]] = by_dtype.get(str(a.dtype)[6:], 0) + 1
+    count_launch(block_matmul, str(a.dtype)[6:])
     return out
 
 

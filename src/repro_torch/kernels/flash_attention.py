@@ -29,7 +29,8 @@ all float32:
 two.  Every entry point has a plain PyTorch version with the same contract
 (``*_plain``); a CPU tensor runs it, a CUDA tensor launches the kernel or
 raises.  ``flash_partial.launches`` and ``flash_combine.launches`` count
-kernel launches, and nothing else.
+kernel launches, and nothing else (under a lock: the hybrid members launch
+from several threads).
 
 ``NEG_INF`` is the finite -1e30 everywhere, so two empty partials meet as
 ``exp(0) * 0`` and never as ``-inf - -inf``.  KV types: float32, bfloat16
@@ -43,6 +44,8 @@ import math
 from typing import Optional, Tuple, Union
 
 import torch
+
+from repro_torch.kernels import count_launch
 
 NEG_INF = -1e30
 L_FLOOR = 1e-20            # normalisation clamps l here (reference :65)
@@ -267,7 +270,7 @@ def flash_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         raise RuntimeError(f"flash_partial kernel launch failed: CUDA error "
                            f"{err} (B={B}, S={S}, H={H}, Hkv={hkv}, d={d}, "
                            f"dtype={k.dtype}, block_s={block_s})")
-    flash_partial.launches += 1
+    count_launch(flash_partial)
     return out
 
 
@@ -338,7 +341,7 @@ def flash_combine(partials: Optional[Partials], *,
     if err != 0:
         raise RuntimeError(f"flash_combine kernel launch failed: CUDA error "
                            f"{err} (B={B}, H={H}, d={d}, splits={n})")
-    flash_combine.launches += 1
+    count_launch(flash_combine)
     return out if normalise else carry
 
 

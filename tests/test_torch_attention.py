@@ -220,13 +220,3 @@ def test_attention_concurrent_matches_serial():
         nstreams=2, nbuf=2), {"K": kc, "V": vc}, ref, {"q": jnp.asarray(q)})
     np.testing.assert_allclose(outs["concurrent"].numpy(), ref["out"],
                                rtol=1e-4, atol=1e-4)
-
-
-@pytest.mark.parametrize("kw,item", [
-    (dict(devices=[("gpu0", None, 1 << 20)]), "item 8"),
-], ids=["kw1-item 8"])                  # the id this case always had
-def test_ooc_attention_outside_the_slice_raises(kw, item):
-    q, k, v = _attention_problem(0, 256, 4, 2, 64)
-    with pytest.raises(NotImplementedError, match=item):
-        T.ooc_attention(q, k, v, budget_bytes=1 << 16, torch_device=CPU,
-                        **kw)

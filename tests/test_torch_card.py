@@ -922,3 +922,108 @@ def test_tuned_cholesky_on_card(card, tmp_path):
     assert torch.equal(L, untuned)
     exact = np.linalg.cholesky(A.astype(np.float64))
     assert np.abs(L.numpy() - exact).max() <= 5e-6 * np.abs(exact).max()
+
+
+def _hybrid_pair(budget):
+    from repro_torch.hybrid import DeviceSpec
+    from repro_torch.tune import gpu_profile, phi_profile
+
+    return [DeviceSpec("gpu0", gpu_profile(), budget),
+            DeviceSpec("phi0", phi_profile(), budget)]
+
+
+HYBRID_FAST = dict(nbuf_options=(1, 2), max_steps=256)
+
+
+def test_hybrid_mmooc_on_card_bitwise(card):
+    """Two members on one card, each on its executor and streams from a
+    pool thread: the hybrid GEMM equals the single-device run bit for bit
+    (kernel 1 sums each element in one order and K is never split),
+    kernel 1 launches once per ``dgemm`` op of the members' schedules, and
+    the summed bytes equal the schedules'.  A warm run makes no
+    cudaMalloc (the members' executors and streams are kept)."""
+    from repro_torch import hybrid as TH
+
+    M, N, K = 1536, 1024, 512
+    A, B, C = _inputs(61, M, N, K)
+    budget = (A.nbytes + B.nbytes + C.nbytes) // 5
+    hp = TH.plan_hybrid_gemm(M, N, K, _hybrid_pair(budget), **HYBRID_FAST)
+    assert len(hp.device_plans) == 2
+    ops = sum(_dgemm_ops(TH.device_schedule(hp, dp))
+              for dp in hp.device_plans)
+    single = T.ooc_gemm(A, B, C, 1.5, 0.5, budget_bytes=budget)
+    for rep in ("cold", "warm"):
+        before = block_matmul.launches
+        mallocs = torch.cuda.memory_stats()["num_device_alloc"]
+        out, groups = TH.run_hybrid_gemm(A, B, C, 1.5, 0.5, hp)
+        mallocs = torch.cuda.memory_stats()["num_device_alloc"] - mallocs
+        assert block_matmul.launches - before == ops
+        assert torch.equal(out, single), rep
+        stats = TH.executor.last_run_stats()
+        assert (stats["h2d_bytes"], stats["d2h_bytes"]) \
+            == (stats["sched_h2d_bytes"], stats["sched_d2h_bytes"])
+        assert [g[0] for g in groups] == ["gpu0", "phi0"]
+    assert mallocs == 0
+
+
+def test_hybrid_attention_on_card(card):
+    """The KV cache split across two members on one card: the merged
+    partials agree with the single-device run and a float64 oracle, and
+    kernel 2 launches twice per ``attn`` op of the members' schedules."""
+    from repro_torch import hybrid as TH
+
+    S, hkv, d, H = 65536, 8, 128, 24
+    rng = np.random.default_rng(62)
+    q = rng.standard_normal((H, d)).astype(np.float32)
+    k = torch.from_numpy(rng.standard_normal((S, hkv, d)).astype(
+        np.float32)).bfloat16()
+    v = torch.from_numpy(rng.standard_normal((S, hkv, d)).astype(
+        np.float32)).bfloat16()
+    budget = k.numel() * 2 // 4
+    hp = TH.plan_hybrid_attention(S, hkv, d, H, _hybrid_pair(budget),
+                                  dtype=torch.bfloat16)
+    assert len(hp.device_plans) == 2
+    attn_ops = sum(
+        1 for dp in hp.device_plans for op in TH.device_schedule(hp, dp).ops
+        if op.kind == T.OpKind.COMPUTE)
+    before = kfa.flash_partial.launches + kfa.flash_combine.launches
+    out, _ = TH.run_hybrid_attention(q, k, v, hp)
+    assert kfa.flash_partial.launches + kfa.flash_combine.launches \
+        - before == 2 * attn_ops
+    single = T.ooc_attention(q, k, v, budget_bytes=2 * budget)
+    assert (out - single).abs().max().item() <= 1e-5
+    qd = torch.from_numpy(q).double()
+    kd, vd = k.double(), v.double()
+    G = H // hkv
+    exact = torch.empty((H, d), dtype=torch.float64)
+    for kh in range(hkv):
+        rows = slice(kh * G, (kh + 1) * G)
+        s = qd[rows] @ kd[:, kh].T / np.sqrt(d)
+        exact[rows] = torch.softmax(s, dim=-1) @ vd[:, kh]
+    assert (out.double() - exact).abs().max().item() <= 2e-4
+
+
+def test_hybrid_device_lost_rebalances_on_card(card):
+    """``device_lost`` at a member's first compute on the card: the dead
+    member drains its streams before it returns, its band is recomputed on
+    the survivor, and the result equals the clean hybrid run bit for
+    bit."""
+    from repro_torch import hybrid as TH
+
+    M, N, K = 1536, 1024, 512
+    A, B, C = _inputs(63, M, N, K)
+    budget = (A.nbytes + B.nbytes + C.nbytes) // 5
+    hp = TH.plan_hybrid_gemm(M, N, K, _hybrid_pair(budget), **HYBRID_FAST)
+    clean, _ = TH.run_hybrid_gemm(A, B, C, 1.5, 0.5, hp)
+
+    def first_compute_lost(sched):
+        i = next(i for i, op in enumerate(sched.ops)
+                 if op.kind == T.OpKind.COMPUTE)
+        return TF.FaultPlan(specs=(TF.FaultSpec(op=i, cls="device_lost"),))
+
+    for dead in ("gpu0", "phi0"):
+        out, groups = TH.run_hybrid_gemm(
+            A, B, C, 1.5, 0.5, hp, fault_plans={dead: first_compute_lost},
+            fault_policy=_quiet())
+        assert torch.equal(out, clean), dead
+        assert any(f"rebalance {dead}" in g for g, _ in groups)

@@ -177,6 +177,30 @@ def test_tune_example_ports_run_on_cpu(name, last, expect):
         assert text in res.stdout, text
 
 
+@pytest.mark.parametrize("name,last", [
+    ("hybrid_gemm", "hybrid quickstart OK"),
+    ("faulty_gemm", "faulty gemm quickstart OK")])
+def test_hybrid_example_ports_run_on_cpu(name, last, tmp_path):
+    """The ports of the two examples that import the hybrid package, with
+    the reference's last lines: every recovery bitwise, the hybrid GEMM
+    exact against numpy and the trace written where it was asked to."""
+    trace = tmp_path / "hybrid_trace.json"
+    res = subprocess.run(
+        [sys.executable, "-m", f"repro_torch.examples.{name}", "--cpu"]
+        + (["--trace", str(trace)] if name == "hybrid_gemm" else []),
+        capture_output=True, text=True, cwd=ROOT, timeout=240,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
+             "OMP_NUM_THREADS": "1"})
+    assert res.returncode == 0, res.stderr
+    assert res.stdout.splitlines()[-1] == last
+    if name == "faulty_gemm":
+        assert res.stdout.count("bitwise identical: True") == 4
+        assert "rebalance gpu0" in res.stdout
+    else:
+        assert "(model estimate)" in res.stdout and trace.exists()
+        assert "gpu0: rows [0, " in res.stdout
+
+
 def test_mmooc_port_matches_reference_example():
     from examples.mmooc_via_api import mmooc as R_mmooc
 

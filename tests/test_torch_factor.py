@@ -396,16 +396,6 @@ def test_factor_rejects_non_square_and_infeasible_budget(rng):
         R.ooc_cholesky(_spd(rng, 512), panel=128, budget_bytes=1024)
 
 
-@pytest.mark.parametrize("kind", ["cholesky", "lu"])
-@pytest.mark.parametrize("kw,item", [
-    (dict(devices=[("gpu0", None, 1 << 20)]), "item 8"),
-    (dict(tolerance=1e-3), "item 8"),
-], ids=["kw2-item 8", "kw3-item 8"])   # the ids these cases always had
-def test_paths_outside_the_slice_raise(rng, kind, kw, item):
-    fn = {"cholesky": T.ooc_cholesky, "lu": T.ooc_lu}[kind]
-    A = _spd(rng, 64)
-    with pytest.raises(NotImplementedError, match=item):
-        fn(A, budget_bytes=1 << 20, torch_device=CPU, **kw)
 
 
 @pytest.mark.parametrize("kind", ["cholesky", "lu"])

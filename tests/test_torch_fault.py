@@ -17,7 +17,9 @@ plain path sums each element in one order):
 The port's buffers are updated in place, so a replay's inputs are
 copy-on-write clones (``runtime._ReplayLog``);
 ``test_replay_rebinds_inputs_a_landing_overwrote`` drives the case where
-they matter.  The hybrid device-lost tests wait for ROADMAP module item 8.
+they matter.  The hybrid device-lost twins hold a rebalanced run against
+the port's clean hybrid run, bit for bit (the reference's SYRK twin fails
+on its own side: its hybrid SYRK is not bitwise).
 """
 
 import numpy as np
@@ -27,10 +29,13 @@ import torch
 import repro.core as R
 import repro.core.ooc_factor as R_factor
 import repro.fault as RF
+import repro.hybrid as RH
 import repro_torch.core as T
 import repro_torch.core.runtime as T_runtime
 import repro_torch.fault as TF
+import repro_torch.hybrid as TH
 from repro.core.api import hclFaultPolicy as R_hclFaultPolicy
+from repro.kernels.ref import gemm_ref
 from repro.obs import get_observability as R_obs
 from repro_torch.core.api import hclFaultPolicy
 from repro_torch.obs import get_observability
@@ -732,6 +737,136 @@ def test_syrk_faults_match_reference():
     np.testing.assert_allclose(got.numpy(), want, rtol=RTOL, atol=ATOL)
 
 
+# --------------------------------------------------------- device_lost oracle
+HYBRID_FAST = dict(nbuf_options=(1, 2), max_steps=256)
+
+
+def _hybrid_devices(budget, mod=TH):
+    import repro.tune as RT
+    import repro_torch.tune as TT
+
+    tune = TT if mod is TH else RT
+    return [mod.DeviceSpec("gpu0", tune.gpu_profile(), budget),
+            mod.DeviceSpec("phi0", tune.phi_profile(), budget)]
+
+
+def _first_compute_lost(sched, mod=TF):
+    for i, op in enumerate(sched.ops):
+        if op.kind.name == "COMPUTE":
+            return mod.FaultPlan(specs=(mod.FaultSpec(op=i,
+                                                      cls="device_lost"),))
+    raise AssertionError("schedule has no compute op")
+
+
+def test_device_lost_gemm_rebalances_bitwise():
+    rng = np.random.default_rng(3)
+    m, n, k = 512, 256, 128
+    budget = (m * k + k * n + m * n) * 4 // 3
+    A = rng.standard_normal((m, k)).astype(np.float32)
+    B = rng.standard_normal((k, n)).astype(np.float32)
+    C = rng.standard_normal((m, n)).astype(np.float32)
+    hp = TH.plan_hybrid_gemm(m, n, k, _hybrid_devices(budget),
+                             **HYBRID_FAST)
+    clean, _ = TH.run_hybrid_gemm(A, B, C, 1.2, 0.5, hp, torch_device=CPU)
+    rhp = RH.plan_hybrid_gemm(m, n, k, _hybrid_devices(budget, RH),
+                              **HYBRID_FAST)
+    rclean, _ = RH.run_hybrid_gemm(A, B, C, 1.2, 0.5, rhp)
+    pol = TF.FaultPolicy(sleep=lambda s: None)
+    for dead in ("gpu0", "phi0"):
+        out, groups = TH.run_hybrid_gemm(
+            A, B, C, 1.2, 0.5, hp, fault_plans={dead: _first_compute_lost},
+            fault_policy=pol, torch_device=CPU)
+        # bitwise vs the fault-free hybrid run (K is never split, so the
+        # rebalanced band's blocks are the same full-depth dots)...
+        assert torch.equal(out, clean)
+        # ...and vs the reference's rebalanced run and the dense oracle
+        rout, rgroups = RH.run_hybrid_gemm(
+            A, B, C, 1.2, 0.5, rhp,
+            fault_plans={dead: lambda s: _first_compute_lost(s, RF)},
+            fault_policy=RF.FaultPolicy(sleep=lambda s: None))
+        np.testing.assert_allclose(out.numpy(), rout, rtol=RTOL, atol=ATOL)
+        np.testing.assert_allclose(out.numpy(), rclean, rtol=RTOL,
+                                   atol=ATOL)
+        np.testing.assert_allclose(
+            out.numpy(), np.asarray(gemm_ref(A, B, C, 1.2, 0.5)),
+            rtol=1e-5, atol=1e-5)
+        names = [g[0] for g in groups]
+        survivor = "phi0" if dead == "gpu0" else "gpu0"
+        assert any(f"rebalance {dead}" in nm for nm in names)
+        assert dead not in names and survivor in names
+        assert names == [g[0] for g in rgroups]
+        stats = TH.executor.last_run_stats()
+        assert stats["lost"] == [dead]
+        (reb,) = stats["rebalanced"]
+        assert reb["device"] == dead
+        assert reb["h2d_bytes"] == reb["sched_h2d_bytes"]
+        assert reb["d2h_bytes"] == reb["sched_d2h_bytes"]
+
+
+def test_device_lost_syrk_recovers_via_gemm_band():
+    rng = np.random.default_rng(4)
+    m, k = 512, 128
+    budget = (m * k + k * m + m * m) * 4 // 3
+    P = rng.standard_normal((m, k)).astype(np.float32)
+    C = rng.standard_normal((m, m)).astype(np.float32)
+    C = C + C.T
+    hp = TH.plan_hybrid_syrk(m, k, _hybrid_devices(budget), **HYBRID_FAST)
+    clean, _ = TH.run_hybrid_syrk(P, C, 1.2, 0.5, hp, torch_device=CPU)
+    out, groups = TH.run_hybrid_syrk(
+        P, C, 1.2, 0.5, hp, fault_plans={"gpu0": _first_compute_lost},
+        fault_policy=TF.FaultPolicy(sleep=lambda s: None), torch_device=CPU)
+    # the port's hybrid SYRK is bitwise against its clean hybrid run and
+    # its single-device SYRK; the reference's only within its tolerance
+    assert torch.equal(out, clean)
+    assert torch.equal(out, T.ooc_syrk(P, C, 1.2, 0.5, budget_bytes=budget,
+                                       torch_device=CPU))
+    assert [g[0] for g in groups] == ["phi0", "phi0 (rebalance gpu0)"]
+    rhp = RH.plan_hybrid_syrk(m, k, _hybrid_devices(budget, RH),
+                              **HYBRID_FAST)
+    rout, _ = RH.run_hybrid_syrk(
+        P, C, 1.2, 0.5, rhp,
+        fault_plans={"gpu0": lambda s: _first_compute_lost(s, RF)},
+        fault_policy=RF.FaultPolicy(sleep=lambda s: None))
+    np.testing.assert_allclose(out.numpy(), rout, rtol=RTOL, atol=ATOL)
+
+
+def test_surviving_devices_validation():
+    devs = _hybrid_devices(1 << 20)
+    assert [d.name for d in TH.surviving_devices(devs, ["gpu0"])] \
+        == ["phi0"]
+    for mod, ds in ((TH, devs), (RH, _hybrid_devices(1 << 20, RH))):
+        with pytest.raises(ValueError, match="not in device set"):
+            mod.surviving_devices(ds, ["nope"])
+        with pytest.raises(ValueError, match="no survivors"):
+            mod.surviving_devices(ds, ["gpu0", "phi0"])
+
+
+def test_device_lost_late_in_the_band_rebalances_bitwise():
+    """gpu0 is lost at its last compute, after most of its band has been
+    written back into the output (``beta != 0``, so a band that did not
+    restart from the pristine C would show): the survivors recompute the
+    whole band, bit for bit equal to the clean run."""
+    rng = np.random.default_rng(5)
+    m, n, k = 512, 256, 128
+    budget = (m * k + k * n + m * n) * 4 // 3
+    A = rng.standard_normal((m, k)).astype(np.float32)
+    B = rng.standard_normal((k, n)).astype(np.float32)
+    C = rng.standard_normal((m, n)).astype(np.float32)
+    hp = TH.plan_hybrid_gemm(m, n, k, _hybrid_devices(budget),
+                             **HYBRID_FAST)
+    clean, _ = TH.run_hybrid_gemm(A, B, C, 1.0, 1.0, hp, torch_device=CPU)
+    dp = next(d for d in hp.device_plans if d.device.name == "gpu0")
+    last = max(i for i, op in enumerate(TH.device_schedule(hp, dp).ops)
+               if op.kind.name == "COMPUTE")
+    out, groups = TH.run_hybrid_gemm(
+        A, B, C, 1.0, 1.0, hp,
+        fault_plans={"gpu0": TF.FaultPlan(specs=(
+            TF.FaultSpec(op=last, cls="device_lost"),))},
+        fault_policy=TF.FaultPolicy(sleep=lambda s: None), torch_device=CPU)
+    assert torch.equal(out, clean)
+    assert [g[0] for g in groups] == ["phi0", "phi0 (rebalance gpu0)"]
+
+
 # ------------------------------------------------------- entry-point rules
 def test_faults_rejected_on_non_host_backends():
     rng = np.random.default_rng(10)
@@ -758,6 +893,28 @@ def test_faults_rejected_on_non_host_backends():
     with pytest.raises(ValueError, match="host pipeline backend only"):
         R.ooc_gemm(A, B, None, 1.0, 0.0, budget_bytes=1 << 20,
                    backend="vmem", faults=RF.FaultPlan())
+
+
+def test_faults_rejected_with_devices():
+    """``faults=`` together with ``devices=`` raises the reference's
+    ``ValueError`` (hybrid paths take ``fault_plans`` on
+    ``run_hybrid_*``), on every entry point that takes both."""
+    rng = np.random.default_rng(10)
+    A = rng.standard_normal((64, 32))
+    spd = A @ A.T + 64 * np.eye(64)
+    devs = _hybrid_devices(1 << 20)
+    kw = dict(budget_bytes=1 << 20, devices=devs, faults=TF.FaultPlan(),
+              torch_device=CPU)
+    for call in (lambda: T.ooc_gemm(A, A.T, **kw),
+                 lambda: T.ooc_syrk(A, **kw),
+                 lambda: T.ooc_cholesky(spd, panel=32, **kw),
+                 lambda: T.ooc_lu(spd, panel=32, **kw)):
+        with pytest.raises(ValueError, match="host pipeline backend only"):
+            call()
+    with pytest.raises(ValueError, match="host pipeline backend only"):
+        R.ooc_cholesky(spd, panel=32, budget_bytes=1 << 20,
+                       devices=_hybrid_devices(1 << 20, RH),
+                       faults=RF.FaultPlan())
 
 
 # ----------------------------------------------------- tuned runs (item 7)

@@ -35,6 +35,10 @@ print("LOADED", len([n for n in sys.modules if n.startswith("repro_torch")]))
 assert not bad, bad
 assert {"repro_torch.fault." + m for m in ("errors", "plan", "policy",
         "replay")} <= set(sys.modules)
+assert {"repro_torch.hybrid." + m for m in ("balance", "plan",
+        "executor")} <= set(sys.modules)
+assert {"repro_torch.examples." + m for m in ("hybrid_gemm",
+        "faulty_gemm")} <= set(sys.modules)
 """
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT,
@@ -77,17 +81,23 @@ def no_card():
                                    "executor", "host_runtime",
                                    "vmem_runtime", "tier_size",
                                    "direct_host", "direct_vmem", "mmooc",
-                                   "calibrate", "autotuner"])
+                                   "calibrate", "autotuner", "hybrid_gemm",
+                                   "hybrid_syrk", "hybrid_attention",
+                                   "hybrid_cholesky", "hybrid_runtime",
+                                   "hybrid_factory", "run_hybrid_gemm"])
 def test_default_device_raises_without_a_card(no_card, entry):
     import numpy as np
 
     import repro_torch.core as T
+    import repro_torch.hybrid as TH
     import repro_torch.tune as TT
     from repro_torch import direct_impls as D
-    from repro_torch.core.api import hclDeviceFactory
+    from repro_torch.core.api import hclDeviceFactory, hclHybridRuntime
     from repro_torch.examples.mmooc_via_api import mmooc
 
     A = np.ones((64, 64), np.float32)
+    devs = [TH.DeviceSpec("gpu0", TT.gpu_profile(), 1 << 16),
+            TH.DeviceSpec("phi0", TT.phi_profile(), 1 << 16)]
     calls = {
         "ooc_gemm": lambda: T.ooc_gemm(A, A, budget_bytes=1 << 12),
         "ooc_syrk": lambda: T.ooc_syrk(A, budget_bytes=1 << 12),
@@ -105,9 +115,38 @@ def test_default_device_raises_without_a_card(no_card, entry):
         "calibrate": lambda: TT.calibrate(),
         "autotuner": lambda: TT.AutoTuner(profile=TT.gpu_profile()).gemm_plan(
             1024, 1024, 512, 1 << 20),
+        "hybrid_gemm": lambda: T.ooc_gemm(A, A, budget_bytes=1,
+                                          devices=devs),
+        "hybrid_syrk": lambda: T.ooc_syrk(A, budget_bytes=1, devices=devs),
+        "hybrid_attention": lambda: T.ooc_attention(
+            A, A.reshape(64, 1, 64), A.reshape(64, 1, 64), budget_bytes=1,
+            devices=devs),
+        "hybrid_cholesky": lambda: T.ooc_cholesky(
+            A + 64 * np.eye(64, dtype=np.float32), panel=32, budget_bytes=1,
+            devices=devs),
+        "hybrid_runtime": lambda: hclHybridRuntime(devs),
+        "hybrid_factory": lambda: T.RuntimeFactory.create(
+            hclDeviceFactory.create("HYBRID"), devices=devs),
+        "run_hybrid_gemm": lambda: TH.run_hybrid_gemm(
+            A, A, None, 1.0, 0.0, None),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
+
+
+@pytest.mark.parametrize("name", ["hybrid_gemm", "faulty_gemm"])
+def test_hybrid_examples_need_a_card_without_cpu_flag(no_card, name,
+                                                      tmp_path):
+    res = subprocess.run(
+        [sys.executable, "-m", f"repro_torch.examples.{name}", "--trace",
+         str(tmp_path / "t.json")] if name == "hybrid_gemm" else
+        [sys.executable, "-m", f"repro_torch.examples.{name}"],
+        capture_output=True, text=True, cwd=ROOT, timeout=240,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
+             "OMP_NUM_THREADS": "1"})
+    assert res.returncode != 0
+    assert "no CUDA device" in res.stderr
+    assert "OK" not in res.stdout
 
 
 def test_chip_smoke_fails_without_a_card(no_card, tmp_path):
