@@ -125,6 +125,30 @@ printing any result.  Phases (each raises on failure; none is skipped):
      members' parity buffers (its ratio to the summed budgets printed),
      cudaMalloc calls, each member's wall, the lag, and the predicted
      makespan (canned profiles) beside the measured one.
+ 13. bottleneck attribution of the measured spans (``[analyze]`` lines;
+     after phase 12, on the earlier phases' inputs and results): one
+     extra warm call with ``record_spans=True`` per path in both executor
+     modes (MMOOC 24576^3 f32 at 2 GiB and bf16 at 1 GiB, SYRK n = 16384,
+     K = 8192, attention long_500k, Cholesky and LU at n = 24576 under
+     1 GiB) and one hybrid MMOOC call (both members), each bit for bit
+     equal to its phase's result, bytes equal to ``schedule_stats`` and
+     launches to its ops; ``TraceAnalysis.from_spans`` on each, checked
+     (the path runs from the first span's start to the makespan, its
+     segments abut and sum to that window within the tolerance, bytes,
+     flops and ops equal ``schedule_stats``) and printed: verdict,
+     critical-path class shares, each stream's utilisation, the top three
+     idle gaps with their causes, host staging fill beside the idle-wait
+     share, the analysis's host seconds, and what the path proves about
+     its idle-wait: the rule behind each path link (stream, event, engine
+     or the wall-clock fallback) and the idle-wait seconds during which
+     the next path op's pool was busy (engine contention) or the card was
+     idle, so the host's share is given net of contention.  Then ``analyze_hybrid`` on phase
+     12's plan, ``whatif_plan`` on phase 11's tuned MMOOC and SYRK plans
+     under the calibrated profile, ``hclTraceAnalysis`` on one call's
+     spans (equal to ``from_spans``), and ``torch.profiler`` over one more
+     bf16 MMOOC ``concurrent`` call: kernel 1's device time beside the
+     attribution's compute busy time, the call's Chrome trace written to
+     ``chiprun_out/analyze_bf16_concurrent_trace.json``.
 
 With ``--baseline DIR`` (another checkout, e.g. ``git archive`` of the
 parent commit unpacked into a directory ``.gitignore`` lists), phase 5 is
@@ -143,6 +167,7 @@ line is ``{"ok": true, "device": {...}}``.
 
 from __future__ import annotations
 
+import bisect
 import contextlib
 import dataclasses
 import json
@@ -617,7 +642,7 @@ BF16_H2D, BF16_D2H = 7_247_757_312, 1_207_959_552
 def phase_main_bf16(gen, report, base=None):
     """MMOOC in bf16: the f32 cell's plan at half the bytes, with kernel 1
     on the tensor cores.  With ``base`` (another checkout), both trees'
-    warm walls in turns."""
+    warm walls in turns.  Returns the operands and the result."""
     from repro_torch.core import (build_gemm_schedule, plan_gemm_partition,
                                   schedule_stats)
 
@@ -666,7 +691,7 @@ def phase_main_bf16(gen, report, base=None):
                             "csrc")
         report["baseline_bf16"] = mmooc_turns(A, B, C, (alpha, beta, budget),
                                               csrc)
-    del A, B, C, host_out
+    return A, B, C, host_out
 
 
 # the shared planner's factor plans (factor_pipeline_spec, equal to the
@@ -1585,7 +1610,8 @@ def phase_tune(gen, report, card, A, B, C, host_out, params, factors):
     to the tuned schedule's ``schedule_stats``; launches equal to its
     compute ops; peak memory within the budget wherever the untuned
     run's is.  Then the tuned oom ladder: one ``halve_budget`` rung, its
-    re-run bit for bit equal to a tuned run at half the budget."""
+    re-run bit for bit equal to a tuned run at half the budget.  Returns
+    the calibrated profile and the tuned MMOOC f32 and SYRK plans."""
     from repro_torch.core import (HostOocRuntime, ScheduleExecutor,
                                   build_attention_schedule,
                                   build_gemm_schedule, build_syrk_schedule,
@@ -1606,6 +1632,7 @@ def phase_tune(gen, report, card, A, B, C, host_out, params, factors):
     tuner = AutoTuner(profile=cal.profile, fingerprint=cal.fingerprint,
                       cache=PlanCache(os.path.join(tmp.name, "plans.json")))
     report["tune_searches"] = searches = {}
+    tuned = {}
     k1 = Counter1()
 
     def gemm_expect(plan, kernel, budget, check):
@@ -1633,6 +1660,7 @@ def phase_tune(gen, report, card, A, B, C, host_out, params, factors):
         plan, secs = timed_search(tuner, lambda: tuner.gemm_plan(
             M, N, K, budget, "float32"))
         searches["gemm f32"] = secs
+        tuned["gemm f32"] = plan
         say("tune", f"search gemm {M}x{N}x{K} f32 under {budget} B: "
                     f"{secs:.1f} s, {plan_text(plan)}")
 
@@ -1670,6 +1698,7 @@ def phase_tune(gen, report, card, A, B, C, host_out, params, factors):
         plan, secs = timed_search(tuner, lambda: tuner.syrk_plan(
             n, Ks, sbudget, "float32"))
         searches["syrk f32"] = secs
+        tuned["syrk f32"] = plan
         say("tune", f"search syrk n={n} K={Ks} f32 under {sbudget} B: "
                     f"{secs:.1f} s, {plan_text(plan)}")
         tuned_pair("syrk f32", lambda tuned, ex: (ooc_syrk(
@@ -1813,6 +1842,7 @@ def phase_tune(gen, report, card, A, B, C, host_out, params, factors):
     finally:
         obs.reset().disable()
         tmp.cleanup()
+    return cal.profile, tuned
 
 
 # ---------------------------------------------------------------------------
@@ -1990,7 +2020,7 @@ def first_compute_lost(sched):
 def hybrid_gemm_case(report, A, B, C, host_out, params):
     """MMOOC 24576^3 f32 across the pair (1 GiB each, phase 3's 2 GiB in
     all), cold and warm, then with gpu0 and then phi0 lost at its first
-    compute."""
+    compute.  Returns the plan."""
     from repro_torch.fault import FaultPolicy
     from repro_torch.hybrid import (device_schedule, plan_hybrid_gemm,
                                     run_hybrid_gemm)
@@ -2077,6 +2107,7 @@ def hybrid_gemm_case(report, A, B, C, host_out, params):
                       f"for bit")
         del out
     del clean
+    return hp
 
 
 def hybrid_syrk_case(report, syrk):
@@ -2206,13 +2237,453 @@ def phase_hybrid(gen, report, A, B, C, host_out, params, syrk, attn):
     """Phase 12: hybrid co-execution, the reference's gpu0 + phi0 pair both
     on this card (two executors on their own streams, from two pool
     threads), on phase 3's, 4's and 6's inputs and results, then a hybrid
-    Cholesky."""
+    Cholesky.  Returns the hybrid MMOOC plan."""
     t0 = time.perf_counter()
-    hybrid_gemm_case(report, A, B, C, host_out, params)
+    hp = hybrid_gemm_case(report, A, B, C, host_out, params)
     hybrid_syrk_case(report, syrk)
     hybrid_attention_case(report, attn)
     hybrid_cholesky_case(gen, report)
     say("hybrid", f"phase 12 took {time.perf_counter() - t0:.1f} s")
+    return hp
+
+
+# ---------------------------------------------------------------------------
+# Phase 13: critical paths of the measured spans ([analyze] lines)
+# ---------------------------------------------------------------------------
+EXEC_MODES = ("issue_order", "concurrent")
+# phase 13's kernel 1 and kernel 2 count keys, by path and mode
+ANALYZE_K1 = tuple(f"analyze_{p}_{m}" for p in ("host", "host_bf16", "syrk",
+                                                "cholesky", "lu")
+                   for m in EXEC_MODES) \
+    + ("analyze_hybrid_gemm", "analyze_profiled")
+ANALYZE_K2 = tuple(f"analyze_attention_{m}" for m in EXEC_MODES)
+
+
+def classes_text(ana):
+    from repro_torch.obs.analyze import PATH_CLASSES
+
+    return ", ".join(f"{c} {100 * ana.shares[c]:.1f} %"
+                     for c in PATH_CLASSES if c in ana.shares)
+
+
+def check_attribution(tag, ana, sched, spans):
+    """Phase 13's own checks of a tolerance-matched attribution
+    (``verify_reconciliation`` is defined for exact ones only): the path
+    starts at the analysis's origin (the first span's start) and ends at
+    the makespan, consecutive segments abut within the tolerance, their
+    durations sum to the analysed window within it, and the attributed
+    bytes, flops and ops equal ``schedule_stats``."""
+    from repro_torch.core import schedule_stats
+
+    p, tol = ana.path, ana.tolerance
+    first = min(s[2] for s in spans)
+    require(p[0].start == ana.origin == first and ana.origin >= 0.0,
+            f"{tag}: path starts at {p[0].start}, origin {ana.origin}, "
+            f"first span {first}")
+    require(p[-1].end == ana.makespan,
+            f"{tag}: path ends at {p[-1].end}, makespan {ana.makespan}")
+    gap = max((abs(b.start - a.end) for a, b in zip(p, p[1:])),
+              default=0.0)
+    require(gap <= tol, f"{tag}: segments {gap} s apart, tolerance {tol}")
+    total = sum(s.duration for s in p)
+    require(abs(total - (ana.makespan - ana.origin)) <= tol,
+            f"{tag}: path sums to {total} s, window "
+            f"{ana.makespan - ana.origin} s")
+    st = schedule_stats(sched)
+    got = (ana.h2d_bytes, ana.d2h_bytes, ana.flops, ana.n_ops)
+    want = (st["h2d_bytes"], st["d2h_bytes"], st["flops"], st["n_ops"])
+    require(got == want, f"{tag}: attributed (h2d, d2h, flops, ops) {got}, "
+                         f"schedule_stats {want}")
+    return gap, total
+
+
+def _merged(intervals):
+    """Sorted disjoint union of (start, end) intervals, as two lists."""
+    out = []
+    for s, e in sorted(intervals):
+        if out and s <= out[-1][1]:
+            out[-1][1] = max(out[-1][1], e)
+        elif e > s:
+            out.append([s, e])
+    return [s for s, _ in out], [e for _, e in out]
+
+
+def _covered(merged, a, b):
+    """Seconds of [a, b) that a :func:`_merged` union covers."""
+    starts, ends = merged
+    got = 0.0
+    for i in range(max(bisect.bisect_right(starts, a) - 1, 0), len(starts)):
+        if starts[i] >= b:
+            break
+        got += max(0.0, min(ends[i], b) - max(starts[i], a))
+    return got
+
+
+def path_evidence(ana):
+    """What the attribution proves about its ``idle-wait`` segments.
+
+    Re-walks the analysis's own backward walk (``_predecessor``, from the
+    last span) and counts the rule behind each path link: ``stream``,
+    ``event`` or ``engine`` when the predecessor ends where the op starts
+    (within the tolerance; the engine rule exactly), ``fallback`` when the
+    walk only found the latest dependency ending earlier.  Then splits the
+    path's ``idle-wait`` seconds: ``contention_s``, while another op of
+    the next path op's pool was busy (in ``concurrent`` mode a schedule
+    stream's ops queue on each engine's one CUDA stream, and an op queued
+    behind another is certified only when the two event times are equal
+    floats); ``card_idle_s``, while no span at all was busy on the card;
+    ``host_net_s``, the idle-wait less the contention — an upper bound on
+    host wait, of which ``card_idle_s`` is a lower bound."""
+    rules = dict.fromkeys(("stream", "event", "engine", "fallback"), 0)
+    cur = max(ana._placed, key=lambda p: (p.end, -p.stream))
+    while cur.start > ana.origin + ana.tolerance:
+        pred, kind, _ = ana._predecessor(cur)
+        if pred is None:
+            break
+        rules[kind if ana._ends_at(pred, cur.start) else "fallback"] += 1
+        cur = pred
+    busy = _merged((p.start, p.end) for p in ana._placed)
+    pools = {pool: _merged((p.start, p.end) for p in ana._placed
+                           if p.pool == pool)
+             for pool in {p.pool for p in ana._placed}}
+    placed = {(p.stream, p.op.tag, p.start): p for p in ana._placed}
+    idle = contention = card_idle = 0.0
+    for seg, nxt in zip(ana.path, ana.path[1:] + [None]):
+        if seg.cls != "idle-wait":
+            continue
+        idle += seg.duration
+        card_idle += seg.duration - _covered(busy, seg.start, seg.end)
+        # the op after the wait starts where the wait ends, so its own
+        # span adds nothing to its pool's cover of the wait
+        op = nxt and placed.get((nxt.stream, nxt.tag, nxt.start))
+        if op is not None:
+            contention += _covered(pools[op.pool], seg.start, seg.end)
+    return {"rules": rules, "idle_wait_s": idle,
+            "contention_s": contention, "card_idle_s": card_idle,
+            "host_net_s": idle - contention}
+
+
+def attribution_row(tag, mode, ana, sched, spans, wall, stage, analysis_s,
+                    report, card):
+    """Check, print and keep (in ``report["analyze"]``) one measured
+    call's attribution, with its :func:`path_evidence`."""
+    gap, total = check_attribution(tag, ana, sched, spans)
+    idle = ana.class_seconds.get("idle-wait", 0.0)
+    window = ana.makespan - ana.origin
+    ev = path_evidence(ana)
+    require(abs(ev["idle_wait_s"] - idle) <= ana.tolerance,
+            f"{tag} {mode}: idle-wait segments sum to {ev['idle_wait_s']} "
+            f"s, the analysis says {idle} s")
+    gaps = ana.top_gaps(3)
+    row = {"path": tag, "mode": mode, "wall_s": wall,
+           "makespan_s": ana.makespan, "origin_s": ana.origin,
+           "tolerance_s": ana.tolerance, "verdict": ana.verdict,
+           "shares": ana.shares, "class_seconds": ana.class_seconds,
+           "stream_utilization": ana.stream_utilization(),
+           "pool_busy_s": ana.busy_by_pool, "stage_s": stage,
+           "idle_wait_s": idle, "path_segments": len(ana.path),
+           "n_ops": ana.n_ops, "analysis_s": analysis_s,
+           "top_gaps": [g.to_json() for g in gaps], "evidence": ev,
+           "card": card}
+    report["analyze"].append(row)
+    say("analyze", f"{tag} {mode}: {ana.verdict}; critical path "
+                   f"{classes_text(ana)} of {window:.4f} s ({len(ana.path)} "
+                   f"segments; spans from {1e3 * ana.origin:.3f} ms, the "
+                   f"call's executor wall {wall:.4f} s); streams "
+                   + ", ".join(f"s{s.stream} {100 * s.utilization:.1f} %"
+                               for s in ana.streams)
+                   + "; pools " + ", ".join(
+                       f"{k} {v:.4f} s" for k, v in
+                       sorted(ana.busy_by_pool.items()))
+                   + "; top gaps " + "; ".join(
+                       f"s{g.stream} {1e3 * g.duration:.3f} ms before "
+                       f"{g.next_tag or 'drain'} ({g.cause})" for g in gaps)
+                   + f"; host staging fill {stage:.4f} s beside idle-wait "
+                   f"{idle:.4f} s ({100 * idle / window:.1f} %), of which "
+                   f"{ev['contention_s']:.4f} s with the next path op's "
+                   f"pool busy and {ev['card_idle_s']:.4f} s with the card "
+                   f"idle: host net of contention {ev['host_net_s']:.4f} s "
+                   f"({100 * ev['host_net_s'] / window:.1f} %); path links "
+                   + ", ".join(f"{k} {v}" for k, v in ev["rules"].items())
+                   + "; "
+                   f"{ana.n_ops} ops placed, bytes and flops = "
+                   f"schedule_stats, segments abut within {gap:.3g} s and "
+                   f"sum to the window within "
+                   f"{abs(total - window):.3g} s (tolerance "
+                   f"{ana.tolerance:.3g} s); analysis {analysis_s:.4f} s on "
+                   f"the host")
+
+
+def analyzed_call(tag, mode, run, sched, expect, count, report, card):
+    """One path in one executor mode: a cold call on a new executor, then
+    the recorded warm call, whose result must equal ``expect`` bit for bit
+    and whose bytes must equal ``schedule_stats``; its spans attributed
+    with ``TraceAnalysis.from_spans``.  ``count`` = (counter, key, the
+    expected launches).  Returns (analysis, executor)."""
+    from repro_torch.core import ScheduleExecutor, schedule_stats
+    from repro_torch.obs.analyze import TraceAnalysis
+
+    ex = ScheduleExecutor(mode=mode)
+    run(ex)
+    ex.record_spans = True
+    counter, key, launches = count
+    counter.zero()
+    res = run(ex)
+    counter.keep(report, key)
+    got = counter.read()
+    require(got == launches, f"{tag} {mode}: {got} launches, expected "
+                             f"{launches}")
+    require(all(torch.equal(a, b) for a, b in zip(res, expect)),
+            f"{tag} {mode}: the recorded call differs from its phase's "
+            f"result")
+    st = schedule_stats(sched)
+    require((ex.last_h2d_bytes, ex.last_d2h_bytes)
+            == (st["h2d_bytes"], st["d2h_bytes"]),
+            f"{tag} {mode}: moved {ex.last_h2d_bytes}/{ex.last_d2h_bytes} "
+            f"B, schedule_stats says {st['h2d_bytes']}/{st['d2h_bytes']}")
+    t0 = time.perf_counter()
+    ana = TraceAnalysis.from_spans(sched, ex.last_spans)
+    secs = time.perf_counter() - t0
+    attribution_row(tag, mode, ana, sched, ex.last_spans,
+                    ex.last_wall_seconds, ex.last_stage_seconds, secs,
+                    report, card)
+    return ana, ex
+
+
+def profiled_call(ex, run, sched, expect, report, card):
+    """One more warm recorded call of the bf16 MMOOC concurrent path under
+    ``torch.profiler``: kernel 1's device time from ``key_averages()``
+    beside the attribution's compute busy time, and the call's Chrome
+    trace (``export_trace``'s ``measured_trace``) under ``chiprun_out/``."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.kernels.block_matmul import block_matmul
+    from repro_torch.obs.analyze import TraceAnalysis
+    from repro_torch.scripts.export_trace import measured_trace
+
+    zero_counts(block_matmul)
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        res = run(ex)
+    launches = read_counts(block_matmul, report, "analyze_profiled")
+    require(launches == dgemm_ops(sched),
+            f"profiled call: {launches} launches, expected "
+            f"{dgemm_ops(sched)}")
+    require(all(torch.equal(a, b) for a, b in zip(res, expect)),
+            "profiled call: differs from phase 7's result")
+    ana = TraceAnalysis.from_spans(sched, ex.last_spans)
+    check_attribution("profiled bf16 mmooc", ana, sched, ex.last_spans)
+    k1_us, n_k1, dev_us = 0.0, 0, 0.0
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        t = getattr(evt, "self_device_time_total", None)
+        if t is None:
+            t = evt.self_cuda_time_total
+        dev_us += t
+        if "gemm_kernel" in evt.key:
+            k1_us += t
+            n_k1 += evt.count
+    busy = ana.busy_by_pool.get("COMPUTE", 0.0)
+    out = os.path.join(os.path.dirname(os.path.abspath(__file__)),
+                       "chiprun_out")
+    os.makedirs(out, exist_ok=True)
+    path = os.path.join(out, "analyze_bf16_concurrent_trace.json")
+    with open(path, "w") as f:
+        json.dump(measured_trace(sched, ex.last_spans,
+                                 "mmooc 24576^3 bf16 concurrent"), f)
+    row = {"path": "profiled mmooc bf16 concurrent", "wall_s":
+           ex.last_wall_seconds, "profiler_device_s": dev_us / 1e6,
+           "profiler_kernel1_s": k1_us / 1e6, "profiler_kernel1_calls": n_k1,
+           "analysis_compute_busy_s": busy, "verdict": ana.verdict,
+           "shares": ana.shares, "trace": os.path.relpath(
+               path, os.path.dirname(os.path.abspath(__file__))),
+           "card": card}
+    report["analyze"].append(row)
+    if dev_us <= 0.0:
+        say("analyze", "profiler cross-check: torch.profiler's "
+                       "key_averages() show no device time on this machine; "
+                       f"the attribution's compute busy {busy:.4f} s stands "
+                       f"alone; trace {row['trace']}")
+        return
+    say("analyze", f"profiler cross-check (bf16 mmooc concurrent, "
+                   f"{ex.last_wall_seconds:.4f} s executor wall under the "
+                   f"profiler): kernel 1 {k1_us / 1e3:.3f} ms device time "
+                   f"over {n_k1} kernel events ({launches} launches counted) "
+                   f"beside the attribution's compute busy "
+                   f"{1e3 * busy:.3f} ms (ratio {k1_us / 1e6 / busy:.4f}); "
+                   f"all device time in the profile {dev_us / 1e3:.3f} ms; "
+                   f"{ana.verdict}, {classes_text(ana)}; Chrome trace of "
+                   f"the call written to {row['trace']}")
+
+
+def phase_analyze(report, card, main_io, bf16_io, syrk, attn, factors,
+                  hplan, tuned):
+    """Phase 13: one extra warm call per path with ``record_spans=True``
+    in both executor modes (MMOOC f32 and bf16, SYRK, attention, Cholesky,
+    LU) and one hybrid MMOOC call, each bit for bit equal to its phase's
+    result; ``TraceAnalysis.from_spans`` on each (phase 13's own checks),
+    ``analyze_hybrid`` on phase 12's plan, ``whatif_plan`` on phase 11's
+    tuned MMOOC and SYRK plans under the calibrated profile, one
+    ``hclTraceAnalysis`` call, and the profiler cross-check."""
+    from repro_torch.core import (HostOocRuntime, build_attention_schedule,
+                                  build_gemm_schedule, build_syrk_schedule,
+                                  compile_factor_pipeline, ooc_attention,
+                                  ooc_gemm, ooc_syrk,
+                                  plan_attention_partition,
+                                  plan_gemm_partition)
+    from repro_torch.core.api import hclTraceAnalysis
+    from repro_torch.core.ooc_factor import _plan_factor_spec
+    from repro_torch.hybrid import device_schedule, run_hybrid_gemm
+    from repro_torch.hybrid.executor import analyze_hybrid, last_run_stats
+    from repro_torch.obs.analyze import TraceAnalysis
+    from repro_torch.obs.whatif import whatif_plan
+
+    t_phase = time.perf_counter()
+    k1, k2 = Counter1(), CounterAttn()
+    A, B, C, host_out, params = main_io
+    alpha, beta, budget = params
+    M, K = A.shape
+    N = B.shape[1]
+
+    def mmooc(A, B, C, budget):
+        return lambda ex: (ooc_gemm(A, B, C, alpha, beta,
+                                    budget_bytes=budget, backend="host",
+                                    nstreams=2, nbuf=2,
+                                    runtime=HostOocRuntime(executor=ex)),)
+
+    def gemm_sched(budget, bpe):
+        return build_gemm_schedule(
+            plan_gemm_partition(M, N, K, budget, bpe), nstreams=2, nbuf=2)
+
+    cases = [("mmooc f32", "host", mmooc(A, B, C, budget),
+              gemm_sched(budget, 4), (host_out,), k1)]
+    Ah, Bh, Ch, bf16_out = bf16_io
+    bsched = gemm_sched(TUNE_BF16_BUDGET, 2)
+    cases.append(("mmooc bf16", "host_bf16",
+                  mmooc(Ah, Bh, Ch, TUNE_BF16_BUDGET), bsched, (bf16_out,),
+                  k1))
+    P, Cs, syrk_out = syrk
+    n, Ks = P.shape
+    sbudget = TUNE_SYRK[2]
+    cases.append(("syrk", "syrk", lambda ex: (ooc_syrk(
+        P, Cs, -1.0, 0.5, budget_bytes=sbudget, backend="host",
+        runtime=HostOocRuntime(executor=ex)),), build_syrk_schedule(
+            plan_gemm_partition(n, n, Ks, sbudget, 4), nstreams=2, nbuf=2),
+        (syrk_out,), k1))
+    q, Kc, Vc, attn_out = attn
+    S, hkv, d = Kc.shape
+    abudget = TUNE_ATTN[4]
+    apart = plan_attention_partition(S, hkv, d, abudget, Kc.element_size())
+    cases.append(("attention long_500k bf16", "attention",
+                  lambda ex: (ooc_attention(q, Kc, Vc, budget_bytes=abudget,
+                                            nstreams=2, nbuf=2,
+                                            executor=ex),),
+                  build_attention_schedule(apart, hkv, d, q.shape[0],
+                                           nstreams=2, nbuf=2),
+                  (attn_out,), k2))
+    nf, pw, fbudget = FACTOR_N, FACTOR_PANEL, FACTOR_BUDGET
+    for kind in ("cholesky", "lu"):
+        Af, first = factors[kind]
+        spec = _plan_factor_spec(kind, nf, pw, fbudget, 4, 1, 2, "cuda")
+        fsched = compile_factor_pipeline(spec, nstreams=2, nbuf=2)
+        ctx = {"alpha": -1.0, "beta": 1.0, "panel": spec.panel, "n": spec.n}
+
+        def factor(ex, Af=Af, fsched=fsched, ctx=ctx, kind=kind):
+            out = Af.clone()
+            st = ex.run(fsched, {}, {"A": out}, ctx)
+            return (torch.tril(out),) if kind == "cholesky" \
+                else (out, st.scratch["perm"])
+
+        cases.append((f"{kind} n={nf}", kind, factor, fsched, first, k1))
+
+    kept = {}     # what the facade and the profiler reuse, by path
+    for tag, key, run, sched, expect, counter in cases:
+        want = dgemm_ops(sched) if counter is k1 else \
+            2 * apart.nblocks + 1
+        for mode in EXEC_MODES:
+            ana, ex = analyzed_call(
+                tag, mode, run, sched, expect,
+                (counter, f"analyze_{key}_{mode}", want), report, card)
+            if mode == "concurrent" and key in ("host", "host_bf16"):
+                kept[key] = (ana, ex)
+            del ex
+
+    # the facade on the same spans gives the same attribution
+    ana, ex = kept.pop("host")
+    same = hclTraceAnalysis(cases[0][3], spans=ex.last_spans)
+    require(same.to_json() == ana.to_json(),
+            "hclTraceAnalysis(spans=) differs from TraceAnalysis.from_spans")
+    say("analyze", "hclTraceAnalysis(sched, spans=) on the f32 concurrent "
+                   "call's spans == TraceAnalysis.from_spans, key for key")
+
+    # both members of phase 12's hybrid MMOOC (their executors are kept
+    # across calls, so this call is warm)
+    exp_ops = sum(dgemm_ops(device_schedule(hplan, dp))
+                  for dp in hplan.device_plans)
+    k1.zero()
+    out, groups = run_hybrid_gemm(A, B, C, alpha, beta, hplan,
+                                  record_spans=True)
+    k1.keep(report, "analyze_hybrid_gemm")
+    require(k1.read() == exp_ops, f"hybrid: {k1.read()} launches, "
+                                  f"expected {exp_ops}")
+    require(torch.equal(out, host_out),
+            "hybrid: the recorded call differs from phase 3's result")
+    st = last_run_stats()
+    spans = dict(groups)
+    pred = analyze_hybrid(hplan)
+    for dp in hplan.device_plans:
+        name = dp.device.name
+        sched = device_schedule(hplan, dp)
+        t0 = time.perf_counter()
+        ana = TraceAnalysis.from_spans(sched, spans[name])
+        secs = time.perf_counter() - t0
+        attribution_row(f"hybrid mmooc member {name}", "concurrent", ana,
+                        sched, spans[name], st["device_walls"][name],
+                        st["device_stage_seconds"][name], secs, report,
+                        card)
+        p = pred.device(name)
+        say("analyze", f"hybrid member {name}: predicted (canned profile, "
+                       f"exact) {p.verdict}, {classes_text(p)} over "
+                       f"{p.makespan:.4g} s; measured {ana.verdict}")
+    report["analyze"].append({
+        "path": "analyze_hybrid (predicted)", "makespan_s": pred.makespan,
+        "critical_device": pred.critical_device,
+        "imbalance": pred.imbalance,
+        "devices": {name: {"verdict": a.verdict, "shares": a.shares,
+                           "makespan_s": a.makespan}
+                    for name, a in pred.per_device}})
+    say("analyze", f"analyze_hybrid on phase 12's plan (canned profiles): "
+                   f"critical member {pred.critical_device}, imbalance "
+                   f"{100 * pred.imbalance:.2f} %, predicted makespan "
+                   f"{pred.makespan:.4g} s; measured lag "
+                   f"{st['lag_seconds']:.4f} s of {st['wall_seconds']:.4f} s")
+    del out
+
+    # the what-if tables of phase 11's tuned plans under the profile
+    # calibrate() measured on this card
+    profile, plans = tuned
+    for key, plan in sorted(plans.items()):
+        rep = whatif_plan(plan, profile)
+        report["analyze"].append({"path": f"whatif {key}", **rep.to_json(),
+                                  "card": card})
+        ranked = rep.ranked()
+        require(rep.baseline.makespan > 0 and ranked,
+                f"whatif {key}: no feasible scenario")
+        say("analyze", f"whatif_plan({key} tuned plan, calibrated "
+                       f"profile): baseline s{plan.nstreams}b{plan.nbuf} "
+                       f"{rep.baseline.makespan:.4g} s predicted; "
+                       + "; ".join(f"{s.name} {1e3 * s.gain_seconds:+.2f} ms"
+                                   f" ({s.speedup:.3f}x)" for s in ranked)
+                       + "; infeasible: " + (", ".join(
+                           s.name for s in rep.scenarios if not s.feasible)
+                           or "none"))
+
+    # the profiler cross-check on the bf16 concurrent executor (warm)
+    _, ex = kept.pop("host_bf16")
+    profiled_call(ex, cases[1][2], bsched, (bf16_out,), report, card)
+    say("analyze", f"phase 13 took {time.perf_counter() - t_phase:.1f} s")
 
 
 def phase_vmem_syrk(gen, report, A, B, C, host_out, params):
@@ -2768,10 +3239,10 @@ BLOCK_MATMUL_PATHS = ("host", "in_core", "vmem", "syrk_host", "direct_host",
                       "tune_syrk", "tune_cholesky", "tune_lu", "tune_oom",
                       "hybrid_gemm", "hybrid_gemm_lost_gpu0",
                       "hybrid_gemm_lost_phi0", "hybrid_syrk",
-                      "hybrid_cholesky")
+                      "hybrid_cholesky") + ANALYZE_K1
 # the paths that launch kernel 2
 ATTENTION_PATHS = ("attention", "attention_f32", "tune_attention",
-                   "hybrid_attention")
+                   "hybrid_attention") + ANALYZE_K2
 
 
 def phase_timing(gen, report, card):
@@ -3044,6 +3515,7 @@ def main(argv=None) -> int:
     phase_kernels_direct(gen)
     report = {"main_path": [], "attention": [], "c1": [], "factor": [],
               "fault": [], "tune": [], "hybrid": [], "hybrid_plans": {},
+              "analyze": [],
               "factor_panel_ms": {}, "factor_dgemm_check": {},
               "launches": {}, "launches_by_dtype": {}}
     A, B, C, host_out, params = phase_main(gen, report)
@@ -3052,13 +3524,14 @@ def main(argv=None) -> int:
     if args.baseline:
         phase_baseline(gen, report, card, args.baseline, A, B, C, params)
     attn = phase_attention(gen, report)
-    phase_main_bf16(gen, report, args.baseline)
+    bf16_io = phase_main_bf16(gen, report, args.baseline)
     factors = phase_factor(gen, report)
     phase_faults(report, A, B, C, host_out, params, factors)
-    phase_tune(gen, report, card, A, B, C, host_out, params, factors)
-    del factors
-    phase_hybrid(gen, report, A, B, C, host_out, params, syrk, attn)
-    del A, B, C, host_out, syrk, attn
+    tuned = phase_tune(gen, report, card, A, B, C, host_out, params, factors)
+    hplan = phase_hybrid(gen, report, A, B, C, host_out, params, syrk, attn)
+    phase_analyze(report, card, (A, B, C, host_out, params), bf16_io, syrk,
+                  attn, factors, hplan, tuned)
+    del A, B, C, host_out, syrk, attn, bf16_io, factors
     entries = [*phase_timing(gen, report, card),
                phase_timing_attention(gen, report, card),
                phase_timing_direct(gen, report, card)]
@@ -3073,6 +3546,7 @@ def main(argv=None) -> int:
                       "tune": report["tune"],
                       "hybrid": report["hybrid"],
                       "hybrid_plan_s": report["hybrid_plans"],
+                      "analyze": report["analyze"],
                       "tune_calibration": report.get("tune_calibration"),
                       "tune_searches": report.get("tune_searches"),
                       "baseline": report.get("baseline"),

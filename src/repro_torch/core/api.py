@@ -2,13 +2,13 @@
 
 Port of ``src/repro/core/api.py`` for what this slice has: devices,
 runtimes, streams, the partitioner, the pipeline compiler, the executor,
-observability, the factorizations, the fault policy and the autotuner.
-Tier sizes are the card's own (:func:`~repro_torch.core.runtime.
-tier_bytes`): ``HBM`` is the device memory, ``VMEM`` the shared memory a
-block may use.  Without a card the caller passes ``mem_bytes``.  The
-``HYBRID`` composite has no size of its own: its placeholder reports 0,
-and the runtime made from it the sum of its members' budgets.  The
-analysis facade arrives with its ROADMAP module item (9).
+observability, the trace analysis, the factorizations, the fault policy
+and the autotuner.  Tier sizes are the card's own
+(:func:`~repro_torch.core.runtime.tier_bytes`): ``HBM`` is the device
+memory, ``VMEM`` the shared memory a block may use.  Without a card the
+caller passes ``mem_bytes``.  The ``HYBRID`` composite has no size of its
+own: its placeholder reports 0, and the runtime made from it the sum of
+its members' budgets.
 """
 
 from __future__ import annotations
@@ -101,6 +101,33 @@ def hclObservability(enable: bool = False, trace: bool = False, **kw):
     if enable or trace:
         obs.enable(metrics=True, trace=trace, **kw)
     return obs
+
+
+def hclTraceAnalysis(sched: Schedule, hw=None, res=None, spans=None, **kw):
+    """Facade over :class:`repro_torch.obs.analyze.TraceAnalysis`:
+    bottleneck attribution over one schedule's span timeline.
+
+        ana, res = hclTraceAnalysis(sched, hw=profile.model_for(2))
+        print(ana.digest())        # verdict + critical-path shares
+        ana.verify_reconciliation(res)   # exact accounting, or AssertionError
+
+    Three input shapes: simulate here (``hw`` an engine model or a
+    :class:`~repro_torch.tune.calibrate.HardwareProfile`, returns
+    ``(analysis, SimResult)``), attribute an existing simulation (``res``),
+    or attribute recorded spans (``spans``, e.g. an executor's
+    ``last_spans``, tolerance-matched).  Resolved lazily: the analyzer
+    imports the simulator."""
+    from repro_torch.obs.analyze import TraceAnalysis
+
+    if res is not None:
+        return TraceAnalysis.from_sim(sched, res, hw=hw)
+    if spans is not None:
+        return TraceAnalysis.from_spans(sched, spans, hw=hw, **kw)
+    if hw is None:
+        raise ValueError("hclTraceAnalysis needs hw=, res= or spans=")
+    if hasattr(hw, "model_for"):       # a HardwareProfile: default 2 streams
+        hw = hw.model_for(kw.pop("nstreams", 2))
+    return TraceAnalysis.analyze(sched, hw)
 
 
 def hclHybridRuntime(devices, **kw):

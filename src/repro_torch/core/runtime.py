@@ -61,8 +61,6 @@ from repro_torch.obs import get_observability
 # what is left out of this slice, by the ROADMAP module item that ports it
 NOT_PORTED = {
     "MESH": "the MESH tier (MeshOocRuntime) is ROADMAP module item 10",
-    "analyze_hybrid": "per-device analysis of a hybrid plan (HybridAnalysis, "
-                      "analyze_hybrid) is ROADMAP module item 9",
 }
 
 

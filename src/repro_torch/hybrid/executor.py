@@ -46,9 +46,9 @@ for that:
     reference's ``(H,)``, ``(H,)``, ``(H, d)``; the merge runs in torch
     on those host tensors, in the reference's order of operations.
 
-Not in this slice: :class:`HybridAnalysis` and :func:`analyze_hybrid`
-(they call ``obs/analyze.py``, ROADMAP module item 9); asking for them
-raises ``NotImplementedError``.
+:func:`analyze_hybrid` attributes a plan's predicted co-execution, one
+:class:`~repro_torch.obs.analyze.TraceAnalysis` per member, equal to the
+reference's (``tests/test_torch_analyze.py``).
 """
 
 from __future__ import annotations
@@ -68,9 +68,8 @@ from repro_torch.core.pipeline import (attention_pipeline_spec,
                                        syrk_pipeline_spec)
 from repro_torch.core.runtime import (ExecState, OocRuntime,
                                       ScheduleExecutor, as_tensor,
-                                      host_tensor, not_ported,
-                                      register_op_handler, register_runtime,
-                                      resolve_device)
+                                      host_tensor, register_op_handler,
+                                      register_runtime, resolve_device)
 from repro_torch.core.simulator import SimResult, simulate
 from repro_torch.core.streams import (BlockRef, Device, Op, OpKind, Schedule,
                                       validate_schedule)
@@ -88,12 +87,6 @@ from repro_torch.tune.search import dtype_name
 _SYRK_FULL_PANEL = "Pfull"
 
 SpanGroups = List[Tuple[str, List[Span]]]
-
-
-def __getattr__(name: str):
-    if name in ("HybridAnalysis", "analyze_hybrid"):
-        raise not_ported("analyze_hybrid")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
 
 
 @register_op_handler("attn_partial")
@@ -587,6 +580,70 @@ def simulate_hybrid(hplan: HybridPlan) -> HybridSimResult:
     return HybridSimResult(
         makespan=max(r.makespan for _, r in per),
         per_device=tuple(per))
+
+
+@dataclasses.dataclass
+class HybridAnalysis:
+    """Per-device bottleneck attribution for a co-executed plan.
+
+    ``imbalance`` is ``(slowest - fastest) / slowest`` over the device
+    makespans — the fraction of the critical device's time the other
+    devices sit drained; the balancer's ``tolerance`` bounds it by
+    construction.  Each device also carries its own
+    :class:`~repro_torch.obs.analyze.TraceAnalysis`, so a lagging device's
+    verdict (transfer- vs compute-bound) says *why* it lags.
+    """
+
+    makespan: float
+    critical_device: str
+    imbalance: float
+    per_device: Tuple[Tuple[str, object], ...]    # (name, TraceAnalysis)
+
+    def device(self, name: str):
+        for n, ana in self.per_device:
+            if n == name:
+                return ana
+        raise KeyError(name)
+
+    def to_json(self) -> dict:
+        return {
+            "makespan_seconds": self.makespan,
+            "critical_device": self.critical_device,
+            "imbalance": self.imbalance,
+            "devices": {name: ana.to_json(max_path=0)
+                        for name, ana in self.per_device},
+        }
+
+
+def analyze_hybrid(hplan: HybridPlan,
+                   sim: Optional[HybridSimResult] = None) -> HybridAnalysis:
+    """Attribute a hybrid plan's predicted co-execution: one exact
+    :class:`~repro_torch.obs.analyze.TraceAnalysis` per device (same recompiled
+    schedule + engine model as :func:`simulate_hybrid`), plus the
+    cross-device imbalance.  Publishes ``repro_analysis_*`` metrics (one
+    ``kernel=<kernel>:<device>`` series per device) when obs is enabled.
+    """
+    from repro_torch.obs.analyze import TraceAnalysis
+
+    sim = sim or simulate_hybrid(hplan)
+    obs = get_observability()
+    per = []
+    for dp, (name, res) in zip(hplan.device_plans, sim.per_device):
+        sched = device_schedule(hplan, dp)
+        hw = dp.device.profile.model_for(dp.plan.nstreams)
+        ana = TraceAnalysis.from_sim(sched, res, hw=hw)
+        obs.record_analysis(ana, kernel=f"{hplan.kernel}:{name}")
+        per.append((name, ana))
+    spans = sim.device_makespans
+    imbalance = (max(spans) - min(spans)) / max(spans) if max(spans) else 0.0
+    critical = max(sim.per_device, key=lambda nr: nr[1].makespan)[0]
+    if obs.metrics.enabled:
+        obs.metrics.gauge(
+            "repro_analysis_hybrid_imbalance_ratio",
+            "(slowest - fastest) / slowest device makespan, last plan").set(
+                imbalance, kernel=hplan.kernel)
+    return HybridAnalysis(makespan=sim.makespan, critical_device=critical,
+                          imbalance=imbalance, per_device=tuple(per))
 
 
 # ===========================================================================

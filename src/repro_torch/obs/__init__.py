@@ -3,14 +3,16 @@
 Port of ``src/repro/obs/__init__.py``: the process-wide
 :class:`Observability` bundle (metrics registry, tracer, drift monitor) with
 the per-run publication helpers the executor and entry points call:
-``record_executor_run``, ``record_drift``, and the fault-recovery pair
-``record_fault_run`` / ``record_fault_recovery``.  Everything starts
-disabled; instrumented paths guard on ``obs.metrics.enabled`` /
-``obs.tracer is None`` and publish per-run aggregates only.
+``record_executor_run``, ``record_drift``, the fault-recovery pair
+``record_fault_run`` / ``record_fault_recovery``, and the attribution pair
+``record_analysis`` / ``record_whatif``.  Everything starts disabled;
+instrumented paths guard on ``obs.metrics.enabled`` / ``obs.tracer is
+None`` and publish per-run aggregates only.
 
-Not in this slice: the analysis and what-if publishers and the lazy
-``TraceAnalysis`` / ``WhatIfReport`` / ``whatif`` exports, which wait for
-ROADMAP module item 9.
+``TraceAnalysis``, ``WhatIfReport`` and ``whatif`` resolve lazily from
+:mod:`repro_torch.obs.analyze` and :mod:`repro_torch.obs.whatif`, which
+import the simulator: this package imports nothing of ``repro_torch.core``
+at load (the core runtime imports it first).
 """
 
 from __future__ import annotations
@@ -25,19 +27,27 @@ from repro_torch.obs.spans import FlatSpan, Tracer, TraceSpan
 
 __all__ = [
     "Counter", "DriftMonitor", "DriftRecord", "FlatSpan", "Gauge",
-    "Histogram", "Metric", "MetricRegistry", "Observability", "TraceSpan",
-    "Tracer", "get_observability", "key_str",
+    "Histogram", "Metric", "MetricRegistry", "Observability", "TraceAnalysis",
+    "TraceSpan", "Tracer", "WhatIfReport", "get_observability", "key_str",
+    "whatif",
 ]
 
-_NOT_PORTED = {"TraceAnalysis", "WhatIfReport", "whatif"}
+# Attribution lives in submodules that import repro_torch.core (the
+# simulator); resolve lazily so ``import repro_torch.obs`` stays core-free.
+_LAZY = {
+    "TraceAnalysis": ("repro_torch.obs.analyze", "TraceAnalysis"),
+    "WhatIfReport": ("repro_torch.obs.whatif", "WhatIfReport"),
+    "whatif": ("repro_torch.obs.whatif", "whatif"),
+}
 
 
 def __getattr__(name: str):
-    if name in _NOT_PORTED:
-        raise AttributeError(
-            f"repro_torch.obs.{name} is not ported yet (ROADMAP module "
-            f"item 9: obs/analyze.py and obs/whatif.py)")
-    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    target = _LAZY.get(name)
+    if target is None:
+        raise AttributeError(f"module {__name__!r} has no attribute {name!r}")
+    import importlib
+
+    return getattr(importlib.import_module(target[0]), target[1])
 
 
 class _NullSpan:
@@ -208,9 +218,9 @@ class Observability:
 
     def record_fault_recovery(self, kernel: str, action: str,
                               **labels) -> None:
-        """Publish one out-of-executor recovery action (``degrade`` for the
-        oom ladders) into the same ``repro_fault_recoveries_total`` family
-        the executor uses."""
+        """Publish one out-of-executor recovery action (``rebalance`` for
+        device_lost, ``degrade`` for oom ladders) into the same
+        ``repro_fault_recoveries_total`` family the executor uses."""
         if not self.metrics.enabled:
             return
         self.metrics.counter("repro_fault_recoveries_total",
@@ -236,6 +246,43 @@ class Observability:
                 "last measured/predicted H2D byte ratio (must be 1.0)").set(
                     rec.byte_ratio, kernel=kernel, tier=tier)
         return rec
+
+    def record_analysis(self, analysis, kernel: str = "unknown") -> None:
+        """Publish one :class:`~repro_torch.obs.analyze.TraceAnalysis` as the
+        ``repro_analysis_*`` metric family (duck-typed: no analyze import,
+        this package must stay core-free at load)."""
+        if not self.metrics.enabled:
+            return
+        m = self.metrics
+        m.counter("repro_analysis_runs_total",
+                  "trace attributions computed").inc(kernel=kernel)
+        m.gauge("repro_analysis_makespan_seconds",
+                "analyzed timeline makespan, last run").set(
+                    analysis.makespan, kernel=kernel)
+        m.gauge("repro_analysis_verdict_info",
+                "bottleneck verdict of the last analyzed run (value=1)").set(
+                    1, kernel=kernel, verdict=analysis.verdict)
+        for st in analysis.streams:
+            m.gauge("repro_analysis_stream_utilization",
+                    "per-stream busy fraction of the analyzed makespan").set(
+                        st.utilization, kernel=kernel, stream=str(st.stream))
+        for cls, secs in sorted(analysis.class_seconds.items()):
+            m.gauge("repro_analysis_critical_path_seconds",
+                    "critical-path seconds per segment class").set(
+                        secs, kernel=kernel, **{"class": cls})
+
+    def record_whatif(self, report, kernel: str = "unknown") -> None:
+        """Publish a :class:`~repro_torch.obs.whatif.WhatIfReport`'s marginal
+        gains as ``repro_analysis_whatif_gain_seconds``."""
+        if not self.metrics.enabled:
+            return
+        m = self.metrics
+        for sc in report.scenarios:
+            if not sc.feasible or sc.knob == "baseline":
+                continue
+            m.gauge("repro_analysis_whatif_gain_seconds",
+                    "marginal makespan gain per scaled resource").set(
+                        sc.gain_seconds, kernel=kernel, scenario=sc.name)
 
     # -- export --------------------------------------------------------------
     def snapshot(self) -> dict:

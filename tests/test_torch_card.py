@@ -1027,3 +1027,59 @@ def test_hybrid_device_lost_rebalances_on_card(card):
             fault_policy=_quiet())
         assert torch.equal(out, clean), dead
         assert any(f"rebalance {dead}" in g for g, _ in groups)
+
+
+# ------------------------------------------------------- trace analysis
+@pytest.mark.parametrize("mode", ["issue_order", "concurrent"])
+@pytest.mark.parametrize("kind", ["gemm", "cholesky"])
+def test_from_spans_places_card_spans(card, kind, mode):
+    """A warm run's CUDA-event spans, in either executor mode, place every
+    op in its schedule stream's issue order (``concurrent`` spreads a
+    schedule stream over engine streams; each op still starts after its
+    stream predecessor's completion event) and the attribution tiles the
+    spans' window, with bytes, flops and ops equal to ``schedule_stats``
+    and a launch per ``dgemm`` op."""
+    from repro_torch.obs.analyze import TraceAnalysis
+
+    if kind == "gemm":
+        A, B, C = _inputs(21, 1024, 768, 512)
+        part = T.plan_gemm_partition(1024, 768, 512,
+                                     (A.nbytes + B.nbytes + C.nbytes) // 4,
+                                     4)
+        sched = T.build_gemm_schedule(part, nstreams=2, nbuf=2)
+        args = ({"A": A, "B": B}, lambda: {"C": torch.from_numpy(C.copy())},
+                {"alpha": 1.5, "beta": 0.5})
+    else:
+        n, panel = 1024, 256
+        spec = T.factor_pipeline_spec(n, panel, 3 * n * panel * 4 * 2, 4,
+                                      kind="cholesky", lookahead=1, nbuf=2)
+        sched = T.compile_factor_pipeline(spec, nstreams=2, nbuf=2)
+        A = torch.from_numpy(_factor_input("cholesky", n, 22))
+        args = ({}, lambda: {"A": A.clone()},
+                {"alpha": -1.0, "beta": 1.0, "panel": spec.panel,
+                 "n": spec.n})
+    ex = T.ScheduleExecutor(mode=mode, record_spans=True)
+    operands, outputs, ctx = args
+    ex.run(sched, operands, outputs(), ctx)
+    before = block_matmul.launches
+    ex.run(sched, operands, outputs(), ctx)
+    assert block_matmul.launches - before == sum(
+        1 for op in sched.ops if op.kind == T.OpKind.COMPUTE
+        and op.payload.kernel == "dgemm")
+    spans = ex.last_spans
+    assert [s[0] for s in spans] == [op.tag for op in sched.ops]
+    for si in range(len(sched.streams)):
+        mine = [s for s in spans if s[1] == si]
+        assert [s[0] for s in sorted(mine, key=lambda s: (s[2], s[3]))] \
+            == [s[0] for s in mine]
+    ana = TraceAnalysis.from_spans(sched, spans)
+    st = T.schedule_stats(sched)
+    assert (ana.n_ops, ana.h2d_bytes, ana.d2h_bytes, ana.flops) == (
+        st["n_ops"], st["h2d_bytes"], st["d2h_bytes"], st["flops"])
+    assert ana.path[0].start == ana.origin == min(s[2] for s in spans)
+    assert ana.path[-1].end == ana.makespan == max(s[3] for s in spans)
+    assert all(a.end == b.start for a, b in zip(ana.path, ana.path[1:]))
+    assert sum(s.duration for s in ana.path) == pytest.approx(
+        ana.makespan - ana.origin, abs=ana.tolerance)
+    assert ana.verdict in ("transfer-bound", "compute-bound",
+                           "dependency-bound")

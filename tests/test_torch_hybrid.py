@@ -424,14 +424,28 @@ def test_factory_rejects_unknown_tier():
 
 
 # ------------------------------------------------- port-side: what it adds
-def test_analysis_waits_for_item_9():
+def test_hybrid_analysis_is_ported():
+    """``HybridAnalysis`` and ``analyze_hybrid`` live in the executor
+    module, outside the package's ``__all__``, as in the reference, and
+    attribute a plan as the reference does (``tests/test_torch_analyze.py``
+    holds the documents equal on the reference tests' pair)."""
+    import repro.hybrid.executor as RE
     import repro_torch.hybrid.executor as E
 
-    for name in ("HybridAnalysis", "analyze_hybrid"):
-        with pytest.raises(NotImplementedError, match="item 9"):
-            getattr(E, name)
-        assert name not in TH.__all__
     assert TH.__all__ == RH.__all__
+    for name in ("HybridAnalysis", "analyze_hybrid"):
+        assert callable(getattr(E, name)) and callable(getattr(RE, name))
+        assert name not in TH.__all__
+    m = 512
+    budget = (3 * m * m * 4) // 2
+    tp = TH.plan_hybrid_gemm(m, m, m, _devices(budget), dtype="float32",
+                             **FAST)
+    rp = RH.plan_hybrid_gemm(m, m, m, _devices(budget, mod=RH),
+                             dtype="float32", **FAST)
+    _same_plan(tp, rp)
+    ta, ra = E.analyze_hybrid(tp), RE.analyze_hybrid(rp)
+    assert isinstance(ta, E.HybridAnalysis)
+    assert ta.to_json() == ra.to_json()
 
 
 def test_launch_counts_exact_under_two_member_threads(monkeypatch):

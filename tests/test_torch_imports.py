@@ -38,7 +38,10 @@ assert {"repro_torch.fault." + m for m in ("errors", "plan", "policy",
 assert {"repro_torch.hybrid." + m for m in ("balance", "plan",
         "executor")} <= set(sys.modules)
 assert {"repro_torch.examples." + m for m in ("hybrid_gemm",
-        "faulty_gemm")} <= set(sys.modules)
+        "faulty_gemm", "observed_gemm")} <= set(sys.modules)
+assert {"repro_torch.obs.analyze", "repro_torch.obs.whatif",
+        "repro_torch.scripts.export_trace",
+        "repro_torch.scripts.run_report"} <= set(sys.modules)
 """
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT,
@@ -147,6 +150,48 @@ def test_hybrid_examples_need_a_card_without_cpu_flag(no_card, name,
     assert res.returncode != 0
     assert "no CUDA device" in res.stderr
     assert "OK" not in res.stdout
+
+
+@pytest.mark.parametrize("args", [
+    ["repro_torch.examples.observed_gemm"],
+    ["repro_torch.scripts.export_trace", "--mode", "exec", "--M", "64",
+     "--N", "64", "--K", "64", "--budget-mb", "0.05"],
+    ["repro_torch.scripts.run_report", "--check"]],
+    ids=["observed_gemm", "export_trace", "run_report"])
+def test_analysis_tools_need_a_card_without_cpu_flag(no_card, args,
+                                                     tmp_path):
+    """The example and the two scripts that run kernels raise without a
+    card unless ``--cpu`` is given: no fallback to the host."""
+    res = subprocess.run(
+        [sys.executable, "-m", *args], capture_output=True, text=True,
+        cwd=tmp_path, timeout=240,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
+             "OMP_NUM_THREADS": "1"})
+    assert res.returncode != 0
+    assert "no CUDA device" in res.stderr
+    assert "OK" not in res.stdout and "passed" not in res.stdout
+    assert not (tmp_path / "trace.json").exists()
+
+
+def test_analysis_needs_no_core_at_import():
+    """``repro_torch.obs`` resolves the analysis exports lazily (the core
+    runtime imports the package first), and they no longer raise."""
+    code = """
+import sys
+import repro_torch.obs as O
+assert "repro_torch.obs.analyze" not in sys.modules
+assert O.TraceAnalysis.__module__ == "repro_torch.obs.analyze"
+assert O.WhatIfReport.__module__ == "repro_torch.obs.whatif"
+assert callable(O.__getattr__("whatif"))
+from repro_torch.core.api import hclTraceAnalysis
+from repro_torch.hybrid.executor import HybridAnalysis, analyze_hybrid
+import repro_torch.core.runtime as rt
+assert set(rt.NOT_PORTED) == {"MESH"}, rt.NOT_PORTED
+"""
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT, timeout=120,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")})
+    assert res.returncode == 0, res.stderr
 
 
 def test_chip_smoke_fails_without_a_card(no_card, tmp_path):
