@@ -52,8 +52,10 @@ printing any result.  Phases (each raises on failure; none is skipped):
      version and one library call in the same dtype: kernel 1 in f32, bf16
      and f16 (beside ``torch.addmm``; in bf16 also with A off 16 bytes, the
      element-copy route, bit for bit equal to the TMA route), kernel 2's
-     partial and combine passes apart, kernel 3 in f32 and bf16 in turns
-     with kernel 1;
+     partial and combine passes apart (at phase 6's block, at decode_32k's
+     batch and at phase 14's decode step, q in bf16 and 528 of 544
+     positions valid; run after phase 14), kernel 3 in f32 and bf16 in
+     turns with kernel 1;
   9. the fourth path, the factorizations (``[factor]`` lines; run after
      phase 7, before phase 8): ``ooc_cholesky`` and ``ooc_lu`` at
      n = 24576 f32 under 1 GiB (panel 2048, lookahead 1), through the entry
@@ -149,6 +151,29 @@ printing any result.  Phases (each raises on failure; none is skipped):
      bf16 MMOOC ``concurrent`` call: kernel 1's device time beside the
      attribution's compute busy time, the call's Chrome trace written to
      ``chiprun_out/analyze_bf16_concurrent_trace.json``.
+ 14. the model zoo's serving path (``[serve]`` lines; after phase 13 has
+     freed the earlier phases' tensors, each model freed before the
+     next), at full width with random weights from the seed: (a)
+     llama3.2-3b in float32, 28 layers, prefill of 2 x 64 tokens then 32
+     teacher-forced decode steps, each step's logits within 2e-3 of
+     ``forward``'s, kernel 2's passes launched 28 x 32 times each; (b) one
+     bf16 decode step's attention inputs at layers 0 and 27 through kernel
+     2 against its plain version and the plain mirror of the reference's
+     ``decode_attention`` (phase 2's bf16 tolerance) and, with q in
+     float32, at phase 6's 2e-4; (c) ``launch/serve.main`` on llama3.2-3b
+     bf16 (batch 4, prompt 512, gen 32) and (d) on qwen2.5-3b (the same)
+     and deepseek-moe-16b (batch 4, prompt 128, gen 8): prefill and
+     decode times, tok/s, the step beside its weight-bytes floor at the
+     data sheet's HBM rate, ``torch.profiler`` over a few more decode
+     steps (device busy time, device ops and kernel 2's time per step),
+     peak device memory against weights + cache, cudaMalloc calls over
+     the decode loop, kernel 2's launches (layers x decode steps), one
+     more decode step's kernel-2 inputs at the first and last layer held
+     as in (b), and, for the MoE model, the share of expert assignments
+     the capacity dropped, with what decides it: the plain capacity rule
+     must keep the same assignments in every prefill layer, layer 0 routed
+     on the CPU, on i.i.d. inputs and on the bare embeddings, and how
+     alike a group's MoE inputs are.
 
 With ``--baseline DIR`` (another checkout, e.g. ``git archive`` of the
 parent commit unpacked into a directory ``.gitignore`` lists), phase 5 is
@@ -3057,26 +3082,39 @@ def phase_timing_attention(gen, report, card):
     H = hkv * G
     shapes = []
     saved = (kfa.flash_partial.launches, kfa.flash_combine.launches)
-    for name, B, S in (("main path block", 1, 65536),
-                       ("decode_32k at B/4", 32, 32768)):
-        q = rand((B, H, d), gen)
+    # (name, B, cache positions S, valid length L, q's dtype); the last is
+    # phase 14's decode step (llama3.2-3b bf16 at batch 4, prompt 512,
+    # gen 32: a 544-position cache, 528 valid at the middle step)
+    for name, B, S, L, qdt in (
+            ("main path block", 1, 65536, 65536, torch.float32),
+            ("decode_32k at B/4", 32, 32768, 32768, torch.float32),
+            ("serve decode step", 4, 544, 528, torch.bfloat16)):
+        q = rand((B, H, d), gen, qdt)
         k, v = (rand((B, S, hkv, d), gen, torch.bfloat16) for _ in range(2))
-        length = torch.full((B,), S, dtype=torch.int32, device="cuda")
+        length = torch.full((B,), L, dtype=torch.int32, device="cuda")
         out = kfa.flash_decode_attention(q, k, v, length)
         ms = time_ms(lambda: kfa.flash_decode_attention(q, k, v, length),
                      reps=20, warmup=2)
         partial_ms = time_ms(lambda: kfa.flash_partial(q, k, v, length),
                              reps=20, warmup=2)
         ref = kfa.flash_decode_attention_plain(q, k, v, length)
-        err = (out - ref).abs().max().item()
-        require(err <= 2e-4, f"timing {name}: kernel vs plain max err {err}")
+        diff = (out.float() - ref.float()).abs()
+        err = diff.max().item()
+        if qdt == torch.float32:
+            require(err <= 2e-4, f"timing {name}: kernel vs plain max err "
+                                 f"{err}")
+        else:       # a 16-bit output: phase 2's tolerance for its dtype
+            tol = ATTN_TOL[qdt]
+            require(bool((diff <= tol + tol * ref.float().abs()).all()),
+                    f"timing {name}: kernel vs plain max err {err} beyond "
+                    f"rtol=atol={tol}")
         plain_ms = time_ms(lambda: kfa.flash_decode_attention_plain(
             q, k, v, length), reps=3)
         del ref
         # the library yardstick: SDPA with GQA on the same K/V (as views in
         # its (B, heads, S, d) layout) and q in their dtype
         qs = q.to(torch.bfloat16)[:, :, None]
-        ks, vs = k.transpose(1, 2), v.transpose(1, 2)
+        ks, vs = k[:, :L].transpose(1, 2), v[:, :L].transpose(1, 2)
         sdpa = torch.nn.functional.scaled_dot_product_attention
         choice = getattr(torch, "_fused_sdp_choice", None)
         backend = "not reported"
@@ -3084,18 +3122,20 @@ def phase_timing_attention(gen, report, card):
             from torch.nn.attention import SDPBackend
             backend = SDPBackend(choice(qs, ks, vs, enable_gqa=True)).name
         lib_out = sdpa(qs, ks, vs, enable_gqa=True)[:, :, 0]
-        lib_err = (lib_out.float() - out).abs().max().item()
+        lib_err = (lib_out.float() - out.float()).abs().max().item()
         library_ms = time_ms(lambda: sdpa(qs, ks, vs, enable_gqa=True),
                              reps=20, warmup=2)
         del lib_out
-        nbytes = 2 * k.numel() * k.element_size() + q.numel() * 4 \
-            + out.numel() * 4 + length.numel() * 4
-        flops = 4 * B * H * S * d
+        # what the call needs: the valid K/V positions, q, out and length
+        kv_bytes = 2 * B * L * hkv * d * k.element_size()
+        nbytes = kv_bytes + q.numel() * q.element_size() \
+            + out.numel() * out.element_size() + length.numel() * 4
+        flops = 4 * B * H * L * d
         t_bytes = nbytes / peak_bw * 1e3
         t_ops = flops / peak_flops * 1e3
-        kv_bytes = 2 * k.numel() * k.element_size()
-        row = {"shape": name, "B": B, "S": S, "Hkv": hkv, "G": G, "d": d,
-               "kv_dtype": "bfloat16", "ms": ms, "partial_ms": partial_ms,
+        row = {"shape": name, "B": B, "S": S, "L": L, "Hkv": hkv, "G": G,
+               "d": d, "kv_dtype": "bfloat16", "q_dtype": str(qdt)[6:],
+               "ms": ms, "partial_ms": partial_ms,
                "combine_ms": ms - partial_ms,
                "gbps": nbytes / ms / 1e6,
                "partial_kv_gbps": kv_bytes / partial_ms / 1e6,
@@ -3105,8 +3145,9 @@ def phase_timing_attention(gen, report, card):
                "bound_by": "bytes" if t_bytes >= t_ops else "operations",
                "max_abs_err": err}
         shapes.append(row)
-        say("timing", f"flash_attention {name} (B={B}, S={S}, Hkv={hkv}, "
-                      f"G={G}, d={d}, bf16 KV): {ms:.4f} ms/call (partial "
+        say("timing", f"flash_attention {name} (B={B}, S={S}, {L} valid, "
+                      f"Hkv={hkv}, G={G}, d={d}, bf16 KV, q "
+                      f"{str(qdt)[6:]}): {ms:.4f} ms/call (partial "
                       f"pass {partial_ms:.4f} ms at "
                       f"{row['partial_kv_gbps']:.0f} GB/s of K and V, "
                       f"combine {row['combine_ms']:.4f} ms), "
@@ -3230,6 +3271,19 @@ def launches_of(report, paths, dt):
     return {"launches": sum(by_path.values()), "launches_by_path": by_path}
 
 
+# phase 14 (the serving path):
+# part (a): llama3.2-3b in float32 at full depth, teacher-forced: batch,
+# prompt, max_len (= prompt + decode steps)
+SERVE_F32 = ("llama3.2-3b", 2, 64, 96)
+# parts (c)-(d): launch/serve.main in bf16: arch, batch, prompt, gen
+SERVE_CASES = (("llama3.2-3b", 4, 512, 32), ("qwen2.5-3b", 4, 512, 32),
+               ("deepseek-moe-16b", 4, 128, 8))
+# the decode paths that launch kernel 2, each driven with its counts at 0
+SERVE_PATHS = ("serve_llama3.2-3b_f32",) + tuple(
+    f"serve_{arch}" for arch, *_ in SERVE_CASES)
+DECODE_TOL = 2e-3          # tests/test_models.py's decode vs forward
+PROFILE_STEPS = 8          # decode steps under torch.profiler
+
 # the paths that launch kernel 1, each driven with its counts set to 0
 BLOCK_MATMUL_PATHS = ("host", "in_core", "vmem", "syrk_host", "direct_host",
                       "host_bf16", "in_core_bf16", "cholesky", "lu",
@@ -3242,7 +3296,7 @@ BLOCK_MATMUL_PATHS = ("host", "in_core", "vmem", "syrk_host", "direct_host",
                       "hybrid_cholesky") + ANALYZE_K1
 # the paths that launch kernel 2
 ATTENTION_PATHS = ("attention", "attention_f32", "tune_attention",
-                   "hybrid_attention") + ANALYZE_K2
+                   "hybrid_attention") + ANALYZE_K2 + SERVE_PATHS
 
 
 def phase_timing(gen, report, card):
@@ -3495,6 +3549,507 @@ def phase_baseline(gen, report, card, base, A, B, C, params):
                           "rows": rows}
 
 
+# ---------------------------------------------------------------------------
+# Phase 14: the model zoo's serving path ([serve] lines)
+# ---------------------------------------------------------------------------
+
+
+def free_card():
+    """Hands the memory the last part freed back from PyTorch's allocator
+    pool to the card, so the next model starts from an empty pool."""
+    import gc
+
+    gc.collect()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def param_bytes(model):
+    return sum(p.numel() * p.element_size() for p in model.parameters())
+
+
+def cache_bytes(cache):
+    return sum(cache[k].numel() * cache[k].element_size() for k in ("k", "v"))
+
+
+def serve_teacher_forced(report, card):
+    """(a) llama3.2-3b f32, 28 layers: prefill 64 tokens with room for 96,
+    then 32 teacher-forced decode steps, each step's logits within 2e-3 of
+    ``forward``'s at that position; kernel 2's passes launch once per
+    layer and step."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.models import get_model
+
+    arch, B, P, S = SERVE_F32
+    cfg = get_arch(arch).replace(param_dtype="float32", act_dtype="float32")
+    t0 = time.perf_counter()
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    model = get_model(cfg).init(gen)
+    toks = torch.randint(0, cfg.vocab_size, (B, S), generator=gen,
+                         device="cuda")
+    torch.cuda.synchronize()
+    t_init = time.perf_counter() - t0
+    full = model.forward(toks)                                  # (B, S, V)
+    steps = S - P
+    kfa.flash_partial.launches = kfa.flash_combine.launches = 0
+    t0 = time.perf_counter()
+    logits, cache = model.prefill(toks[:, :P], max_len=S)
+    torch.cuda.synchronize()
+    t_prefill = time.perf_counter() - t0
+    errs = [(logits - full[:, P - 1]).abs().max()]
+    excess = [((logits - full[:, P - 1]).abs()
+               - DECODE_TOL * full[:, P - 1].abs()).max()]
+    t0 = time.perf_counter()
+    for i in range(P, S):
+        logits, cache = model.decode(cache, toks[:, i])
+        diff = (logits - full[:, i]).abs()
+        errs.append(diff.max())
+        excess.append((diff - DECODE_TOL * full[:, i].abs()).max())
+    torch.cuda.synchronize()
+    t_decode = time.perf_counter() - t0
+    n_part, n_comb = kfa.flash_partial.launches, kfa.flash_combine.launches
+    report["launches"][SERVE_PATHS[0]] = {"partial": n_part,
+                                          "combine": n_comb}
+    expect = cfg.num_layers * steps
+    require(n_part == expect and n_comb == expect,
+            f"serve f32: {n_part} partial / {n_comb} combine launches, "
+            f"expected {expect} each (layers x steps)")
+    errs = torch.stack(errs).tolist()
+    worst_excess = torch.stack(excess).max().item()
+    require(worst_excess <= DECODE_TOL and all(map(math.isfinite, errs)),
+            f"serve f32: decode logits beyond rtol=atol={DECODE_TOL} of "
+            f"forward's (max abs errs {errs})")
+    require(cache["len"].tolist() == [S] * B,
+            f"serve f32: cache length {cache['len'].tolist()}, expected {S}")
+    row = {"part": "a", "arch": arch, "dtype": "float32", "B": B,
+           "prompt": P, "steps": steps, "layers": cfg.num_layers,
+           "param_bytes": param_bytes(model), "init_s": t_init,
+           "prefill_s": t_prefill, "decode_step_ms": t_decode / steps * 1e3,
+           "max_abs_err_prefill": errs[0], "max_abs_err_decode": max(errs[1:]),
+           "launches": {"partial": n_part, "combine": n_comb}}
+    report["serve"].append(row)
+    say("serve", f"(a) {arch} f32, {cfg.num_layers} layers "
+                 f"({row['param_bytes'] / 1e9:.2f} GB of weights, drawn "
+                 f"from seed {SEED} in {t_init:.1f} s): prefill B={B} x {P} "
+                 f"tokens {t_prefill * 1e3:.1f} ms, {steps} teacher-forced "
+                 f"decode steps at {row['decode_step_ms']:.2f} ms each; "
+                 f"logits vs forward max abs err {errs[0]:.3g} (prefill), "
+                 f"{max(errs[1:]):.3g} (decode), within rtol=atol="
+                 f"{DECODE_TOL}; kernel 2 launched {n_part} partial + "
+                 f"{n_comb} combine = {cfg.num_layers} layers x {steps} "
+                 f"steps each; card {card}")
+    del model, full, cache, logits, toks
+
+
+def decode_step_kernel2_inputs(model, cache, tok):
+    """One ``model.decode`` step with kernel 2's wrapper watched: returns
+    the step's logits and cache and, by layer, kernel 2's inputs (q, K, V,
+    length) at the first and the last layer, cloned."""
+    from repro_torch.kernels import ops as kops
+
+    real, calls = kops.flash_decode_attention, []
+
+    def capture(q, k, v, length, **kw):
+        if len(calls) > 1:
+            calls[-1] = None            # keep the first and the latest layer
+        calls.append((q.clone(), k.clone(), v.clone(), length.clone()))
+        return real(q, k, v, length, **kw)
+
+    kops.flash_decode_attention = capture
+    try:
+        logits, cache = model.decode(cache, tok)
+    finally:
+        kops.flash_decode_attention = real
+    require(len(calls) == model.cfg.num_layers,
+            f"serve {model.cfg.name}: {len(calls)} decode attention calls in "
+            f"one step, expected {model.cfg.num_layers}")
+    return logits, cache, {0: calls[0], len(calls) - 1: calls[-1]}
+
+
+def kernel2_vs_plain(tag, q, k, v, length):
+    """Kernel 2 on one layer's decode inputs against its plain version and
+    the plain mirror of the reference's ``decode_attention`` (q as the model
+    gives it, bf16: phase 2's bf16 tolerance), and with q in float32
+    against the plain version at phase 6's 2e-4.  The launches made here
+    are not the path's: the counts are put back."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.models import layers as TL
+
+    saved = (kfa.flash_partial.launches, kfa.flash_combine.launches)
+    tol = ATTN_TOL[q.dtype]
+    out = kfa.flash_decode_attention(q, k, v, length)
+    plain = kfa.flash_decode_attention_plain(q, k, v, length)
+    mirror = TL.decode_attention(q, k, v, length)
+    out32 = kfa.flash_decode_attention(q.float(), k, v, length)
+    plain32 = kfa.flash_decode_attention_plain(q.float(), k, v, length)
+    kfa.flash_partial.launches, kfa.flash_combine.launches = saved
+    errs = {}
+    for name, a, b, lim in (("plain", out, plain, tol),
+                            ("mirror", out, mirror, tol),
+                            ("plain_q_f32", out32, plain32, 2e-4)):
+        diff = (a.float() - b.float()).abs()
+        require(a.dtype == b.dtype and bool(
+            (diff <= lim + lim * b.float().abs()).all()),
+            f"{tag}: kernel 2 vs {name} max err {diff.max().item()} beyond "
+            f"rtol=atol={lim}")
+        errs[name] = diff.max().item()
+    return errs
+
+
+def kernel2_rows(arch, calls, card, part):
+    """:func:`kernel2_vs_plain` at each captured layer: its rows and one
+    ``[serve]`` line each."""
+    rows = []
+    for layer, (q, k, v, length) in calls.items():
+        errs = kernel2_vs_plain(f"serve {arch} layer {layer}", q, k, v,
+                                length)
+        rows.append({"layer": layer, "q": list(q.shape), "kv": list(k.shape),
+                     "length": length.tolist(), **{
+                         f"max_abs_err_{k_}": e for k_, e in errs.items()}})
+        say("serve", f"({part}) {arch} bf16 decode step, layer {layer}: q "
+                     f"{tuple(q.shape)} {str(q.dtype)[6:]}, K/V "
+                     f"{tuple(k.shape)} {str(k.dtype)[6:]}, length "
+                     f"{length.tolist()}: kernel 2 vs plain max err "
+                     f"{errs['plain']:.3g}, vs the reference's rounding "
+                     f"(plain mirror) {errs['mirror']:.3g} (rtol=atol="
+                     f"{ATTN_TOL[q.dtype]}); with q in f32 vs plain "
+                     f"{errs['plain_q_f32']:.3g} (2e-4); card {card}")
+    return rows
+
+
+def serve_kernel_vs_plain(report, card):
+    """(b) One bf16 decode step of llama3.2-3b (B 2, 65 of 96 positions):
+    kernel 2 against its plain versions at layers 0 and 27
+    (:func:`kernel2_vs_plain`)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.models import get_model
+
+    saved = (kfa.flash_partial.launches, kfa.flash_combine.launches)
+    cfg = get_arch("llama3.2-3b")
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 1)
+    model = get_model(cfg).init(gen)
+    toks = torch.randint(0, cfg.vocab_size, (2, 65), generator=gen,
+                         device="cuda")
+    _, cache = model.prefill(toks[:, :64], max_len=96)
+    _, _, calls = decode_step_kernel2_inputs(model, cache, toks[:, 64])
+    del model, cache
+    kfa.flash_partial.launches, kfa.flash_combine.launches = saved
+    report["serve"].append({"part": "b", "arch": "llama3.2-3b",
+                            "dtype": "bfloat16",
+                            "layers": kernel2_rows("llama3.2-3b", calls,
+                                                   card, "b")})
+
+
+def plain_kept(eidx, C, E):
+    """The capacity rule written plainly: assignment (token t, its j-th
+    expert) keeps a slot iff fewer than ``C`` of its group's assignments
+    before it, in (token, choice) order, went to the same expert.
+    eidx (G, Tg, k) -> kept (G, Tg, k) bool."""
+    G, Tg, k = eidx.shape
+    onehot = torch.nn.functional.one_hot(eidx.reshape(G, Tg * k).long(), E)
+    before = ((onehot.cumsum(1) - onehot) * onehot).sum(-1)
+    return (before < C).reshape(G, Tg, k)
+
+
+def route_plain(x, router, top_k, cf, groups):
+    """The router's top-k on x (B, S, D), as ``moe_apply`` picks them, on
+    x's device; then :func:`plain_kept` on the CPU.  Returns kept."""
+    B, S, D = x.shape
+    G = groups or B
+    Tg, E = B * S // G, router.shape[1]
+    C = min(-(-math.ceil(Tg * top_k / E * cf) // 16) * 16, Tg * top_k)
+    logits = x.reshape(G, Tg, D).float() @ router.float()
+    eidx = torch.topk(torch.softmax(logits, dim=-1), top_k, dim=-1).indices
+    return plain_kept(eidx.cpu(), C, E)
+
+
+def moe_witness(model, prompts, inputs, kept):
+    """What decides the prefill's capacity drops.  ``inputs`` holds each
+    layer's (router, MoE input, groups) from the prefill, ``kept`` the
+    port's kept masks.  (i) The plain capacity rule on the card's own
+    top-k must give every layer's kept mask exactly; (ii) layer 0 routed
+    wholly on the CPU (float32 router product) gives the same drop share;
+    (iii) layer 0's router on other inputs of the same shape: i.i.d.
+    N(0, 1) rows, and the prompts' own embeddings under layer 0's
+    ``mlp_norm``; (iv) how alike a group's MoE inputs are (cosine of each
+    token's to its group's mean) and how much of layer 0's input is the
+    token's embedding (cosine of the two)."""
+    from repro_torch.models import layers as TL
+
+    cfg = model.cfg
+    k, cf = cfg.num_experts_per_tok, cfg.capacity_factor
+
+    def share(m):
+        return 1.0 - m.float().mean().item()
+
+    for i, ((router, x, groups), kp) in enumerate(zip(inputs, kept)):
+        plain = route_plain(x, router, k, cf, groups)
+        require(torch.equal(plain, kp.cpu()),
+                f"serve {cfg.name} layer {i}: the port's capacity dispatch "
+                f"kept {int(kp.sum())} assignments, the plain rule "
+                f"{int(plain.sum())}, {int((plain != kp.cpu()).sum())} differ")
+    router, x, groups = inputs[0]
+    cpu = route_plain(x.cpu(), router.cpu(), k, cf, groups)
+    differ = int((cpu != kept[0].cpu()).sum())
+    require(abs(share(cpu) - share(kept[0])) <= 0.01,
+            f"serve {cfg.name} layer 0: drop share {share(cpu):.4f} routed "
+            f"on the CPU against {share(kept[0]):.4f} on the card")
+    noise = torch.randn(x.shape, generator=torch.Generator().manual_seed(
+        SEED))
+    emb = TL.rms_norm(model.top["embed"][prompts].to(cfg.adtype),
+                      model.layers[0]["mlp_norm"], cfg.norm_eps)
+
+    def cos_group(x):
+        G = groups or x.shape[0]
+        xg = x.float().reshape(G, -1, x.shape[-1])
+        return torch.nn.functional.cosine_similarity(
+            xg, xg.mean(1, keepdim=True), dim=-1).mean().item()
+
+    return {"plain_rule_layers": len(inputs),
+            "dropped_layer0_cpu": share(cpu), "layer0_cpu_differ": differ,
+            "dropped_layer0_iid": share(route_plain(noise, router.cpu(), k,
+                                                    cf, groups)),
+            "dropped_layer0_embed": share(route_plain(emb, router, k, cf,
+                                                      groups)),
+            "cos_group_mean_layer0": cos_group(x),
+            "cos_group_mean_last": cos_group(inputs[-1][1]),
+            "cos_group_mean_embed": cos_group(emb),
+            "cos_layer0_embed": torch.nn.functional.cosine_similarity(
+                x.float(), emb.float(), dim=-1).mean().item()}
+
+
+def profile_decode(model, prompts, gen, card):
+    """The prefill and the first ``PROFILE_STEPS`` decode steps of
+    ``serve.generate`` once more, the steps under ``torch.profiler`` (CUDA
+    activity only, so the trace stays small): device time and kernels per
+    step, in all and in kernel 2's two passes.  One more decode step then
+    holds kernel 2 against its plain versions at the first and the last
+    layer (:func:`kernel2_rows`).  For an MoE model, the share of
+    assignments the capacity dropped in the prefill and in those steps, and
+    :func:`moe_witness` on the prefill's."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.models import moe as M
+
+    cfg = model.cfg
+    real, kept, inputs = M.moe_apply, [], []
+
+    def counted(p, x, **kw):
+        stats = {}
+        y = real(p, x, stats=stats, **kw)
+        kept.append(stats["kept"])
+        if len(inputs) < cfg.num_layers:            # the prefill's layers
+            inputs.append((p["router"], x.clone(), kw.get("groups")))
+        return y
+
+    M.moe_apply = counted
+    try:
+        logits, cache = model.prefill(prompts, max_len=prompts.shape[1] + gen)
+        n_prefill = len(kept)
+        tok = logits.argmax(-1)
+        torch.cuda.synchronize()
+        steps = min(gen - 1, PROFILE_STEPS)
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+            for _ in range(steps):
+                logits, cache = model.decode(cache, tok)
+                tok = logits.argmax(-1)
+            torch.cuda.synchronize()
+        _, cache, calls = decode_step_kernel2_inputs(model, cache, tok)
+    finally:
+        M.moe_apply = real
+    require(not cfg.is_moe or len(kept) == cfg.num_layers * (steps + 2),
+            f"serve {cfg.name}: moe_apply ran {len(kept)} times, expected "
+            f"{cfg.num_layers} layers x (prefill + {steps + 1} steps)")
+    dev_us = k2_us = 0.0
+    n_events = k2_calls = 0
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        t = getattr(evt, "self_device_time_total", None)
+        if t is None:
+            t = evt.self_cuda_time_total
+        dev_us += t
+        n_events += evt.count
+        if "flash_partial_kernel" in evt.key or \
+                "flash_combine_kernel" in evt.key:
+            k2_us += t
+            k2_calls += evt.count
+    out = {"profiled_steps": steps,
+           "device_ms_per_step": dev_us / steps / 1e3,
+           "device_events_per_step": n_events / steps,
+           "kernel2_ms_per_step": k2_us / steps / 1e3,
+           "kernel2_events": k2_calls,
+           "kernel2_vs_plain": kernel2_rows(cfg.name, calls, card, "c" if
+                                            cfg.name == "llama3.2-3b" else
+                                            "d")}
+    if kept:
+        def dropped(ks):
+            n = sum(k.numel() for k in ks)
+            return 1.0 - sum(int(k.sum()) for k in ks) / n
+        out["dropped_prefill"] = dropped(kept[:n_prefill])
+        out["dropped_decode"] = dropped(kept[n_prefill:])
+        out["dropped_prefill_by_layer"] = [dropped([k])
+                                           for k in kept[:n_prefill]]
+        out["moe_witness"] = moe_witness(model, prompts, inputs,
+                                         kept[:n_prefill])
+    return out
+
+
+def dispatch_us(n=2000):
+    """Host time of one small CUDA op on this machine: ``n`` in-place adds
+    on a 4-element tensor issued back to back, wall over ``n`` (the card
+    finishes each long before the next arrives)."""
+    t = torch.zeros(4, device="cuda")
+    for _ in range(100):
+        t.add_(1.0)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(n):
+        t.add_(1.0)
+    torch.cuda.synchronize()
+    return (time.perf_counter() - t0) / n * 1e6
+
+
+def serve_main_case(report, card, arch, batch, prompt, gen, key, op_us):
+    """(c)/(d) ``launch/serve.main`` in bf16 at full width and depth;
+    ``op_us`` is the host time of one small CUDA op (:func:`dispatch_us`)."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.launch import serve
+
+    _, peak_bw = datasheet(torch.cuda.get_device_name(0))
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    kfa.flash_partial.launches = kfa.flash_combine.launches = 0
+    t0 = time.perf_counter()
+    res = serve.main(["--arch", arch, "--batch", str(batch), "--prompt-len",
+                      str(prompt), "--gen", str(gen), "--seed", str(SEED),
+                      "--device", "cuda"])
+    t_main = time.perf_counter() - t0
+    n_part, n_comb = kfa.flash_partial.launches, kfa.flash_combine.launches
+    report["launches"][key] = {"partial": n_part, "combine": n_comb}
+    peak = torch.cuda.max_memory_allocated() - base
+    model, cache = res["model"], res["cache"]
+    cfg = model.cfg
+    expect = cfg.num_layers * (gen - 1)
+    require(n_part == expect and n_comb == expect,
+            f"serve {arch}: {n_part} partial / {n_comb} combine launches, "
+            f"expected {expect} each (layers x decode steps)")
+    require(res["tokens"].shape == (batch, gen),
+            f"serve {arch}: tokens {res['tokens'].shape}")
+    pbytes, cbytes = param_bytes(model), cache_bytes(cache)
+    ebytes = model.top["embed"].numel() * model.top["embed"].element_size()
+    steps = gen - 1
+    step_ms = res["decode_s"] / steps * 1e3
+    # a step reads every weight but the embedding table (B rows of it) and
+    # the cache's valid K/V (mean length over the steps)
+    kv_read = cbytes // (prompt + gen) * (prompt + gen / 2)
+    floor_w_ms = pbytes / peak_bw * 1e3
+    floor_ms = (pbytes - ebytes + kv_read) / peak_bw * 1e3
+    t0 = time.perf_counter()
+    prof = profile_decode(model, res["prompts"], gen, card)
+    t_prof = time.perf_counter() - t0
+    row = {"part": "c" if arch == "llama3.2-3b" else "d", "arch": arch,
+           "dtype": str(cfg.adtype)[6:], "B": batch, "prompt": prompt,
+           "gen": gen, "layers": cfg.num_layers,
+           "prefill_ms": res["prefill_s"] * 1e3, "decode_ms":
+           res["decode_s"] * 1e3, "decode_step_ms": step_ms,
+           "tok_per_s": res["tput"], "param_bytes": pbytes,
+           "embed_bytes": ebytes, "cache_bytes": cbytes,
+           "floor_weights_ms": floor_w_ms, "floor_read_ms": floor_ms,
+           "peak_bytes": peak, "decode_mallocs": res["decode_mallocs"],
+           "launches": {"partial": n_part, "combine": n_comb},
+           "host_us_per_device_op": step_ms * 1e3
+           / prof["device_events_per_step"], "dispatch_us": op_us,
+           "main_s": t_main,
+           "profile_s": t_prof, **prof}
+    report["serve"].append(row)
+    drop = ""
+    if "dropped_prefill" in prof:
+        drop = (f"; capacity dropped {prof['dropped_prefill']:.2%} of the "
+                f"prefill's and {prof['dropped_decode']:.2%} of the decode "
+                f"steps' "
+                f"expert assignments (top-{cfg.num_experts_per_tok} of "
+                f"{cfg.num_experts}, capacity factor {cfg.capacity_factor};"
+                f" prefill by layer: first "
+                f"{prof['dropped_prefill_by_layer'][0]:.2%}, last "
+                f"{prof['dropped_prefill_by_layer'][-1]:.2%}, min "
+                f"{min(prof['dropped_prefill_by_layer']):.2%}, max "
+                f"{max(prof['dropped_prefill_by_layer']):.2%})")
+        w = prof["moe_witness"]
+        say("serve", f"(d) {arch} capacity drops: the plain capacity rule on "
+                     f"the card's top-k gave all {w['plain_rule_layers']} "
+                     f"prefill layers' kept sets exactly; layer 0 routed on "
+                     f"the CPU drops {w['dropped_layer0_cpu']:.2%} "
+                     f"({w['layer0_cpu_differ']} assignments differ from the "
+                     f"card's); layer 0's router drops "
+                     f"{w['dropped_layer0_iid']:.2%} of i.i.d. N(0, 1) "
+                     f"inputs and {w['dropped_layer0_embed']:.2%} of the "
+                     f"prompts' normed embeddings; cosine of a token's MoE "
+                     f"input to its group's mean: layer 0 "
+                     f"{w['cos_group_mean_layer0']:.3f}, last layer "
+                     f"{w['cos_group_mean_last']:.3f}, embeddings "
+                     f"{w['cos_group_mean_embed']:.3f}; of layer 0's input "
+                     f"to the token's own embedding "
+                     f"{w['cos_layer0_embed']:.3f}; card {card}")
+    say("serve", f"({row['part']}) launch/serve.main {arch} bf16, "
+                 f"{cfg.num_layers} layers, B={batch} prompt={prompt} "
+                 f"gen={gen}: prefill {row['prefill_ms']:.1f} ms, decode "
+                 f"{row['decode_ms']:.1f} ms = {step_ms:.3f} ms/step, "
+                 f"{res['tput']:.1f} tok/s; floor {floor_w_ms:.3f} ms/step "
+                 f"({pbytes / 1e9:.3f} GB of weights at "
+                 f"{peak_bw / 1e12:.2f} TB/s, data sheet), {floor_ms:.3f} "
+                 f"ms counting only what a step reads (no embedding table, "
+                 f"+ the valid K/V); measured step / weight floor "
+                 f"{step_ms / floor_w_ms:.2f}; torch.profiler over "
+                 f"{prof['profiled_steps']} more decode steps: device busy "
+                 f"{prof['device_ms_per_step']:.3f} ms/step "
+                 f"({prof['device_ms_per_step'] / step_ms:.1%} of the "
+                 f"measured step) in {prof['device_events_per_step']:.0f} "
+                 f"device ops, so {row['host_us_per_device_op']:.1f} us of "
+                 f"the step per op (one small op alone: {op_us:.1f} us); "
+                 f"kernel 2 "
+                 f"{prof['kernel2_ms_per_step']:.4f} ms/step "
+                 f"({prof['kernel2_ms_per_step'] / step_ms:.2%} of the "
+                 f"step, {prof['kernel2_events']} kernel events); peak "
+                 f"device memory {peak / 1e9:.3f} GB against weights + "
+                 f"cache {(pbytes + cbytes) / 1e9:.3f} GB; "
+                 f"{res['decode_mallocs']} cudaMallocs over the decode loop; "
+                 f"kernel 2 launched {n_part} + {n_comb} = {cfg.num_layers} "
+                 f"layers x {steps} steps each{drop}; serve.main took "
+                 f"{t_main:.1f} s, the profiled rerun {t_prof:.1f} s; card "
+                 f"{card}")
+    del res, model, cache
+
+
+def phase_serve(report, card):
+    """Phase 14: the model zoo's serving path at full width (parts a-d),
+    each model freed before the next."""
+    t0 = time.perf_counter()
+    op_us = dispatch_us()
+    say("serve", f"one small CUDA op (an in-place add on 4 elements, 2000 "
+                 f"back to back) takes {op_us:.2f} us of host time; card "
+                 f"{card}")
+    parts = [("a", lambda: serve_teacher_forced(report, card)),
+             ("b", lambda: serve_kernel_vs_plain(report, card))] + [
+        (arch, lambda c=case, k=key: serve_main_case(report, card, *c, k,
+                                                     op_us))
+        for case, key in zip(SERVE_CASES, SERVE_PATHS[1:])
+        for arch in case[:1]]
+    took = {}
+    for name, run in parts:
+        t1 = time.perf_counter()
+        free_card()
+        run()
+        took[name] = round(time.perf_counter() - t1, 1)
+    free_card()
+    say("serve", f"phase 14 took {time.perf_counter() - t0:.1f} s (by part "
+                 f"{json.dumps(took)})")
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -3515,7 +4070,7 @@ def main(argv=None) -> int:
     phase_kernels_direct(gen)
     report = {"main_path": [], "attention": [], "c1": [], "factor": [],
               "fault": [], "tune": [], "hybrid": [], "hybrid_plans": {},
-              "analyze": [],
+              "analyze": [], "serve": [],
               "factor_panel_ms": {}, "factor_dgemm_check": {},
               "launches": {}, "launches_by_dtype": {}}
     A, B, C, host_out, params = phase_main(gen, report)
@@ -3532,6 +4087,7 @@ def main(argv=None) -> int:
     phase_analyze(report, card, (A, B, C, host_out, params), bf16_io, syrk,
                   attn, factors, hplan, tuned)
     del A, B, C, host_out, syrk, attn, bf16_io, factors
+    phase_serve(report, card)
     entries = [*phase_timing(gen, report, card),
                phase_timing_attention(gen, report, card),
                phase_timing_direct(gen, report, card)]
@@ -3547,6 +4103,7 @@ def main(argv=None) -> int:
                       "hybrid": report["hybrid"],
                       "hybrid_plan_s": report["hybrid_plans"],
                       "analyze": report["analyze"],
+                      "serve": report["serve"],
                       "tune_calibration": report.get("tune_calibration"),
                       "tune_searches": report.get("tune_searches"),
                       "baseline": report.get("baseline"),

@@ -68,15 +68,17 @@ def not_ported(what: str) -> NotImplementedError:
     return NotImplementedError(f"not ported yet: {NOT_PORTED[what]}")
 
 
-def resolve_device(torch_device=None) -> torch.device:
+def resolve_device(torch_device=None, arg: str = "torch_device"
+                   ) -> torch.device:
     """The torch device an entry point runs on: CUDA unless the caller
     names another.  Raises when CUDA is asked for (explicitly or by
-    default) and no card is present — there is no silent CPU fallback."""
+    default) and no card is present — there is no silent CPU fallback;
+    the message names the caller's argument ``arg``."""
     dev = torch.device("cuda" if torch_device is None else torch_device)
     if dev.type == "cuda":
         if not torch.cuda.is_available():
             raise RuntimeError(
-                "no CUDA device is available; pass torch_device='cpu' to "
+                f"no CUDA device is available; pass {arg}='cpu' to "
                 "run the kernels' plain PyTorch versions on the host")
         if dev.index is None:
             dev = torch.device("cuda", torch.cuda.current_device())

@@ -1,7 +1,6 @@
 """Plain PyTorch oracles for the port's kernels (ground truth in tests).
 
-Port of ``src/repro/kernels/ref.py`` for the kernels of this slice;
-``causal_attention_ref`` waits for ROADMAP module item 12.
+Port of ``src/repro/kernels/ref.py``.
 """
 
 from __future__ import annotations
@@ -40,3 +39,21 @@ def decode_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                         s, -torch.inf)
     p = torch.softmax(s, dim=-1)
     return torch.einsum("bhs,bshd->bhd", p, vb).to(q.dtype)
+
+
+def causal_attention_ref(q: torch.Tensor, k: torch.Tensor,
+                         v: torch.Tensor) -> torch.Tensor:
+    """Full-sequence causal GQA attention oracle.
+
+    q: (B, S, H, d); k, v: (B, S, Hkv, d).  Returns (B, S, H, d) in q's
+    dtype.
+    """
+    B, S, H, d = q.shape
+    group = H // k.shape[2]
+    kb = k.float().repeat_interleave(group, dim=2)   # (B, S, H, d)
+    vb = v.float().repeat_interleave(group, dim=2)
+    s = torch.einsum("bqhd,bkhd->bhqk", q.float(), kb) / math.sqrt(d)
+    mask = torch.ones((S, S), dtype=torch.bool, device=q.device).tril()
+    s = torch.where(mask, s, -torch.inf)
+    p = torch.softmax(s, dim=-1)
+    return torch.einsum("bhqk,bkhd->bqhd", p, vb).to(q.dtype)

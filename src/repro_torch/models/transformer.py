@@ -1,0 +1,216 @@
+"""Transformer model: dense decoder, MoE decoder, encoder-only — one class.
+
+Port of ``src/repro/models/transformer.py``.  Covers the eight transformer
+archs (qwen2.5, codeqwen1.5, stablelm, llama3.2, the internvl2 backbone,
+the hubert encoder, qwen3-moe, deepseek-moe).  Each layer's parameters are
+an ``nn.ParameterDict`` in an ``nn.ModuleList`` and a Python loop runs them
+(the reference stacks the layers and scans them; ``remat`` and
+``scan_layers`` have no effect here).  Weights keep the reference's
+``(in, out)`` layout and are applied as ``x @ W``.
+
+API:
+  TransformerModel(cfg, device=None)  CUDA unless ``device`` names another;
+                                      raises without a card
+  init(generator) -> self             random weights drawn on the device
+  forward(inputs) -> logits (B, S, V)
+  init_cache(batch, max_len) -> {"k", "v": (L, B, Smax, Hkv, d), "len": (B,)}
+  prefill(inputs, max_len) -> (last-token logits, filled cache)
+  decode(cache, inputs) -> (logits, cache)
+
+Weights are loaded with ``init`` or ``models.convert.load_reference_params``
+and carry no gradient (training is ROADMAP module item 12c).  ``decode``
+writes the new token's K/V into the cache tensors in place and returns the
+cache with ``len`` advanced; each layer's decode attention is kernel 2 on a
+card.  The FSDP hook and the sharding specs (``weight_gather``,
+``*_logical_axes``, ``cache_specs``) wait for item 13.
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Optional, Tuple
+
+import torch
+from torch import nn
+
+from repro_torch.configs.base import ArchConfig
+from repro_torch.core.runtime import resolve_device
+from repro_torch.models import layers as L
+from repro_torch.models import moe as M
+
+Cache = Dict[str, torch.Tensor]
+
+
+def _param_dict(tree: Dict) -> nn.ParameterDict:
+    """A nested dict of tensors as (nested) ParameterDicts, no gradient."""
+    return nn.ParameterDict({
+        k: _param_dict(v) if isinstance(v, dict)
+        else nn.Parameter(v, requires_grad=False)
+        for k, v in tree.items()})
+
+
+class TransformerModel(nn.Module):
+    def __init__(self, cfg: ArchConfig, device=None):
+        super().__init__()
+        self.cfg = cfg
+        self.device = resolve_device(device, "device")
+        self.layers: Optional[nn.ModuleList] = None
+        self.top: Optional[nn.ParameterDict] = None
+
+    # ------------------------------------------------------------------ init
+    def _layer_init(self, gen: torch.Generator) -> Dict:
+        cfg = self.cfg
+        ones = torch.ones((cfg.d_model,), dtype=cfg.pdtype, device=gen.device)
+        p = {
+            "attn_norm": ones,
+            "mlp_norm": ones.clone(),
+            "attn": L.attention_init(
+                gen, cfg.d_model, cfg.num_heads, cfg.num_kv_heads,
+                cfg.head_dim_, cfg.qkv_bias, cfg.pdtype),
+        }
+        if cfg.is_moe:
+            p["moe"] = M.moe_init(gen, cfg.d_model, cfg.d_ff,
+                                  cfg.num_experts, cfg.num_shared_experts,
+                                  cfg.pdtype)
+        else:
+            p["mlp"] = L.mlp_init(gen, cfg.d_model, cfg.d_ff, True,
+                                  cfg.pdtype)
+        return p
+
+    def init(self, generator: torch.Generator) -> "TransformerModel":
+        """Random weights (the reference's initializers) drawn from
+        ``generator``, which must live on the model's device."""
+        cfg = self.cfg
+        if generator.device.type != self.device.type:
+            raise ValueError(f"the generator is on {generator.device}, the "
+                             f"model on {self.device}")
+        with torch.device(self.device):
+            layers = [self._layer_init(generator)
+                      for _ in range(cfg.num_layers)]
+            top = {
+                "final_norm": torch.ones((cfg.d_model,), dtype=cfg.pdtype),
+                "lm_head": L.dense_init(generator,
+                                        (cfg.d_model, cfg.vocab_size), 0,
+                                        cfg.pdtype),
+            }
+            # the embedding table exists unless the arch never consumes
+            # tokens (an encoder with a stubbed frontend); a causal
+            # stub-frontend arch (VLM) still decodes text tokens
+            if not cfg.embedding_input or cfg.causal:
+                top["embed"] = L.embedding_init(
+                    generator, cfg.vocab_size, cfg.d_model, cfg.pdtype)
+        return self.set_params(layers, top)
+
+    def set_params(self, layers, top: Dict) -> "TransformerModel":
+        """Installs the weights: one dict per layer (the reference's layer
+        tree) and the top-level ``final_norm``, ``lm_head`` and ``embed``."""
+        if len(layers) != self.cfg.num_layers:
+            raise ValueError(f"{len(layers)} layers given, the config has "
+                             f"{self.cfg.num_layers}")
+        self.layers = nn.ModuleList(_param_dict(lp) for lp in layers)
+        self.top = _param_dict(top)
+        return self
+
+    def _params(self):
+        if self.layers is None:
+            raise RuntimeError("the model has no weights: call init() or "
+                               "models.convert.load_reference_params()")
+        return self.top
+
+    # ----------------------------------------------------------------- layer
+    def _mlp(self, lp, xn: torch.Tensor, groups: Optional[int]):
+        cfg = self.cfg
+        if cfg.is_moe:
+            return M.moe_apply(lp["moe"], xn, top_k=cfg.num_experts_per_tok,
+                               capacity_factor=cfg.capacity_factor,
+                               groups=groups)
+        return L.mlp_apply(lp["mlp"], xn, gated=True)
+
+    def _layer_apply(self, lp, x: torch.Tensor, positions: torch.Tensor
+                     ) -> Tuple[torch.Tensor, Tuple]:
+        cfg = self.cfg
+        h, kv = L.attention_apply(
+            lp["attn"], L.rms_norm(x, lp["attn_norm"], cfg.norm_eps),
+            n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads,
+            head_dim=cfg.head_dim_, positions=positions,
+            rope_theta=cfg.rope_theta, causal=cfg.causal,
+            block_q=cfg.block_q)
+        x = x + h
+        y = self._mlp(lp, L.rms_norm(x, lp["mlp_norm"], cfg.norm_eps),
+                      cfg.moe_groups)
+        return x + y, kv
+
+    def _embed(self, top, inputs: torch.Tensor) -> torch.Tensor:
+        cfg = self.cfg
+        inputs = inputs.to(self.device)
+        if cfg.embedding_input:
+            return inputs.to(cfg.adtype)
+        return top["embed"][inputs].to(cfg.adtype)
+
+    def _head(self, top, x: torch.Tensor) -> torch.Tensor:
+        x = L.rms_norm(x, top["final_norm"], self.cfg.norm_eps)
+        return x @ top["lm_head"].to(x.dtype)
+
+    # --------------------------------------------------------------- forward
+    @torch.no_grad()
+    def forward(self, inputs: torch.Tensor) -> torch.Tensor:
+        """Training-shape forward: logits for every position (B, S, V)."""
+        top = self._params()
+        x = self._embed(top, inputs)
+        B, S = x.shape[:2]
+        positions = torch.arange(S, device=self.device).expand(B, S)
+        for lp in self.layers:
+            x, _ = self._layer_apply(lp, x, positions)
+        return self._head(top, x)
+
+    # ----------------------------------------------------------------- cache
+    def init_cache(self, batch: int, max_len: int) -> Cache:
+        cfg = self.cfg
+        shape = (cfg.num_layers, batch, max_len, cfg.num_kv_heads,
+                 cfg.head_dim_)
+        kw = dict(dtype=cfg.adtype, device=self.device)
+        return {"k": torch.zeros(shape, **kw), "v": torch.zeros(shape, **kw),
+                "len": torch.zeros((batch,), dtype=torch.int32,
+                                   device=self.device)}
+
+    # --------------------------------------------------------------- prefill
+    @torch.no_grad()
+    def prefill(self, inputs: torch.Tensor, max_len: Optional[int] = None
+                ) -> Tuple[torch.Tensor, Cache]:
+        """Process a full prompt; return (last-token logits, filled cache
+        of ``max(max_len, S)`` positions)."""
+        top = self._params()
+        x = self._embed(top, inputs)
+        B, S = x.shape[:2]
+        positions = torch.arange(S, device=self.device).expand(B, S)
+        cache = self.init_cache(B, max(max_len or S, S))
+        for i, lp in enumerate(self.layers):
+            x, (k, v) = self._layer_apply(lp, x, positions)
+            cache["k"][i, :, :S] = k
+            cache["v"][i, :, :S] = v
+        cache["len"].fill_(S)
+        return self._head(top, x[:, -1]), cache
+
+    # ---------------------------------------------------------------- decode
+    @torch.no_grad()
+    def decode(self, cache: Cache, inputs: torch.Tensor
+               ) -> Tuple[torch.Tensor, Cache]:
+        """One decode step.  inputs: (B,) token ids.  The caches' K/V are
+        written in place; the returned cache has ``len`` + 1."""
+        cfg = self.cfg
+        top = self._params()
+        x = top["embed"][inputs.to(self.device)].to(cfg.adtype)
+        length = cache["len"]                                   # (B,)
+        for i, lp in enumerate(self.layers):
+            xn = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
+            x = x + L.attention_decode_apply(
+                lp["attn"], xn, cache["k"][i], cache["v"][i], length,
+                n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads,
+                head_dim=cfg.head_dim_, rope_theta=cfg.rope_theta)
+            xn = L.rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
+            if cfg.is_moe:
+                y = self._mlp(lp, xn[:, None, :], 1)[:, 0]
+            else:
+                y = self._mlp(lp, xn, None)
+            x = x + y
+        logits = self._head(top, x)
+        return logits, {"k": cache["k"], "v": cache["v"], "len": length + 1}

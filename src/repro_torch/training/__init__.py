@@ -1,0 +1,12 @@
+"""Loss and serving steps (port of ``src/repro/training``)."""
+
+from repro_torch.training.steps import (
+    build_decode_step,
+    build_forward_step,
+    build_loss_fn,
+    build_prefill_step,
+    cross_entropy,
+)
+
+__all__ = ["build_decode_step", "build_forward_step", "build_loss_fn",
+           "build_prefill_step", "cross_entropy"]

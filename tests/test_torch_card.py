@@ -1083,3 +1083,72 @@ def test_from_spans_places_card_spans(card, kind, mode):
         ana.makespan - ana.origin, abs=ana.tolerance)
     assert ana.verdict in ("transfer-bound", "compute-bound",
                            "dependency-bound")
+
+
+# ------------------------------------------------------------ model serving
+@pytest.mark.parametrize("arch", ["llama3.2-3b", "qwen2.5-3b",
+                                  "deepseek-moe-16b"])
+def test_smoke_decode_launches_kernel_2_per_layer_and_step(card, arch):
+    """A smoke-size model on the card: each decode step launches kernel 2's
+    two passes once per layer, and teacher-forced decode stays within the
+    reference test's 2e-3 of forward's logits (float32, TF32 off)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import get_model
+
+    cfg = get_arch(arch).smoke()
+    gen = torch.Generator(device=card).manual_seed(0)
+    model = get_model(cfg).init(gen)
+    assert model.device.type == "cuda"
+    toks = torch.randint(0, cfg.vocab_size, (2, 12), generator=gen,
+                         device=card)
+    full = model.forward(toks)
+    logits, cache = model.prefill(toks[:, :5], max_len=12)
+    steps = 12 - 5
+    before = (kfa.flash_partial.launches, kfa.flash_combine.launches)
+    for i in range(5, 12):
+        logits, cache = model.decode(cache, toks[:, i])
+        torch.testing.assert_close(logits, full[:, i], rtol=2e-3, atol=2e-3)
+    assert (kfa.flash_partial.launches - before[0],
+            kfa.flash_combine.launches - before[1]) == (
+        cfg.num_layers * steps, cfg.num_layers * steps)
+    assert cache["len"].tolist() == [12, 12]
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_attention_decode_apply_kernel_matches_plain(card, dtype):
+    """``attention_decode_apply`` on the card (kernel 2) against the same
+    call on CPU tensors (its plain version), on one input, at llama3.2-3b's
+    head widths; and kernel 2 against the plain mirror of the reference's
+    ``decode_attention`` (in 16 bits that one rounds q and p first)."""
+    from repro_torch.models import layers as TL
+
+    rng = np.random.default_rng(31)
+    D, H, hkv, d, Smax = 256, 24, 8, 128, 700
+    p = {k: torch.from_numpy(rng.standard_normal(shape).astype(np.float32)
+                             / np.sqrt(shape[0])).to(dtype)
+         for k, shape in (("wq", (D, H * d)), ("wk", (D, hkv * d)),
+                          ("wv", (D, hkv * d)), ("wo", (H * d, D)))}
+    x = torch.from_numpy(rng.standard_normal((3, D)).astype(np.float32)).to(
+        dtype)
+    kc, vc = (torch.from_numpy(rng.standard_normal(
+        (3, Smax, hkv, d)).astype(np.float32)).to(dtype) for _ in range(2))
+    length = torch.tensor([0, 300, Smax - 1], dtype=torch.int32)
+    kw = dict(n_heads=H, n_kv=hkv, head_dim=d, rope_theta=5e5)
+    tol = 2e-4 if dtype == torch.float32 else 3e-2
+    cpu = [t.clone() for t in (kc, vc)]
+    plain = TL.attention_decode_apply(p, x, *cpu, length, **kw)
+    gpu = [t.to(card) for t in (kc, vc)]
+    before = kfa.flash_partial.launches
+    out = TL.attention_decode_apply({k: v.to(card) for k, v in p.items()},
+                                    x.to(card), *gpu, length.to(card), **kw)
+    assert kfa.flash_partial.launches == before + 1
+    torch.testing.assert_close(out.cpu().float(), plain.float(), rtol=tol,
+                               atol=tol)
+    for g, c in zip(gpu, cpu):
+        torch.testing.assert_close(g.cpu(), c, rtol=tol, atol=tol)
+    q = torch.from_numpy(rng.standard_normal((3, H, d)).astype(
+        np.float32)).to(card, dtype)
+    kern = kfa.flash_decode_attention(q, gpu[0], gpu[1], length.to(card) + 1)
+    mirror = TL.decode_attention(q, gpu[0], gpu[1], length.to(card) + 1)
+    torch.testing.assert_close(kern.float(), mirror.float(), rtol=tol,
+                               atol=tol)

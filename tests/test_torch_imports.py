@@ -42,6 +42,11 @@ assert {"repro_torch.examples." + m for m in ("hybrid_gemm",
 assert {"repro_torch.obs.analyze", "repro_torch.obs.whatif",
         "repro_torch.scripts.export_trace",
         "repro_torch.scripts.run_report"} <= set(sys.modules)
+assert {"repro_torch.configs", "repro_torch.configs.base",
+        "repro_torch.models.layers", "repro_torch.models.moe",
+        "repro_torch.models.transformer", "repro_torch.models.convert",
+        "repro_torch.training.steps", "repro_torch.launch.serve",
+        "repro_torch.examples.serve_decode"} <= set(sys.modules)
 """
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT,
@@ -87,7 +92,9 @@ def no_card():
                                    "calibrate", "autotuner", "hybrid_gemm",
                                    "hybrid_syrk", "hybrid_attention",
                                    "hybrid_cholesky", "hybrid_runtime",
-                                   "hybrid_factory", "run_hybrid_gemm"])
+                                   "hybrid_factory", "run_hybrid_gemm",
+                                   "transformer_model", "get_model",
+                                   "serve_main"])
 def test_default_device_raises_without_a_card(no_card, entry):
     import numpy as np
 
@@ -96,9 +103,13 @@ def test_default_device_raises_without_a_card(no_card, entry):
     import repro_torch.tune as TT
     from repro_torch import direct_impls as D
     from repro_torch.core.api import hclDeviceFactory, hclHybridRuntime
+    from repro_torch.configs import get_arch
     from repro_torch.examples.mmooc_via_api import mmooc
+    from repro_torch.launch import serve
+    from repro_torch.models import TransformerModel, get_model
 
     A = np.ones((64, 64), np.float32)
+    cfg = get_arch("llama3.2-3b").smoke()
     devs = [TH.DeviceSpec("gpu0", TT.gpu_profile(), 1 << 16),
             TH.DeviceSpec("phi0", TT.phi_profile(), 1 << 16)]
     calls = {
@@ -132,6 +143,10 @@ def test_default_device_raises_without_a_card(no_card, entry):
             hclDeviceFactory.create("HYBRID"), devices=devs),
         "run_hybrid_gemm": lambda: TH.run_hybrid_gemm(
             A, A, None, 1.0, 0.0, None),
+        "transformer_model": lambda: TransformerModel(cfg),
+        "get_model": lambda: get_model(cfg),
+        "serve_main": lambda: serve.main(["--arch", "llama3.2-3b",
+                                          "--smoke"]),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
