@@ -53,9 +53,10 @@ printing any result.  Phases (each raises on failure; none is skipped):
      and f16 (beside ``torch.addmm``; in bf16 also with A off 16 bytes, the
      element-copy route, bit for bit equal to the TMA route), kernel 2's
      partial and combine passes apart (at phase 6's block, at decode_32k's
-     batch and at phase 14's decode step, q in bf16 and 528 of 544
-     positions valid; run after phase 14), kernel 3 in f32 and bf16 in
-     turns with kernel 1;
+     batch and at phase 14's decode steps, q in bf16 and 528 of 544
+     positions valid: llama3.2-3b's layers and zamba2-1.2b's sites, Hkv 32,
+     G 1, d 64; run after phase 14), kernel 3 in f32 and bf16 in turns with
+     kernel 1;
   9. the fourth path, the factorizations (``[factor]`` lines; run after
      phase 7, before phase 8): ``ooc_cholesky`` and ``ooc_lu`` at
      n = 24576 f32 under 1 GiB (panel 2048, lookahead 1), through the entry
@@ -173,7 +174,16 @@ printing any result.  Phases (each raises on failure; none is skipped):
      the capacity dropped, with what decides it: the plain capacity rule
      must keep the same assignments in every prefill layer, layer 0 routed
      on the CPU, on i.i.d. inputs and on the bare embeddings, and how
-     alike a group's MoE inputs are.
+     alike a group's MoE inputs are.  Then the state-space families: (e)
+     rwkv6-1.6b (24 layers) and zamba2-1.2b (38 Mamba2 layers, 6 shared-
+     attention sites) in float32 at full depth, teacher-forced as in (a);
+     (f) ``launch/serve.main`` on both in bf16 (batch 4, prompt 512, gen
+     32) with the readings of (c)-(d), the step beside its floor (weights,
+     the recurrent state read and written, the valid K/V), the prefill's
+     device time and the costliest device ops a step.  Kernel 2 launches
+     once per attention layer and decode step: every layer of a
+     transformer, every site of Zamba2 (held against its plain versions
+     at the first and last site), none in RWKV6.
 
 With ``--baseline DIR`` (another checkout, e.g. ``git archive`` of the
 parent commit unpacked into a directory ``.gitignore`` lists), phase 5 is
@@ -3078,17 +3088,21 @@ def phase_timing_attention(gen, report, card):
     from repro_torch.kernels import flash_attention as kfa
 
     peak_flops, peak_bw = datasheet(torch.cuda.get_device_name(0))
-    hkv, G, d = 8, 3, 128
-    H = hkv * G
     shapes = []
     saved = (kfa.flash_partial.launches, kfa.flash_combine.launches)
-    # (name, B, cache positions S, valid length L, q's dtype); the last is
-    # phase 14's decode step (llama3.2-3b bf16 at batch 4, prompt 512,
-    # gen 32: a 544-position cache, 528 valid at the middle step)
-    for name, B, S, L, qdt in (
-            ("main path block", 1, 65536, 65536, torch.float32),
-            ("decode_32k at B/4", 32, 32768, 32768, torch.float32),
-            ("serve decode step", 4, 544, 528, torch.bfloat16)):
+    # (name, B, cache positions S, valid length L, Hkv, G, d, q's dtype) at
+    # llama3.2-3b's heads (Hkv 8, G 3, d 128) and zamba2-1.2b's (Hkv 32,
+    # G 1, d 64); the last two are phase 14's decode steps (bf16 at batch
+    # 4, prompt 512, gen 32: a 544-position cache, 528 valid at the middle
+    # step)
+    for name, B, S, L, hkv, G, d, qdt in (
+            ("main path block", 1, 65536, 65536, 8, 3, 128, torch.float32),
+            ("decode_32k at B/4", 32, 32768, 32768, 8, 3, 128,
+             torch.float32),
+            ("serve decode step", 4, 544, 528, 8, 3, 128, torch.bfloat16),
+            ("zamba2 site decode step", 4, 544, 528, 32, 1, 64,
+             torch.bfloat16)):
+        H = hkv * G
         q = rand((B, H, d), gen, qdt)
         k, v = (rand((B, S, hkv, d), gen, torch.bfloat16) for _ in range(2))
         length = torch.full((B,), L, dtype=torch.int32, device="cuda")
@@ -3272,15 +3286,19 @@ def launches_of(report, paths, dt):
 
 
 # phase 14 (the serving path):
-# part (a): llama3.2-3b in float32 at full depth, teacher-forced: batch,
+# parts (a) and (e): float32 at full depth, teacher-forced: arch, batch,
 # prompt, max_len (= prompt + decode steps)
 SERVE_F32 = ("llama3.2-3b", 2, 64, 96)
-# parts (c)-(d): launch/serve.main in bf16: arch, batch, prompt, gen
+SSM_F32 = (("rwkv6-1.6b", 2, 64, 96), ("zamba2-1.2b", 2, 64, 96))
+# parts (c)-(d) and (f): launch/serve.main in bf16: arch, batch, prompt, gen
 SERVE_CASES = (("llama3.2-3b", 4, 512, 32), ("qwen2.5-3b", 4, 512, 32),
                ("deepseek-moe-16b", 4, 128, 8))
+SSM_CASES = (("rwkv6-1.6b", 4, 512, 32), ("zamba2-1.2b", 4, 512, 32))
 # the decode paths that launch kernel 2, each driven with its counts at 0
+# (RWKV6's paths launch it no time: their counts are kept beside these)
 SERVE_PATHS = ("serve_llama3.2-3b_f32",) + tuple(
-    f"serve_{arch}" for arch, *_ in SERVE_CASES)
+    f"serve_{arch}" for arch, *_ in SERVE_CASES) + (
+    "serve_zamba2-1.2b_f32", "serve_zamba2-1.2b")
 DECODE_TOL = 2e-3          # tests/test_models.py's decode vs forward
 PROFILE_STEPS = 8          # decode steps under torch.profiler
 
@@ -3568,20 +3586,36 @@ def param_bytes(model):
     return sum(p.numel() * p.element_size() for p in model.parameters())
 
 
-def cache_bytes(cache):
-    return sum(cache[k].numel() * cache[k].element_size() for k in ("k", "v"))
+def cache_bytes(cache, keys=None):
+    """Bytes of a cache's tensors (all but ``len``, or ``keys``)."""
+    keys = [k for k in cache if k != "len"] if keys is None else keys
+    return sum(cache[k].numel() * cache[k].element_size() for k in keys
+               if k in cache)
 
 
-def serve_teacher_forced(report, card):
-    """(a) llama3.2-3b f32, 28 layers: prefill 64 tokens with room for 96,
-    then 32 teacher-forced decode steps, each step's logits within 2e-3 of
-    ``forward``'s at that position; kernel 2's passes launch once per
-    layer and step."""
+def attention_calls(model):
+    """Kernel 2's calls in one decode step: one per attention layer, that is
+    every layer of a transformer, every shared-attention site of Zamba2,
+    none in the attention-free families."""
+    family = model.cfg.family
+    if family == "hybrid":
+        return model.n_sites
+    return 0 if family == "ssm" else model.cfg.num_layers
+
+
+def attention_unit(model):
+    return "site" if model.cfg.family == "hybrid" else "layer"
+
+
+def serve_teacher_forced(report, card, arch, B, P, S, key, part):
+    """(a) / (e) ``arch`` in f32 at full depth: prefill P tokens with room
+    for S, then S - P teacher-forced decode steps, each step's logits
+    within 2e-3 of ``forward``'s at that position; kernel 2's passes
+    launch once per attention layer (:func:`attention_calls`) and step."""
     from repro_torch.configs import get_arch
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.models import get_model
 
-    arch, B, P, S = SERVE_F32
     cfg = get_arch(arch).replace(param_dtype="float32", act_dtype="float32")
     t0 = time.perf_counter()
     gen = torch.Generator(device="cuda").manual_seed(SEED)
@@ -3590,7 +3624,10 @@ def serve_teacher_forced(report, card):
                          device="cuda")
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
+    t0 = time.perf_counter()
     full = model.forward(toks)                                  # (B, S, V)
+    torch.cuda.synchronize()
+    t_forward = time.perf_counter() - t0
     steps = S - P
     kfa.flash_partial.launches = kfa.flash_combine.launches = 0
     t0 = time.perf_counter()
@@ -3609,43 +3646,48 @@ def serve_teacher_forced(report, card):
     torch.cuda.synchronize()
     t_decode = time.perf_counter() - t0
     n_part, n_comb = kfa.flash_partial.launches, kfa.flash_combine.launches
-    report["launches"][SERVE_PATHS[0]] = {"partial": n_part,
-                                          "combine": n_comb}
-    expect = cfg.num_layers * steps
+    report["launches"][key] = {"partial": n_part, "combine": n_comb}
+    calls, unit = attention_calls(model), attention_unit(model)
+    expect = calls * steps
     require(n_part == expect and n_comb == expect,
-            f"serve f32: {n_part} partial / {n_comb} combine launches, "
-            f"expected {expect} each (layers x steps)")
+            f"serve {arch} f32: {n_part} partial / {n_comb} combine "
+            f"launches, expected {expect} each ({calls} {unit}s x {steps} "
+            f"steps)")
     errs = torch.stack(errs).tolist()
     worst_excess = torch.stack(excess).max().item()
     require(worst_excess <= DECODE_TOL and all(map(math.isfinite, errs)),
-            f"serve f32: decode logits beyond rtol=atol={DECODE_TOL} of "
-            f"forward's (max abs errs {errs})")
+            f"serve {arch} f32: decode logits beyond rtol=atol={DECODE_TOL} "
+            f"of forward's (max abs errs {errs})")
     require(cache["len"].tolist() == [S] * B,
-            f"serve f32: cache length {cache['len'].tolist()}, expected {S}")
-    row = {"part": "a", "arch": arch, "dtype": "float32", "B": B,
+            f"serve {arch} f32: cache length {cache['len'].tolist()}, "
+            f"expected {S}")
+    row = {"part": part, "arch": arch, "dtype": "float32", "B": B,
            "prompt": P, "steps": steps, "layers": cfg.num_layers,
            "param_bytes": param_bytes(model), "init_s": t_init,
-           "prefill_s": t_prefill, "decode_step_ms": t_decode / steps * 1e3,
+           "forward_s": t_forward, "prefill_s": t_prefill,
+           "decode_step_ms": t_decode / steps * 1e3,
            "max_abs_err_prefill": errs[0], "max_abs_err_decode": max(errs[1:]),
            "launches": {"partial": n_part, "combine": n_comb}}
     report["serve"].append(row)
-    say("serve", f"(a) {arch} f32, {cfg.num_layers} layers "
+    say("serve", f"({part}) {arch} f32, {cfg.num_layers} layers "
                  f"({row['param_bytes'] / 1e9:.2f} GB of weights, drawn "
-                 f"from seed {SEED} in {t_init:.1f} s): prefill B={B} x {P} "
+                 f"from seed {SEED} in {t_init:.1f} s): forward B={B} x {S} "
+                 f"tokens {t_forward * 1e3:.1f} ms, prefill B={B} x {P} "
                  f"tokens {t_prefill * 1e3:.1f} ms, {steps} teacher-forced "
                  f"decode steps at {row['decode_step_ms']:.2f} ms each; "
                  f"logits vs forward max abs err {errs[0]:.3g} (prefill), "
                  f"{max(errs[1:]):.3g} (decode), within rtol=atol="
                  f"{DECODE_TOL}; kernel 2 launched {n_part} partial + "
-                 f"{n_comb} combine = {cfg.num_layers} layers x {steps} "
-                 f"steps each; card {card}")
+                 f"{n_comb} combine = {calls} {unit}s x {steps} steps each; "
+                 f"card {card}")
     del model, full, cache, logits, toks
 
 
 def decode_step_kernel2_inputs(model, cache, tok):
     """One ``model.decode`` step with kernel 2's wrapper watched: returns
-    the step's logits and cache and, by layer, kernel 2's inputs (q, K, V,
-    length) at the first and the last layer, cloned."""
+    the step's logits and cache and, by attention layer (a transformer's
+    layer, a Zamba2 site), kernel 2's inputs (q, K, V, length) at the first
+    and the last, cloned; none for a model without attention."""
     from repro_torch.kernels import ops as kops
 
     real, calls = kops.flash_decode_attention, []
@@ -3661,9 +3703,12 @@ def decode_step_kernel2_inputs(model, cache, tok):
         logits, cache = model.decode(cache, tok)
     finally:
         kops.flash_decode_attention = real
-    require(len(calls) == model.cfg.num_layers,
+    expect = attention_calls(model)
+    require(len(calls) == expect,
             f"serve {model.cfg.name}: {len(calls)} decode attention calls in "
-            f"one step, expected {model.cfg.num_layers}")
+            f"one step, expected {expect} ({attention_unit(model)}s)")
+    if not calls:
+        return logits, cache, {}
     return logits, cache, {0: calls[0], len(calls) - 1: calls[-1]}
 
 
@@ -3697,17 +3742,18 @@ def kernel2_vs_plain(tag, q, k, v, length):
     return errs
 
 
-def kernel2_rows(arch, calls, card, part):
-    """:func:`kernel2_vs_plain` at each captured layer: its rows and one
-    ``[serve]`` line each."""
+def kernel2_rows(arch, calls, card, part, unit="layer"):
+    """:func:`kernel2_vs_plain` at each captured attention layer (``unit``:
+    a transformer's layer, a Zamba2 site): its rows and one ``[serve]``
+    line each."""
     rows = []
     for layer, (q, k, v, length) in calls.items():
-        errs = kernel2_vs_plain(f"serve {arch} layer {layer}", q, k, v,
+        errs = kernel2_vs_plain(f"serve {arch} {unit} {layer}", q, k, v,
                                 length)
-        rows.append({"layer": layer, "q": list(q.shape), "kv": list(k.shape),
+        rows.append({unit: layer, "q": list(q.shape), "kv": list(k.shape),
                      "length": length.tolist(), **{
                          f"max_abs_err_{k_}": e for k_, e in errs.items()}})
-        say("serve", f"({part}) {arch} bf16 decode step, layer {layer}: q "
+        say("serve", f"({part}) {arch} bf16 decode step, {unit} {layer}: q "
                      f"{tuple(q.shape)} {str(q.dtype)[6:]}, K/V "
                      f"{tuple(k.shape)} {str(k.dtype)[6:]}, length "
                      f"{length.tolist()}: kernel 2 vs plain max err "
@@ -3820,16 +3866,42 @@ def moe_witness(model, prompts, inputs, kept):
                 x.float(), emb.float(), dim=-1).mean().item()}
 
 
-def profile_decode(model, prompts, gen, card):
-    """The prefill and the first ``PROFILE_STEPS`` decode steps of
-    ``serve.generate`` once more, the steps under ``torch.profiler`` (CUDA
-    activity only, so the trace stays small): device time and kernels per
-    step, in all and in kernel 2's two passes.  One more decode step then
-    holds kernel 2 against its plain versions at the first and the last
-    layer (:func:`kernel2_rows`).  For an MoE model, the share of
-    assignments the capacity dropped in the prefill and in those steps, and
-    :func:`moe_witness` on the prefill's."""
+def device_times(prof):
+    """Device time (us), device ops and kernel 2's time and ops in a
+    ``torch.profiler`` run, and its device ops by self time (name, us,
+    count), costliest first."""
     from torch.autograd import DeviceType
+
+    dev_us = k2_us = 0.0
+    n_events = k2_calls = 0
+    by_name = []
+    for evt in prof.key_averages():
+        if evt.device_type != DeviceType.CUDA:
+            continue
+        t = getattr(evt, "self_device_time_total", None)
+        if t is None:
+            t = evt.self_cuda_time_total
+        dev_us += t
+        n_events += evt.count
+        by_name.append((evt.key, t, evt.count))
+        if "flash_partial_kernel" in evt.key or \
+                "flash_combine_kernel" in evt.key:
+            k2_us += t
+            k2_calls += evt.count
+    by_name.sort(key=lambda r: -r[1])
+    return dev_us, n_events, k2_us, k2_calls, by_name
+
+
+def profile_decode(model, prompts, gen, card, part):
+    """The prefill and the first ``PROFILE_STEPS`` decode steps of
+    ``serve.generate`` once more under ``torch.profiler`` (CUDA activity
+    only, so the trace stays small), the prefill and the steps apart:
+    device time and device ops of the prefill, and per step in all, in
+    kernel 2's two passes and in the costliest device ops.  One more
+    decode step then holds kernel 2 against its plain versions at the
+    first and the last attention layer (:func:`kernel2_rows`).  For an MoE
+    model, the share of assignments the capacity dropped in the prefill
+    and in those steps, and :func:`moe_witness` on the prefill's."""
     from torch.profiler import ProfilerActivity, profile
 
     from repro_torch.models import moe as M
@@ -3847,10 +3919,12 @@ def profile_decode(model, prompts, gen, card):
 
     M.moe_apply = counted
     try:
-        logits, cache = model.prefill(prompts, max_len=prompts.shape[1] + gen)
+        with profile(activities=[ProfilerActivity.CUDA]) as pre:
+            logits, cache = model.prefill(prompts,
+                                          max_len=prompts.shape[1] + gen)
+            torch.cuda.synchronize()
         n_prefill = len(kept)
         tok = logits.argmax(-1)
-        torch.cuda.synchronize()
         steps = min(gen - 1, PROFILE_STEPS)
         with profile(activities=[ProfilerActivity.CUDA]) as prof:
             for _ in range(steps):
@@ -3863,28 +3937,20 @@ def profile_decode(model, prompts, gen, card):
     require(not cfg.is_moe or len(kept) == cfg.num_layers * (steps + 2),
             f"serve {cfg.name}: moe_apply ran {len(kept)} times, expected "
             f"{cfg.num_layers} layers x (prefill + {steps + 1} steps)")
-    dev_us = k2_us = 0.0
-    n_events = k2_calls = 0
-    for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA:
-            continue
-        t = getattr(evt, "self_device_time_total", None)
-        if t is None:
-            t = evt.self_cuda_time_total
-        dev_us += t
-        n_events += evt.count
-        if "flash_partial_kernel" in evt.key or \
-                "flash_combine_kernel" in evt.key:
-            k2_us += t
-            k2_calls += evt.count
+    pre_us, pre_events, _, _, _ = device_times(pre)
+    dev_us, n_events, k2_us, k2_calls, by_name = device_times(prof)
     out = {"profiled_steps": steps,
+           "prefill_device_ms": pre_us / 1e3,
+           "prefill_device_events": pre_events,
            "device_ms_per_step": dev_us / steps / 1e3,
            "device_events_per_step": n_events / steps,
            "kernel2_ms_per_step": k2_us / steps / 1e3,
            "kernel2_events": k2_calls,
-           "kernel2_vs_plain": kernel2_rows(cfg.name, calls, card, "c" if
-                                            cfg.name == "llama3.2-3b" else
-                                            "d")}
+           "top_device_ops_per_step": [
+               {"op": name[:80], "ms": t / steps / 1e3,
+                "count": c / steps} for name, t, c in by_name[:5]],
+           "kernel2_vs_plain": kernel2_rows(cfg.name, calls, card, part,
+                                            attention_unit(model))}
     if kept:
         def dropped(ks):
             n = sum(k.numel() for k in ks)
@@ -3913,8 +3979,9 @@ def dispatch_us(n=2000):
     return (time.perf_counter() - t0) / n * 1e6
 
 
-def serve_main_case(report, card, arch, batch, prompt, gen, key, op_us):
-    """(c)/(d) ``launch/serve.main`` in bf16 at full width and depth;
+def serve_main_case(report, card, arch, batch, prompt, gen, key, op_us,
+                    part):
+    """(c)/(d)/(f) ``launch/serve.main`` in bf16 at full width and depth;
     ``op_us`` is the host time of one small CUDA op (:func:`dispatch_us`)."""
     from repro_torch.kernels import flash_attention as kfa
     from repro_torch.launch import serve
@@ -3934,31 +4001,38 @@ def serve_main_case(report, card, arch, batch, prompt, gen, key, op_us):
     peak = torch.cuda.max_memory_allocated() - base
     model, cache = res["model"], res["cache"]
     cfg = model.cfg
-    expect = cfg.num_layers * (gen - 1)
+    calls, unit = attention_calls(model), attention_unit(model)
+    steps = gen - 1
+    expect = calls * steps
     require(n_part == expect and n_comb == expect,
             f"serve {arch}: {n_part} partial / {n_comb} combine launches, "
-            f"expected {expect} each (layers x decode steps)")
+            f"expected {expect} each ({calls} {unit}s x {steps} decode "
+            f"steps)")
     require(res["tokens"].shape == (batch, gen),
             f"serve {arch}: tokens {res['tokens'].shape}")
     pbytes, cbytes = param_bytes(model), cache_bytes(cache)
+    kv_bytes = cache_bytes(cache, ("k", "v"))
+    state_bytes = cbytes - kv_bytes          # h, conv, M, last_t, last_c
     ebytes = model.top["embed"].numel() * model.top["embed"].element_size()
-    steps = gen - 1
     step_ms = res["decode_s"] / steps * 1e3
-    # a step reads every weight but the embedding table (B rows of it) and
-    # the cache's valid K/V (mean length over the steps)
-    kv_read = cbytes // (prompt + gen) * (prompt + gen / 2)
+    # a step reads every weight but the embedding table (B rows of it), the
+    # cache's valid K/V (mean length over the steps), and reads and writes
+    # the recurrent state once
+    kv_read = kv_bytes // (prompt + gen) * (prompt + gen / 2)
     floor_w_ms = pbytes / peak_bw * 1e3
-    floor_ms = (pbytes - ebytes + kv_read) / peak_bw * 1e3
+    floor_ms = (pbytes - ebytes + kv_read + 2 * state_bytes) / peak_bw * 1e3
     t0 = time.perf_counter()
-    prof = profile_decode(model, res["prompts"], gen, card)
+    prof = profile_decode(model, res["prompts"], gen, card, part)
     t_prof = time.perf_counter() - t0
-    row = {"part": "c" if arch == "llama3.2-3b" else "d", "arch": arch,
+    row = {"part": part, "arch": arch,
            "dtype": str(cfg.adtype)[6:], "B": batch, "prompt": prompt,
            "gen": gen, "layers": cfg.num_layers,
+           "attention_calls_per_step": calls,
            "prefill_ms": res["prefill_s"] * 1e3, "decode_ms":
            res["decode_s"] * 1e3, "decode_step_ms": step_ms,
            "tok_per_s": res["tput"], "param_bytes": pbytes,
            "embed_bytes": ebytes, "cache_bytes": cbytes,
+           "kv_bytes": kv_bytes, "state_bytes": state_bytes,
            "floor_weights_ms": floor_w_ms, "floor_read_ms": floor_ms,
            "peak_bytes": peak, "decode_mallocs": res["decode_mallocs"],
            "launches": {"partial": n_part, "combine": n_comb},
@@ -3995,15 +4069,22 @@ def serve_main_case(report, card, arch, batch, prompt, gen, key, op_us):
                      f"{w['cos_group_mean_embed']:.3f}; of layer 0's input "
                      f"to the token's own embedding "
                      f"{w['cos_layer0_embed']:.3f}; card {card}")
-    say("serve", f"({row['part']}) launch/serve.main {arch} bf16, "
+    top = ", ".join(f"{o['op'][:48]} {o['ms']:.3f} ms x {o['count']:.0f}"
+                    for o in prof["top_device_ops_per_step"])
+    say("serve", f"({part}) launch/serve.main {arch} bf16, "
                  f"{cfg.num_layers} layers, B={batch} prompt={prompt} "
-                 f"gen={gen}: prefill {row['prefill_ms']:.1f} ms, decode "
+                 f"gen={gen}: prefill {row['prefill_ms']:.1f} ms (device "
+                 f"busy {prof['prefill_device_ms']:.3f} ms in "
+                 f"{prof['prefill_device_events']} device ops, profiled "
+                 f"rerun), decode "
                  f"{row['decode_ms']:.1f} ms = {step_ms:.3f} ms/step, "
                  f"{res['tput']:.1f} tok/s; floor {floor_w_ms:.3f} ms/step "
                  f"({pbytes / 1e9:.3f} GB of weights at "
                  f"{peak_bw / 1e12:.2f} TB/s, data sheet), {floor_ms:.3f} "
-                 f"ms counting only what a step reads (no embedding table, "
-                 f"+ the valid K/V); measured step / weight floor "
+                 f"ms counting only what a step moves (no embedding table, "
+                 f"+ the valid K/V of {kv_bytes / 1e9:.3f} GB, + the "
+                 f"{state_bytes / 1e9:.4f} GB recurrent state read and "
+                 f"written); measured step / weight floor "
                  f"{step_ms / floor_w_ms:.2f}; torch.profiler over "
                  f"{prof['profiled_steps']} more decode steps: device busy "
                  f"{prof['device_ms_per_step']:.3f} ms/step "
@@ -4018,27 +4099,35 @@ def serve_main_case(report, card, arch, batch, prompt, gen, key, op_us):
                  f"device memory {peak / 1e9:.3f} GB against weights + "
                  f"cache {(pbytes + cbytes) / 1e9:.3f} GB; "
                  f"{res['decode_mallocs']} cudaMallocs over the decode loop; "
-                 f"kernel 2 launched {n_part} + {n_comb} = {cfg.num_layers} "
-                 f"layers x {steps} steps each{drop}; serve.main took "
-                 f"{t_main:.1f} s, the profiled rerun {t_prof:.1f} s; card "
-                 f"{card}")
+                 f"kernel 2 launched {n_part} + {n_comb} = {calls} {unit}s x "
+                 f"{steps} steps each{drop}; costliest device ops a step: "
+                 f"{top}; serve.main took {t_main:.1f} s, the profiled rerun "
+                 f"{t_prof:.1f} s; card {card}")
     del res, model, cache
 
 
 def phase_serve(report, card):
-    """Phase 14: the model zoo's serving path at full width (parts a-d),
+    """Phase 14: the model zoo's serving path at full width (parts a-f),
     each model freed before the next."""
     t0 = time.perf_counter()
     op_us = dispatch_us()
     say("serve", f"one small CUDA op (an in-place add on 4 elements, 2000 "
                  f"back to back) takes {op_us:.2f} us of host time; card "
                  f"{card}")
-    parts = [("a", lambda: serve_teacher_forced(report, card)),
-             ("b", lambda: serve_kernel_vs_plain(report, card))] + [
-        (arch, lambda c=case, k=key: serve_main_case(report, card, *c, k,
-                                                     op_us))
-        for case, key in zip(SERVE_CASES, SERVE_PATHS[1:])
-        for arch in case[:1]]
+    parts = [("a", lambda: serve_teacher_forced(
+        report, card, *SERVE_F32, SERVE_PATHS[0], "a")),
+             ("b", lambda: serve_kernel_vs_plain(report, card))]
+    for arch, *case in SERVE_CASES:
+        part = "c" if arch == "llama3.2-3b" else "d"
+        parts.append((arch, lambda a=arch, c=case, p=part: serve_main_case(
+            report, card, a, *c, f"serve_{a}", op_us, p)))
+    for arch, *case in SSM_F32:
+        parts.append((f"{arch}_f32", lambda a=arch, c=case: (
+            serve_teacher_forced(report, card, a, *c, f"serve_{a}_f32",
+                                 "e"))))
+    for arch, *case in SSM_CASES:
+        parts.append((arch, lambda a=arch, c=case: serve_main_case(
+            report, card, a, *c, f"serve_{a}", op_us, "f")))
     took = {}
     for name, run in parts:
         t1 = time.perf_counter()

@@ -56,8 +56,10 @@ class ArchConfig:
     moe_groups: Optional[int] = None
     # scan_layers: the reference's choice between lax.scan over stacked
     # layers and unrolled python loops (its dry-run's cost mode).  The
-    # port's model always loops over its layers in python, so it has no
-    # effect here.
+    # port's models always loop over their layers in python, but the state-
+    # space blocks honour what the reference ties to it: off, Mamba2 bounds
+    # its chunk count (chunk >= S // 8) and RWKV6 takes the associative WKV
+    # instead of the chunked one.
     scan_layers: bool = True
     source: str = ""               # provenance note [source; tier]
 

@@ -7,6 +7,7 @@ so this example checks for 16.
 
     python -m repro_torch.examples.serve_decode          # on the card
     python -m repro_torch.examples.serve_decode --cpu    # plain versions
+    python -m repro_torch.examples.serve_decode --cpu --arch rwkv6-1.6b
 """
 import argparse
 

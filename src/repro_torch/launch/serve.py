@@ -5,12 +5,16 @@ Port of ``src/repro/launch/serve.py``: the same flags, plus ``--device``
 kernel's plain version on the host).  Weights are random, drawn on the
 device from ``--seed``; so are the prompts: token ids, or for a
 stub-frontend arch (VLM) the frontend's embeddings.  :func:`generate` is
-the greedy prefill + decode loop; on a card each decode step runs kernel
-2 once per layer.
+the greedy prefill + decode loop for every causal family; on a card each
+decode step runs kernel 2 once per attention layer: every layer of a
+transformer, every shared-attention site of Zamba2, none in RWKV6.
 
 Usage:
   python -m repro_torch.launch.serve --arch llama3.2-3b --smoke --device cpu
+  python -m repro_torch.launch.serve --arch zamba2-1.2b --smoke --device cpu
   python -m repro_torch.launch.serve --arch llama3.2-3b --batch 4 \\
+      --prompt-len 512 --gen 32
+  python -m repro_torch.launch.serve --arch rwkv6-1.6b --batch 4 \\
       --prompt-len 512 --gen 32
 """
 

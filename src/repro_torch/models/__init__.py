@@ -1,36 +1,39 @@
 """Model zoo registry: family -> model class.
 
-Port of ``src/repro/models/__init__.py`` for the transformer families.
-The state-space families wait for ROADMAP module item 12b: ``get_model``
-raises for them, naming the item.
+Port of ``src/repro/models/__init__.py``.  Every model has the same API
+(``init``/``forward``/``init_cache``/``prefill``/``decode``), so the
+serving steps and ``launch.serve`` are arch-agnostic.
 """
 
 from repro_torch.configs.base import ArchConfig
+from repro_torch.models.mamba2 import Mamba2Model
+from repro_torch.models.rwkv6 import RWKV6Model
 from repro_torch.models.transformer import TransformerModel
+from repro_torch.models.zamba2 import Zamba2Model
 
 _FAMILIES = {
     "dense": TransformerModel,
     "moe": TransformerModel,
     "audio": TransformerModel,   # encoder backbone; stub frontend
     "vlm": TransformerModel,     # decoder backbone; stub frontend
+    "ssm": None,                 # resolved below per ssm kind
+    "hybrid": Zamba2Model,
 }
 
-# what is left out of this slice, by the ROADMAP module item that ports it
-NOT_PORTED = {
-    "ssm": "the state-space models (models/mamba2.py, rwkv6.py) are ROADMAP "
-           "module item 12b",
-    "hybrid": "the hybrid model (models/zamba2.py, Mamba2 with shared "
-              "attention) is ROADMAP module item 12b",
-}
+# the families left out of the port, by the ROADMAP module item that ports
+# them: none since item 12b
+NOT_PORTED: dict = {}
 
 
 def get_model(cfg: ArchConfig, device=None):
     """The model of ``cfg``'s family on ``device`` (CUDA by default; raises
     without a card), without weights: call ``init`` or load them."""
-    if cfg.family in NOT_PORTED:
-        raise NotImplementedError(
-            f"{cfg.name}: not ported yet: {NOT_PORTED[cfg.family]}")
-    return _FAMILIES[cfg.family](cfg, device=device)
+    if cfg.family == "ssm":
+        cls = Mamba2Model if cfg.ssm_state else RWKV6Model
+    else:
+        cls = _FAMILIES[cfg.family]
+    return cls(cfg, device=device)
 
 
-__all__ = ["NOT_PORTED", "TransformerModel", "get_model"]
+__all__ = ["Mamba2Model", "NOT_PORTED", "RWKV6Model", "TransformerModel",
+           "Zamba2Model", "get_model"]

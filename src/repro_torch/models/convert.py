@@ -1,12 +1,14 @@
 """Weights carried across from the reference package.
 
-The reference's ``TransformerModel.init`` returns a pytree whose layer
-weights are stacked on axis 0 (its ``vmap``-ed layer init).  Given that
-tree as numpy arrays (``jax.tree.map(np.asarray, params)``),
-:func:`load_reference_params` splits the stack into one dict per layer and
-installs every array, in its own dtype (ml_dtypes ``bfloat16`` becomes
-``torch.bfloat16``), on the model's device, so both packages compute with
-the same weights.  Nothing of the reference package is imported.
+The reference's models' ``init`` returns a pytree whose layer weights are
+stacked on axis 0 (its ``vmap``-ed layer init), and so are Zamba2's shared
+blocks (``shared``, axis 0 = ``num_shared_attn_blocks``).  Given that tree
+as numpy arrays (``jax.tree.map(np.asarray, params)``),
+:func:`load_reference_params` splits each stack into one dict per layer or
+block and installs every array, in its own dtype (ml_dtypes ``bfloat16``
+becomes ``torch.bfloat16``), on the model's device, so both packages
+compute with the same weights.  Nothing of the reference package is
+imported.
 """
 
 from __future__ import annotations
@@ -34,13 +36,16 @@ def _tensors(tree: Mapping, device: torch.device, index=None) -> Dict:
 
 def load_reference_params(model, params: Mapping):
     """Installs the reference's param tree ``params`` (numpy leaves) into
-    ``model`` (a :class:`~repro_torch.models.transformer.TransformerModel`
-    of the same config); returns the model."""
+    ``model`` (a port model of the same config: transformer, Mamba2, RWKV6
+    or Zamba2); returns the model."""
     if "layers" not in params:
-        raise ValueError(f"not a transformer param tree: keys "
-                         f"{sorted(params)}")
-    n = model.cfg.num_layers
-    layers = [_tensors(params["layers"], model.device, i) for i in range(n)]
-    top = _tensors({k: v for k, v in params.items() if k != "layers"},
+        raise ValueError(f"not a model's param tree: keys {sorted(params)}")
+    cfg = model.cfg
+    stacks = {"layers": cfg.num_layers}
+    if "shared" in params:
+        stacks["shared"] = cfg.num_shared_attn_blocks
+    split = {k: [_tensors(params[k], model.device, i) for i in range(n)]
+             for k, n in stacks.items()}
+    top = _tensors({k: v for k, v in params.items() if k not in stacks},
                    model.device)
-    return model.set_params(layers, top)
+    return model.set_params(split.pop("layers"), top, *split.values())

@@ -30,32 +30,15 @@ from __future__ import annotations
 from typing import Dict, Optional, Tuple
 
 import torch
-from torch import nn
 
-from repro_torch.configs.base import ArchConfig
-from repro_torch.core.runtime import resolve_device
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
+from repro_torch.models.base import ZooModel
 
 Cache = Dict[str, torch.Tensor]
 
 
-def _param_dict(tree: Dict) -> nn.ParameterDict:
-    """A nested dict of tensors as (nested) ParameterDicts, no gradient."""
-    return nn.ParameterDict({
-        k: _param_dict(v) if isinstance(v, dict)
-        else nn.Parameter(v, requires_grad=False)
-        for k, v in tree.items()})
-
-
-class TransformerModel(nn.Module):
-    def __init__(self, cfg: ArchConfig, device=None):
-        super().__init__()
-        self.cfg = cfg
-        self.device = resolve_device(device, "device")
-        self.layers: Optional[nn.ModuleList] = None
-        self.top: Optional[nn.ParameterDict] = None
-
+class TransformerModel(ZooModel):
     # ------------------------------------------------------------------ init
     def _layer_init(self, gen: torch.Generator) -> Dict:
         cfg = self.cfg
@@ -80,41 +63,16 @@ class TransformerModel(nn.Module):
         """Random weights (the reference's initializers) drawn from
         ``generator``, which must live on the model's device."""
         cfg = self.cfg
-        if generator.device.type != self.device.type:
-            raise ValueError(f"the generator is on {generator.device}, the "
-                             f"model on {self.device}")
+        self._check_generator(generator)
         with torch.device(self.device):
             layers = [self._layer_init(generator)
                       for _ in range(cfg.num_layers)]
-            top = {
-                "final_norm": torch.ones((cfg.d_model,), dtype=cfg.pdtype),
-                "lm_head": L.dense_init(generator,
-                                        (cfg.d_model, cfg.vocab_size), 0,
-                                        cfg.pdtype),
-            }
             # the embedding table exists unless the arch never consumes
             # tokens (an encoder with a stubbed frontend); a causal
             # stub-frontend arch (VLM) still decodes text tokens
-            if not cfg.embedding_input or cfg.causal:
-                top["embed"] = L.embedding_init(
-                    generator, cfg.vocab_size, cfg.d_model, cfg.pdtype)
+            top = self._top_init(generator, embed=not cfg.embedding_input
+                                 or cfg.causal)
         return self.set_params(layers, top)
-
-    def set_params(self, layers, top: Dict) -> "TransformerModel":
-        """Installs the weights: one dict per layer (the reference's layer
-        tree) and the top-level ``final_norm``, ``lm_head`` and ``embed``."""
-        if len(layers) != self.cfg.num_layers:
-            raise ValueError(f"{len(layers)} layers given, the config has "
-                             f"{self.cfg.num_layers}")
-        self.layers = nn.ModuleList(_param_dict(lp) for lp in layers)
-        self.top = _param_dict(top)
-        return self
-
-    def _params(self):
-        if self.layers is None:
-            raise RuntimeError("the model has no weights: call init() or "
-                               "models.convert.load_reference_params()")
-        return self.top
 
     # ----------------------------------------------------------------- layer
     def _mlp(self, lp, xn: torch.Tensor, groups: Optional[int]):
@@ -138,17 +96,6 @@ class TransformerModel(nn.Module):
         y = self._mlp(lp, L.rms_norm(x, lp["mlp_norm"], cfg.norm_eps),
                       cfg.moe_groups)
         return x + y, kv
-
-    def _embed(self, top, inputs: torch.Tensor) -> torch.Tensor:
-        cfg = self.cfg
-        inputs = inputs.to(self.device)
-        if cfg.embedding_input:
-            return inputs.to(cfg.adtype)
-        return top["embed"][inputs].to(cfg.adtype)
-
-    def _head(self, top, x: torch.Tensor) -> torch.Tensor:
-        x = L.rms_norm(x, top["final_norm"], self.cfg.norm_eps)
-        return x @ top["lm_head"].to(x.dtype)
 
     # --------------------------------------------------------------- forward
     @torch.no_grad()

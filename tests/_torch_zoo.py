@@ -11,7 +11,7 @@ import torch
 from repro.configs import get_arch as r_get_arch
 from repro.models import get_model as r_get_model
 from repro_torch.configs import get_arch
-from repro_torch.models import TransformerModel
+from repro_torch.models import get_model
 from repro_torch.models.convert import load_reference_params
 
 CPU = "cpu"
@@ -19,7 +19,9 @@ KEY = jax.random.PRNGKey(0)
 TRANSFORMER_ARCHS = ["qwen2.5-3b", "codeqwen1.5-7b", "stablelm-1.6b",
                      "llama3.2-3b", "internvl2-26b", "hubert-xlarge",
                      "qwen3-moe-235b-a22b", "deepseek-moe-16b"]
-CAUSAL_ARCHS = [a for a in TRANSFORMER_ARCHS if get_arch(a).causal]
+SSM_ARCHS = ["rwkv6-1.6b", "zamba2-1.2b"]      # the families ssm, hybrid
+ARCHS = TRANSFORMER_ARCHS + SSM_ARCHS
+CAUSAL_ARCHS = [a for a in ARCHS if get_arch(a).causal]
 B, S, STEPS = 2, 16, 3
 
 
@@ -46,12 +48,13 @@ def inputs(cfg, seed=0, Bq=B, Sq=S):
 
 
 @functools.lru_cache(maxsize=None)
-def reference(arch, decode: bool = False):
-    """The reference's smoke model on seed-0 weights, in one jitted call:
-    params and the forward logits (numpy); with ``decode``, the prefill
-    (room for STEPS + 1 more tokens) and STEPS greedy decode steps, each
-    (logits, cache), and the tokens fed to them."""
-    cfg = r_get_arch(arch).smoke()
+def reference(arch, decode: bool = False, **overrides):
+    """The reference's smoke model (with ``overrides`` of its config) on
+    seed-0 weights, in one jitted call: params and the forward logits
+    (numpy); with ``decode``, the prefill (room for STEPS + 1 more tokens)
+    and STEPS greedy decode steps, each (logits, cache), and the tokens fed
+    to them."""
+    cfg = r_get_arch(arch).smoke().replace(**overrides)
     model = r_get_model(cfg)
 
     def run(key, x):
@@ -75,7 +78,50 @@ def reference(arch, decode: bool = False):
     return out
 
 
-def port_model(arch, ref):
-    """The port's smoke model of ``arch`` on the reference's weights."""
-    return load_reference_params(
-        TransformerModel(get_arch(arch).smoke(), device=CPU), ref["params"])
+def port_model(arch, ref, **overrides):
+    """The port's smoke model of ``arch`` (its family's class, with
+    ``overrides`` of the config) on the reference's weights."""
+    cfg = get_arch(arch).smoke().replace(**overrides)
+    return load_reference_params(get_model(cfg, device=CPU), ref["params"])
+
+
+def close_cache(cache, ref, tol):
+    """The port's cache against the reference's: the same keys, ``len``
+    equal, every state tensor within ``tol``."""
+    assert set(cache) == set(ref)
+    for k in ref:
+        if k == "len":
+            np.testing.assert_array_equal(cache[k].numpy(), ref[k])
+        else:
+            close(cache[k], ref[k], tol)
+
+
+def check_port_init(model, ref_params):
+    """The port's own init against the reference's (same config): the same
+    names, shapes and dtypes; a constant (norms, biases, mix and decay
+    constants) equal to the reference's exactly; a random weight cut at
+    two standard deviations of its fan-in scale."""
+    flat = {}
+    for path, leaf in jax.tree_util.tree_flatten_with_path(ref_params)[0]:
+        flat[".".join(str(p.key) for p in path)] = leaf
+    seen = set()
+    for name, p in model.named_parameters():
+        if name.startswith(("layers.", "shared.")):
+            stack, i, rest = name.split(".", 2)
+            key = f"{stack}.{rest}"
+            r = flat[key][int(i)]
+        else:
+            key = name.split(".", 1)[1]
+            r = flat[key]
+        seen.add(key)
+        assert tuple(p.shape) == r.shape, name
+        assert str(p.dtype).split(".")[1] == r.dtype.name, name
+        if (r == r.flat[0]).all():
+            np.testing.assert_array_equal(n(p), n(r), err_msg=name)
+            continue
+        fan_in = p.shape[-1] if name.endswith("embed") else p.shape[-2]
+        std = 1.0 / np.sqrt(fan_in)
+        cut = 2 * std * (1 + max(1e-6, torch.finfo(p.dtype).eps))
+        assert float(p.abs().max()) <= cut, name
+        assert 0.7 * std < float(p.float().std()) < 1.0 * std, name
+    assert seen == set(flat)

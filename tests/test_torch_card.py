@@ -262,7 +262,7 @@ def test_syrk_matches_in_core_bitwise(card, backend):
 @pytest.mark.parametrize("B,H,hkv,d,S,block_s", [
     (1, 8, 2, 64, 512, 128), (2, 16, 16, 64, 1000, 256),
     (3, 8, 1, 128, 384, 128), (2, 4, 4, 80, 300, 128),
-    (1, 24, 8, 128, 8192, 512)])
+    (1, 24, 8, 128, 8192, 512), (4, 32, 32, 64, 544, 512)])
 @pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16,
                                    torch.float16])
 def test_flash_attention_matches_plain_version(card, dtype, B, H, hkv, d, S,
@@ -1087,11 +1087,14 @@ def test_from_spans_places_card_spans(card, kind, mode):
 
 # ------------------------------------------------------------ model serving
 @pytest.mark.parametrize("arch", ["llama3.2-3b", "qwen2.5-3b",
-                                  "deepseek-moe-16b"])
+                                  "deepseek-moe-16b", "rwkv6-1.6b",
+                                  "zamba2-1.2b"])
 def test_smoke_decode_launches_kernel_2_per_layer_and_step(card, arch):
     """A smoke-size model on the card: each decode step launches kernel 2's
-    two passes once per layer, and teacher-forced decode stays within the
-    reference test's 2e-3 of forward's logits (float32, TF32 off)."""
+    two passes once per attention layer (every layer of a transformer,
+    every shared-attention site of Zamba2, none in RWKV6), and
+    teacher-forced decode stays within the reference test's 2e-3 of
+    forward's logits (float32, TF32 off)."""
     from repro_torch.configs import get_arch
     from repro_torch.models import get_model
 
@@ -1099,6 +1102,8 @@ def test_smoke_decode_launches_kernel_2_per_layer_and_step(card, arch):
     gen = torch.Generator(device=card).manual_seed(0)
     model = get_model(cfg).init(gen)
     assert model.device.type == "cuda"
+    per_step = {"ssm": 0, "hybrid": getattr(model, "n_sites", None)}.get(
+        cfg.family, cfg.num_layers)
     toks = torch.randint(0, cfg.vocab_size, (2, 12), generator=gen,
                          device=card)
     full = model.forward(toks)
@@ -1110,7 +1115,7 @@ def test_smoke_decode_launches_kernel_2_per_layer_and_step(card, arch):
         torch.testing.assert_close(logits, full[:, i], rtol=2e-3, atol=2e-3)
     assert (kfa.flash_partial.launches - before[0],
             kfa.flash_combine.launches - before[1]) == (
-        cfg.num_layers * steps, cfg.num_layers * steps)
+        per_step * steps, per_step * steps)
     assert cache["len"].tolist() == [12, 12]
 
 

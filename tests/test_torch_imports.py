@@ -45,6 +45,8 @@ assert {"repro_torch.obs.analyze", "repro_torch.obs.whatif",
 assert {"repro_torch.configs", "repro_torch.configs.base",
         "repro_torch.models.layers", "repro_torch.models.moe",
         "repro_torch.models.transformer", "repro_torch.models.convert",
+        "repro_torch.models.base", "repro_torch.models.mamba2",
+        "repro_torch.models.rwkv6", "repro_torch.models.zamba2",
         "repro_torch.training.steps", "repro_torch.launch.serve",
         "repro_torch.examples.serve_decode"} <= set(sys.modules)
 """
@@ -94,7 +96,9 @@ def no_card():
                                    "hybrid_cholesky", "hybrid_runtime",
                                    "hybrid_factory", "run_hybrid_gemm",
                                    "transformer_model", "get_model",
-                                   "serve_main"])
+                                   "serve_main", "mamba2_model",
+                                   "rwkv6_model", "zamba2_model",
+                                   "get_model_ssm", "serve_main_hybrid"])
 def test_default_device_raises_without_a_card(no_card, entry):
     import numpy as np
 
@@ -106,7 +110,8 @@ def test_default_device_raises_without_a_card(no_card, entry):
     from repro_torch.configs import get_arch
     from repro_torch.examples.mmooc_via_api import mmooc
     from repro_torch.launch import serve
-    from repro_torch.models import TransformerModel, get_model
+    from repro_torch.models import (Mamba2Model, RWKV6Model,
+                                    TransformerModel, Zamba2Model, get_model)
 
     A = np.ones((64, 64), np.float32)
     cfg = get_arch("llama3.2-3b").smoke()
@@ -147,6 +152,14 @@ def test_default_device_raises_without_a_card(no_card, entry):
         "get_model": lambda: get_model(cfg),
         "serve_main": lambda: serve.main(["--arch", "llama3.2-3b",
                                           "--smoke"]),
+        "mamba2_model": lambda: Mamba2Model(
+            get_arch("zamba2-1.2b").smoke().replace(shared_attn_every=0,
+                                                    family="ssm")),
+        "rwkv6_model": lambda: RWKV6Model(get_arch("rwkv6-1.6b").smoke()),
+        "zamba2_model": lambda: Zamba2Model(get_arch("zamba2-1.2b").smoke()),
+        "get_model_ssm": lambda: get_model(get_arch("rwkv6-1.6b").smoke()),
+        "serve_main_hybrid": lambda: serve.main(["--arch", "zamba2-1.2b",
+                                                 "--smoke"]),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()

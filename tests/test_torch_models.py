@@ -1,4 +1,4 @@
-"""The port's transformer models against the reference.
+"""The port's models against the reference.
 
 Inputs are numpy arrays from a seed; the reference's weights reach the port
 through ``repro_torch.models.convert``, so both packages compute with the
@@ -9,23 +9,24 @@ serving twins (prefill, decode, ``launch.serve``) in
 ``test_torch_serve.py``.
 """
 
-import jax
 import numpy as np
 import pytest
 import torch
 
+from repro.configs import get_arch as r_get_arch
+from repro.models import get_model as r_get_model
 from repro.training import steps as r_steps
-from repro_torch.configs import get_arch
+from repro_torch.configs import ARCH_IDS, get_arch
 from repro_torch.models import NOT_PORTED, TransformerModel, get_model
 from repro_torch.training import steps as t_steps
 
 from _torch_helpers import one_torch_thread  # noqa: F401 (autouse)
-from _torch_zoo import (B, CPU, S, TRANSFORMER_ARCHS, close, n, port_model,
+from _torch_zoo import (ARCHS, B, CPU, S, check_port_init, close, port_model,
                         reference, t)
 
 
 # ------------------------------------------------------------------ models
-@pytest.mark.parametrize("arch", TRANSFORMER_ARCHS)
+@pytest.mark.parametrize("arch", ARCHS)
 def test_forward_matches_reference(arch):
     ref = reference(arch)
     logits = port_model(arch, ref).forward(t(ref["inputs"]))
@@ -35,38 +36,28 @@ def test_forward_matches_reference(arch):
 
 def test_port_init_is_the_reference_distribution():
     """The port draws its own weights (a torch generator, not JAX's keys):
-    same shapes, dtypes and fan-in scale, cut at two standard deviations."""
+    same shapes, dtypes and fan-in scale, cut at two standard deviations;
+    constants equal to the reference's."""
     cfg = get_arch("deepseek-moe-16b").smoke()
     model = TransformerModel(cfg, device=CPU).init(
         torch.Generator().manual_seed(0))
-    ref = reference("deepseek-moe-16b")["params"]
-    flat = {}
-    for path, leaf in jax.tree_util.tree_flatten_with_path(ref)[0]:
-        flat[".".join(str(p.key) for p in path)] = leaf
-    seen = set()
-    for name, p in model.named_parameters():
-        if name.startswith("layers."):
-            i, rest = name.split(".", 2)[1:]
-            key, r = "layers." + rest, flat["layers." + rest][int(i)]
-        else:
-            key = name.split(".", 1)[1]
-            r = flat[key]
-        seen.add(key)
-        assert tuple(p.shape) == r.shape and n(p).dtype == r.dtype, name
-        if "norm" in name or name.split(".")[-1].startswith("b"):
-            continue
-        fan_in = p.shape[-1] if name.endswith("embed") else p.shape[-2]
-        std = 1.0 / np.sqrt(fan_in)
-        assert float(p.abs().max()) <= 2 * std * (1 + 1e-6), name
-        assert 0.7 * std < float(p.std()) < 1.0 * std, name
-    assert seen == set(flat)
+    check_port_init(model, reference("deepseek-moe-16b")["params"])
 
 
-def test_ssm_families_are_not_ported():
-    for arch in ("rwkv6-1.6b", "zamba2-1.2b"):
-        with pytest.raises(NotImplementedError, match="item 12b"):
-            get_model(get_arch(arch).smoke(), device=CPU)
-    assert set(NOT_PORTED) == {"ssm", "hybrid"}
+def test_every_family_is_ported():
+    """Nothing is left out of ``get_model``: each arch (and the pure-Mamba2
+    variant, the family ``ssm`` with a state) gets the class of the
+    reference's own ``get_model``."""
+    assert NOT_PORTED == {}
+    cfgs = [get_arch(a).smoke() for a in ARCH_IDS] + [
+        get_arch("zamba2-1.2b").smoke().replace(shared_attn_every=0,
+                                                family="ssm")]
+    for cfg in cfgs:
+        rcfg = r_get_arch(cfg.name).smoke().replace(
+            family=cfg.family, shared_attn_every=cfg.shared_attn_every)
+        ours = get_model(cfg, device=CPU)
+        assert type(ours).__name__ == type(r_get_model(rcfg)).__name__
+        assert ours.device == torch.device(CPU)
 
 
 def test_model_without_a_device_needs_a_card():

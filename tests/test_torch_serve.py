@@ -1,5 +1,5 @@
 """The port's serving path (prefill, decode, ``launch.serve``) against the
-reference.
+reference, for the transformers and the state-space families.
 
 Prompts are numpy arrays from a seed; the reference's weights reach the
 port through ``repro_torch.models.convert``.  On the CPU each decode step's
@@ -24,14 +24,8 @@ from repro_torch.models import TransformerModel, get_model
 from repro_torch.training import steps as t_steps
 
 from _torch_helpers import one_torch_thread  # noqa: F401 (autouse)
-from _torch_zoo import (B, CAUSAL_ARCHS, CPU, S, STEPS, close, inputs,
-                        port_model, reference, t)
-
-
-def _close_cache(cache, ref, tol):
-    close(cache["k"], ref["k"], tol)
-    close(cache["v"], ref["v"], tol)
-    np.testing.assert_array_equal(cache["len"].numpy(), ref["len"])
+from _torch_zoo import (B, CAUSAL_ARCHS, CPU, S, STEPS, close, close_cache,
+                        inputs, port_model, reference, t)
 
 
 @pytest.mark.parametrize("arch", CAUSAL_ARCHS)
@@ -42,11 +36,11 @@ def test_prefill_and_decode_match_reference(arch):
     model = port_model(arch, ref)
     logits, cache = model.prefill(t(ref["inputs"]), max_len=S + STEPS + 1)
     close(logits, ref["steps"][0][0], 1e-4)
-    _close_cache(cache, ref["steps"][0][1], 1e-4)
+    close_cache(cache, ref["steps"][0][1], 1e-4)
     for tok, (r_logits, r_cache) in zip(ref["tokens"], ref["steps"][1:]):
         logits, cache = model.decode(cache, t(tok))
         close(logits, r_logits, 1e-4)
-        _close_cache(cache, r_cache, 1e-4)
+        close_cache(cache, r_cache, 1e-4)
 
 
 @pytest.mark.parametrize("arch", CAUSAL_ARCHS)
@@ -59,7 +53,7 @@ def test_generate_gives_the_reference_tokens(arch):
     expect = np.stack(ref["tokens"] + [last_logits.argmax(-1)], axis=1)
     np.testing.assert_array_equal(res["tokens"].numpy(), expect)
     close(res["logits"], last_logits, 1e-4)
-    _close_cache(res["cache"], last_cache, 1e-4)
+    close_cache(res["cache"], last_cache, 1e-4)
     assert res["prefill_s"] > 0 and res["decode_s"] > 0
     assert "decode_mallocs" not in res          # measured on a card only
 
@@ -91,13 +85,16 @@ def test_generate_long_greedy_run_matches_reference_loop(arch):
 @pytest.mark.parametrize("arch", CAUSAL_ARCHS)
 def test_arch_smoke_decode(arch):
     """Twin of ``test_models.py::test_arch_smoke_decode`` on the port's own
-    init: prefill + 3 decode steps, shapes, finiteness, cache length."""
+    init: prefill + 3 decode steps, shapes, finiteness, cache length; the
+    cache has the reference's ``cache_specs`` (names, shapes, dtypes)."""
     cfg = get_arch(arch).smoke()
     model = get_model(cfg, device=CPU).init(torch.Generator().manual_seed(0))
     logits, cache = model.prefill(t(inputs(cfg, seed=1)), max_len=S + 4)
     assert logits.shape == (B, cfg.vocab_size)
-    assert cache["k"].shape == (cfg.num_layers, B, S + 4, cfg.num_kv_heads,
-                                cfg.head_dim_)
+    specs = r_get_model(r_get_arch(arch).smoke()).cache_specs(B, S + 4)
+    assert {k: (tuple(v.shape), str(v.dtype).split(".")[1])
+            for k, v in cache.items()} == {
+        k: (tuple(v.shape), v.dtype.name) for k, v in specs.items()}
     for _ in range(3):
         logits, cache = model.decode(cache, logits.argmax(-1))
         assert bool(torch.isfinite(logits).all())
@@ -137,8 +134,23 @@ def test_serving_steps_wrap_the_model():
     close(logits, ref["steps"][1][0], 1e-4)
 
 
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-1.2b"])
+def test_serving_steps_wrap_the_ssm_models(arch):
+    """The serving steps take the state-space families unchanged."""
+    ref = reference(arch, decode=True)
+    model = port_model(arch, ref)
+    logits, cache = t_steps.build_prefill_step(model, max_len=S + STEPS + 1)(
+        t(ref["inputs"]))
+    close(logits, ref["steps"][0][0], 1e-4)
+    logits, cache = t_steps.build_decode_step(model)(cache,
+                                                     t(ref["tokens"][0]))
+    close(logits, ref["steps"][1][0], 1e-4)
+    close_cache(cache, ref["steps"][1][1], 1e-4)
+
+
 @pytest.mark.parametrize("arch", ["llama3.2-3b", "qwen2.5-3b",
-                                  "deepseek-moe-16b", "internvl2-26b"])
+                                  "deepseek-moe-16b", "internvl2-26b",
+                                  "rwkv6-1.6b", "zamba2-1.2b"])
 def test_serve_main_smoke_on_cpu(arch, capsys):
     out = serve.main(["--arch", arch, "--smoke", "--batch", "2",
                       "--prompt-len", "12", "--gen", "5", "--device", CPU])
@@ -167,4 +179,10 @@ def test_serve_main_same_seed_same_tokens():
 
 def test_serve_decode_example_on_cpu(capsys):
     serve_decode.main(["--cpu", "--arch", "llama3.2-3b"])
+    assert "serve_decode OK" in capsys.readouterr().out
+
+
+@pytest.mark.parametrize("arch", ["rwkv6-1.6b", "zamba2-1.2b"])
+def test_serve_decode_example_serves_the_ssm_families(arch, capsys):
+    serve_decode.main(["--cpu", "--arch", arch])
     assert "serve_decode OK" in capsys.readouterr().out
