@@ -183,7 +183,33 @@ printing any result.  Phases (each raises on failure; none is skipped):
      device time and the costliest device ops a step.  Kernel 2 launches
      once per attention layer and decode step: every layer of a
      transformer, every site of Zamba2 (held against its plain versions
-     at the first and last site), none in RWKV6.
+     at the first and last site), none in RWKV6.  ``forward`` runs under
+     ``torch.inference_mode`` there: serving records no autograd graph.
+ 15. the training path (``[train]`` lines; after phase 14, each part's
+     tensors freed before the next): (a) one float32 train step of
+     stablelm-1.6b at full width and 2 layers (B 2, S 64, TF32 off) on the
+     card against the same step on the CPU, whose path the CPU tests hold
+     to the reference: the loss within 1e-5 relative, ``grad_norm`` within
+     1e-4, every gradient leaf within 1e-3 of its largest magnitude, and
+     ``adamw.update`` on the same gradients on both sides, the parameters
+     within 1e-6; (b) ``launch/train.main`` on stablelm-1.6b at full width
+     and depth (24 layers, bf16 parameters with the f32 master, remat as
+     the config sets it, B 8, S 512), 3 warm steps and 10 timed: the step's
+     median and spread, tokens/s, model TFLOP/s (6 N T, N the
+     non-embedding parameters) and their share of the bf16 tensor-core
+     peak, peak device memory beside the train state's bytes, the loss
+     falling, then ``torch.profiler`` over 2 more steps (device busy share,
+     device ops a step, the costliest ops) and ``adamw.update`` alone
+     (its ms, device ops and bytes floor); (c) rwkv6-1.6b and zamba2-1.2b
+     in bf16 at full width and depth (B 4, S 512): one warm step through
+     ``launch/train.main``, one timed step under ``torch.profiler``, peak
+     memory; (d) the reference test's restart at the smoke size (14 steps
+     against 7, a checkpoint and 7 resumed, rtol 1e-4) under
+     ``torch.use_deterministic_algorithms`` in a process of its own, with
+     the save and restore seconds; (e) ``python -m
+     repro_torch.examples.train_lm`` (180 M parameters, 200 steps) ending
+     ``train_lm OK``.  No kernel of the three runs on this path (training
+     attention is the blocked float32 attention, not kernel 2).
 
 With ``--baseline DIR`` (another checkout, e.g. ``git archive`` of the
 parent commit unpacked into a directory ``.gitignore`` lists), phase 5 is
@@ -3625,7 +3651,8 @@ def serve_teacher_forced(report, card, arch, B, P, S, key, part):
     torch.cuda.synchronize()
     t_init = time.perf_counter() - t0
     t0 = time.perf_counter()
-    full = model.forward(toks)                                  # (B, S, V)
+    with torch.inference_mode():                 # serving: no graph
+        full = model.forward(toks)                              # (B, S, V)
     torch.cuda.synchronize()
     t_forward = time.perf_counter() - t0
     steps = S - P
@@ -3866,30 +3893,37 @@ def moe_witness(model, prompts, inputs, kept):
                 x.float(), emb.float(), dim=-1).mean().item()}
 
 
+def raw_device_ops(prof):
+    """Device time (us), device ops and, by name, [us, count] of a
+    ``torch.profiler`` run, read from its raw events (fast where the
+    profiler's own aggregation of hundreds of thousands of events is
+    not)."""
+    from torch.autograd import DeviceType
+
+    total, n, by_name = 0.0, 0, {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CUDA:
+            continue
+        us = e.duration_ns() / 1e3
+        total += us
+        n += 1
+        slot = by_name.setdefault(e.name(), [0.0, 0])
+        slot[0] += us
+        slot[1] += 1
+    return total, n, by_name
+
+
 def device_times(prof):
     """Device time (us), device ops and kernel 2's time and ops in a
     ``torch.profiler`` run, and its device ops by self time (name, us,
     count), costliest first."""
-    from torch.autograd import DeviceType
-
-    dev_us = k2_us = 0.0
-    n_events = k2_calls = 0
-    by_name = []
-    for evt in prof.key_averages():
-        if evt.device_type != DeviceType.CUDA:
-            continue
-        t = getattr(evt, "self_device_time_total", None)
-        if t is None:
-            t = evt.self_cuda_time_total
-        dev_us += t
-        n_events += evt.count
-        by_name.append((evt.key, t, evt.count))
-        if "flash_partial_kernel" in evt.key or \
-                "flash_combine_kernel" in evt.key:
-            k2_us += t
-            k2_calls += evt.count
-    by_name.sort(key=lambda r: -r[1])
-    return dev_us, n_events, k2_us, k2_calls, by_name
+    dev_us, n_events, by = raw_device_ops(prof)
+    k2 = [v for k, v in by.items() if "flash_partial_kernel" in k
+          or "flash_combine_kernel" in k]
+    by_name = sorted(((k, us, c) for k, (us, c) in by.items()),
+                     key=lambda r: -r[1])
+    return (dev_us, n_events, sum(v[0] for v in k2), sum(v[1] for v in k2),
+            by_name)
 
 
 def profile_decode(model, prompts, gen, card, part):
@@ -4139,6 +4173,400 @@ def phase_serve(report, card):
                  f"{json.dumps(took)})")
 
 
+# phase 15 (training): (a) the card's float32 step against the CPU's at
+# full width and 2 layers; (b) launch/train.main at full width and depth;
+# (c) the state-space families; (d) restart; (e) the train_lm example
+TRAIN_CHECK = ("stablelm-1.6b", 2, 2, 64)          # arch, layers, B, S
+TRAIN_MAIN = ("stablelm-1.6b", 8, 512, 3, 10)      # arch, B, S, warm, timed
+TRAIN_PROFILE_STEPS = 2
+TRAIN_SSM = (("rwkv6-1.6b", 4, 512), ("zamba2-1.2b", 4, 512))
+# the reference tests' train-step optimizer: the first step at full lr
+TRAIN_OPT = dict(lr=1e-2, warmup_steps=1, total_steps=10)
+
+# (d) in a process of its own: cuBLAS is deterministic only with its
+# workspace fixed before its first call
+RESTART_CODE = r"""
+import json, sys, tempfile, time
+import numpy as np, torch
+torch.use_deterministic_algorithms(True)
+torch.backends.cuda.matmul.allow_tf32 = False
+from repro_torch.checkpoint import CheckpointManager
+from repro_torch.launch.train import main
+times = {"save": [], "wait": [], "restore": []}
+def timed(name, fn):
+    def run(*a, **k):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a, **k)
+        times[name].append(time.perf_counter() - t0)
+        return out
+    return run
+CheckpointManager.save = timed("save", CheckpointManager.save)
+CheckpointManager.wait = timed("wait", CheckpointManager.wait)
+CheckpointManager.restore = timed("restore", CheckpointManager.restore)
+args = ["--arch", "stablelm-1.6b", "--smoke", "--batch", "2", "--seq", "32",
+        "--log-every", "100", "--device", "cuda"]
+ck = tempfile.mkdtemp()
+full = main(args + ["--steps", "14"])["losses"]
+part1 = main(args + ["--steps", "7", "--total-steps", "14", "--ckpt-dir", ck,
+                     "--ckpt-every", "7"])["losses"]
+part2 = main(args + ["--steps", "14", "--ckpt-dir", ck, "--resume",
+                     "auto"])["losses"]
+print("RESTART " + json.dumps({"full": full, "resumed": part1 + part2,
+                               "times": times}))
+"""
+
+
+def profiled(fn, steps=1):
+    """``fn()`` ``steps`` times under ``torch.profiler`` (CUDA activity
+    only): host seconds a call (ending in a device synchronise), device
+    busy ms and device ops a call, and the costliest device ops a call."""
+    from torch.profiler import ProfilerActivity, profile
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(steps):
+            fn()
+        torch.cuda.synchronize()
+        wall = (time.perf_counter() - t0) / steps
+    dev_us, n, by_name = raw_device_ops(prof)
+    top = sorted(by_name.items(), key=lambda kv: -kv[1][0])[:5]
+    return {"wall_ms": wall * 1e3, "device_ms": dev_us / steps / 1e3,
+            "device_ops": n / steps, "busy": dev_us / 1e3 / steps
+            / (wall * 1e3),
+            "top": [{"op": k[:80], "ms": v[0] / steps / 1e3,
+                     "count": v[1] / steps} for k, v in top]}
+
+
+def top_text(rows):
+    return ", ".join(f"{o['op'][:48]} {o['ms']:.3f} ms x {o['count']:.0f}"
+                     for o in rows)
+
+
+def state_bytes(state):
+    """Bytes of a train state's tensors (params and optimizer state)."""
+    def leaves(t):
+        for v in t.values():
+            if isinstance(v, dict):
+                yield from leaves(v)
+            else:
+                yield v
+    return sum(t.numel() * t.element_size() for t in leaves(state))
+
+
+def value_and_grads(model, batch):
+    from repro_torch.training import steps as tsteps
+
+    params = dict(model.named_parameters())
+    loss = tsteps.build_loss_fn(model)(batch)
+    grads = torch.autograd.grad(loss, list(params.values()))
+    return loss.detach(), dict(zip(params, grads))
+
+
+def train_check(report, card):
+    """(a) One float32 train step of stablelm-1.6b at full width and 2
+    layers on the card against the same step on the CPU (the CPU path is
+    held to the reference by the CPU tests): loss within 1e-5 relative,
+    ``grad_norm`` within 1e-4, every gradient leaf within 1e-3 of its
+    largest magnitude; then AdamW fed the CPU's gradients on both sides,
+    the parameters within 1e-6."""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import get_model
+    from repro_torch.optim import AdamWConfig, adamw
+    from repro_torch.training import steps as tsteps
+
+    arch, layers, B, S = TRAIN_CHECK
+    cfg = get_arch(arch).replace(num_layers=layers, param_dtype="float32",
+                                 act_dtype="float32")
+    t0 = time.perf_counter()
+    cpu = get_model(cfg, device="cpu").init(
+        torch.Generator().manual_seed(SEED))
+    gpu = get_model(cfg).init(torch.Generator(device="cuda"))
+    gpu.load_state_dict(cpu.state_dict())
+    gen = torch.Generator().manual_seed(SEED + 1)
+    batch = {k: torch.randint(0, cfg.vocab_size, (B, S), generator=gen)
+             for k in ("inputs", "labels")}
+    t_init = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loss_c, grads_c = value_and_grads(cpu, batch)
+    t_cpu = time.perf_counter() - t0
+    loss_g, grads_g = value_and_grads(gpu, {k: v.to("cuda")
+                                            for k, v in batch.items()})
+    norm_c = adamw.global_norm(grads_c.values())
+    norm_g = adamw.global_norm(grads_g.values()).cpu()
+    loss_err = abs(loss_g.item() - loss_c.item()) / abs(loss_c.item())
+    norm_err = abs(norm_g.item() - norm_c.item()) / norm_c.item()
+    leaf = {k: ((grads_g[k].cpu() - g).abs().max()
+                / g.abs().max().clamp_min(1e-30)).item()
+            for k, g in grads_c.items()}
+    worst = max(leaf, key=leaf.get)
+    require(loss_err <= 1e-5, f"train (a): loss {loss_g.item()} on the "
+                              f"card, {loss_c.item()} on the CPU")
+    require(norm_err <= 1e-4, f"train (a): grad_norm {norm_g.item()} on "
+                              f"the card, {norm_c.item()} on the CPU")
+    require(leaf[worst] <= 1e-3, f"train (a): gradient {worst} off by "
+                                 f"{leaf[worst]:.3g} of its max")
+    opt = AdamWConfig(**TRAIN_OPT)
+    out = []
+    for model, grads in ((cpu, grads_c),
+                         (gpu, {k: g.to("cuda") for k, g in grads_c.items()})):
+        state = tsteps.train_state(model, opt)
+        adamw.update(grads, state["opt"], state["params"], opt)
+        out.append(state["params"])
+    p_err = max((out[1][k].detach().cpu() - p.detach()).abs().max().item()
+                for k, p in out[0].items())
+    require(p_err <= 1e-6, f"train (a): parameters after AdamW off by "
+                           f"{p_err:.3g}")
+    row = {"part": "a", "arch": arch, "layers": layers, "B": B, "S": S,
+           "loss_card": loss_g.item(), "loss_cpu": loss_c.item(),
+           "loss_rel_err": loss_err, "grad_norm_card": norm_g.item(),
+           "grad_norm_cpu": norm_c.item(), "grad_norm_rel_err": norm_err,
+           "worst_leaf": worst, "worst_leaf_err": leaf[worst],
+           "param_err_after_adamw": p_err, "init_s": t_init,
+           "cpu_step_s": t_cpu}
+    report["train"].append(row)
+    say("train", f"(a) {arch} f32 full width, {layers} layers, B={B} S={S}, "
+                 f"TF32 off: loss card {loss_g.item():.7f} / CPU "
+                 f"{loss_c.item():.7f} (rel {loss_err:.2g}, limit 1e-5), "
+                 f"grad_norm {norm_g.item():.6f} / {norm_c.item():.6f} "
+                 f"(rel {norm_err:.2g}, limit 1e-4), {len(leaf)} gradient "
+                 f"leaves within {leaf[worst]:.2g} of their max (worst "
+                 f"{worst}; limit 1e-3); AdamW on the same gradients: "
+                 f"parameters within {p_err:.2g} (limit 1e-6); card {card}")
+    del cpu, gpu, grads_c, grads_g, out
+
+
+def train_main_case(report, card):
+    """(b) ``launch/train.main`` on stablelm-1.6b at full width and depth,
+    bf16 with the f32 master, warm steps then timed ones; then 2 more
+    steps and one ``adamw.update`` under ``torch.profiler``."""
+    from repro_torch.launch import train
+    from repro_torch.optim import AdamWConfig, adamw
+
+    arch, B, S, warm, timed = TRAIN_MAIN
+    name = torch.cuda.get_device_name(0)
+    peak_flops, peak_bw = datasheet(name, torch.bfloat16)
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    res = train.main(["--arch", arch, "--steps", str(warm + timed),
+                      "--batch", str(B), "--seq", str(S), "--seed",
+                      str(SEED), "--log-every", "100", "--device", "cuda"])
+    t_main = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated() - base
+    model, state, step = res["model"], res["state"], res["train_step"]
+    cfg = model.cfg
+    steps_ms = [s * 1e3 for s in res["step_s"][warm:]]
+    med = statistics.median(steps_ms)
+    n_params = sum(p.numel() for p in model.parameters())
+    n_embed = model.top["embed"].numel()
+    T = B * S
+    model_flops = 6 * (n_params - n_embed) * T
+    tflops = model_flops / (med / 1e3) / 1e12
+    sbytes = state_bytes(state)
+    losses = res["losses"]
+    require(all(map(math.isfinite, losses)), f"train (b): losses {losses}")
+    require(losses[-1] < losses[0], f"train (b): loss did not fall: "
+                                    f"{losses[0]} -> {losses[-1]}")
+    src, it = res["source"], iter(range(warm + timed, 10**9))
+
+    def one_step():
+        b = src.batch_at(next(it), B, S)
+        step(state, {k: torch.from_numpy(v).to("cuda") for k, v in b.items()})
+
+    prof = profiled(one_step, TRAIN_PROFILE_STEPS)
+    # AdamW alone, on one step's gradients: timed, then profiled
+    b = src.batch_at(0, B, S)
+    _, grads = value_and_grads(model, {k: torch.from_numpy(v).to("cuda")
+                                       for k, v in b.items()})
+    opt = AdamWConfig(lr=3e-4, total_steps=warm + timed,
+                      warmup_steps=max(1, (warm + timed) // 10))
+    upd = lambda: adamw.update(grads, state["opt"], state["params"],  # noqa
+                               opt)
+    upd_ms = time_ms(upd, reps=3, warmup=1)
+    upd_prof = profiled(upd)
+    grad_bytes = sum(g.numel() * g.element_size() for g in grads.values())
+    # AdamW's floor: read the grads, read and write m, v, master, write
+    # the params
+    upd_bytes = grad_bytes + sum(
+        t.numel() * t.element_size() * (2 if k != "params" else 1)
+        for k, tree in (("m", state["opt"]["m"]), ("v", state["opt"]["v"]),
+                        ("master", state["opt"]["master"]),
+                        ("params", state["params"]))
+        for t in tree.values())
+    row = {"part": "b", "arch": arch, "dtype": str(cfg.pdtype)[6:],
+           "layers": cfg.num_layers, "B": B, "S": S, "remat": cfg.remat,
+           "params": n_params, "non_embedding_params": n_params - n_embed,
+           "warm_steps": warm, "timed_steps": timed,
+           "step_ms": steps_ms, "step_ms_median": med,
+           "step_ms_min": min(steps_ms), "step_ms_max": max(steps_ms),
+           "tokens_per_s": T / (med / 1e3), "model_tflops": tflops,
+           "peak_share_bf16": tflops * 1e12 / peak_flops,
+           "peak_bytes": peak, "state_bytes": sbytes,
+           "loss_first": losses[0], "loss_last": losses[-1],
+           "profile": prof, "adamw_ms": upd_ms, "adamw_profile": upd_prof,
+           "adamw_floor_ms": upd_bytes / peak_bw * 1e3, "main_s": t_main}
+    report["train"].append(row)
+    say("train", f"(b) launch/train.main {arch} {row['dtype']} (f32 master), "
+                 f"{cfg.num_layers} layers, {n_params / 1e9:.3f} B "
+                 f"parameters ({(n_params - n_embed) / 1e9:.3f} B "
+                 f"non-embedding), remat {cfg.remat}, B={B} S={S}: step "
+                 f"{med:.2f} ms median of {timed} after {warm} warm "
+                 f"(min {min(steps_ms):.2f}, max {max(steps_ms):.2f}), "
+                 f"{T / (med / 1e3):.0f} tokens/s, model {tflops:.1f} "
+                 f"TFLOP/s (6 N T) = {row['peak_share_bf16']:.1%} of the "
+                 f"{peak_flops / 1e12:.0f} TFLOP/s bf16 peak (data sheet); "
+                 f"peak device memory {peak / 1e9:.2f} GB against the "
+                 f"train state's {sbytes / 1e9:.2f} GB; loss {losses[0]:.4f} "
+                 f"-> {losses[-1]:.4f}; torch.profiler over "
+                 f"{TRAIN_PROFILE_STEPS} more steps: {prof['wall_ms']:.2f} "
+                 f"ms a step, device busy {prof['device_ms']:.2f} ms "
+                 f"({prof['busy']:.1%}) in {prof['device_ops']:.0f} device "
+                 f"ops; costliest: {top_text(prof['top'])}; adamw.update "
+                 f"{upd_ms:.2f} ms (device busy {upd_prof['device_ms']:.2f} "
+                 f"ms in {upd_prof['device_ops']:.0f} device ops; floor "
+                 f"{row['adamw_floor_ms']:.2f} ms, {upd_bytes / 1e9:.1f} GB "
+                 f"at {peak_bw / 1e12:.2f} TB/s); main took {t_main:.1f} s; "
+                 f"card {card}")
+    del res, model, state, step, grads, upd
+
+
+def train_ssm_case(report, card, arch, B, S):
+    """(c) one warm step through ``launch/train.main`` at full width and
+    depth in bf16, then one timed step under ``torch.profiler``."""
+    from repro_torch.launch import train
+
+    free_card()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    t0 = time.perf_counter()
+    res = train.main(["--arch", arch, "--steps", "1", "--batch", str(B),
+                      "--seq", str(S), "--seed", str(SEED), "--log-every",
+                      "100", "--device", "cuda"])
+    t_main = time.perf_counter() - t0
+    state, step, src = res["state"], res["train_step"], res["source"]
+    cfg = res["model"].cfg
+    out = {}
+
+    def one_step():
+        b = src.batch_at(1, B, S)
+        _, m = step(state, {k: torch.from_numpy(v).to("cuda")
+                            for k, v in b.items()})
+        out["loss"] = m["loss"]
+
+    prof = profiled(one_step)
+    peak = torch.cuda.max_memory_allocated() - base
+    losses = res["losses"] + [out["loss"].item()]
+    require(all(map(math.isfinite, losses)), f"train (c) {arch}: {losses}")
+    sbytes = state_bytes(state)
+    row = {"part": "c", "arch": arch, "dtype": str(cfg.pdtype)[6:],
+           "layers": cfg.num_layers, "B": B, "S": S, "remat": cfg.remat,
+           "warm_step_ms": res["step_s"][0] * 1e3,
+           "step_ms": prof["wall_ms"], "peak_bytes": peak,
+           "state_bytes": sbytes, "losses": losses, "profile": prof,
+           "main_s": t_main}
+    report["train"].append(row)
+    say("train", f"(c) {arch} {row['dtype']}, {cfg.num_layers} layers, "
+                 f"B={B} S={S}, remat {cfg.remat}: warm step "
+                 f"{row['warm_step_ms']:.0f} ms, timed step (under "
+                 f"torch.profiler) {prof['wall_ms']:.0f} ms, device busy "
+                 f"{prof['device_ms']:.0f} ms ({prof['busy']:.1%}) in "
+                 f"{prof['device_ops']:.0f} device ops; costliest: "
+                 f"{top_text(prof['top'])}; peak device memory "
+                 f"{peak / 1e9:.2f} GB against the train state's "
+                 f"{sbytes / 1e9:.2f} GB; losses {losses}; card {card}")
+    del res, state, step
+
+
+def child_env(**extra):
+    root = os.path.dirname(os.path.abspath(__file__))
+    path = os.path.join(root, "src")
+    if os.environ.get("PYTHONPATH"):
+        path += os.pathsep + os.environ["PYTHONPATH"]
+    return {**os.environ, "PYTHONPATH": path, **extra}
+
+
+def train_restart(report, card):
+    """(d) the reference test's restart at the smoke size, on the card,
+    under deterministic algorithms: 14 steps straight against 7 steps, a
+    checkpoint and 7 resumed, the losses within rtol 1e-4."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable, "-c", RESTART_CODE],
+                         capture_output=True, text=True, timeout=300,
+                         env=child_env(CUBLAS_WORKSPACE_CONFIG=":4096:8"))
+    wall = time.perf_counter() - t0
+    lines = [ln for ln in res.stdout.splitlines()
+             if ln.startswith("RESTART ")]
+    require(res.returncode == 0 and lines,
+            f"train (d): the restart run failed (rc {res.returncode}): "
+            f"{res.stderr[-3000:]}")
+    out = json.loads(lines[-1][len("RESTART "):])
+    full, resumed = out["full"], out["resumed"]
+    rel = max(abs(a - b) / abs(b) for a, b in zip(resumed, full))
+    require(len(full) == len(resumed) == 14 and rel <= 1e-4,
+            f"train (d): resumed losses {resumed} against {full}")
+    t = out["times"]
+    row = {"part": "d", "losses": full, "resumed": resumed,
+           "max_rel_diff": rel, "save_s": t["save"], "wait_s": t["wait"],
+           "restore_s": t["restore"], "wall_s": wall}
+    report["train"].append(row)
+    say("train", f"(d) restart under torch.use_deterministic_algorithms: 14 "
+                 f"steps straight against 7 + checkpoint + 7 resumed, "
+                 f"losses within {rel:.2g} (limit rtol 1e-4); host snapshot "
+                 f"{sum(t['save']):.3f} s over {len(t['save'])} saves, "
+                 f"writes waited {sum(t['wait']):.3f} s, restore "
+                 f"{sum(t['restore']):.3f} s; the process took {wall:.1f} "
+                 f"s; card {card}")
+
+
+def train_example(report, card):
+    """(e) ``python -m repro_torch.examples.train_lm``: the 180 M-parameter
+    run, 200 steps, in a process of its own with a fresh temp dir for its
+    checkpoints."""
+    with tempfile.TemporaryDirectory() as tmp:
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "repro_torch.examples.train_lm"],
+            capture_output=True, text=True, timeout=600,
+            env=child_env(TMPDIR=tmp))
+        wall = time.perf_counter() - t0
+    lines = res.stdout.strip().splitlines()
+    require(res.returncode == 0 and lines and lines[-1] == "train_lm OK",
+            f"train (e): train_lm failed (rc {res.returncode}): "
+            f"{res.stdout[-2000:]} {res.stderr[-3000:]}")
+    final = [ln for ln in lines if ln.startswith("final loss")]
+    report["train"].append({"part": "e", "wall_s": wall,
+                            "final": final[-1], "log": lines[:3]})
+    say("train", f"(e) train_lm (180 M parameters, 200 steps, checkpoints "
+                 f"every 50): {final[-1]}, ended 'train_lm OK' in "
+                 f"{wall:.1f} s (a process of its own); first lines: "
+                 f"{lines[:2]}; card {card}")
+
+
+def phase_train(report, card):
+    """Phase 15: the training path (parts a-e), each part's tensors freed
+    before the next."""
+    t0 = time.perf_counter()
+    parts = [("a", lambda: train_check(report, card)),
+             ("b", lambda: train_main_case(report, card))]
+    for arch, B, S in TRAIN_SSM:
+        parts.append((arch, lambda a=arch, b=B, s=S: train_ssm_case(
+            report, card, a, b, s)))
+    parts += [("d", lambda: train_restart(report, card)),
+              ("e", lambda: train_example(report, card))]
+    took = {}
+    for name, run in parts:
+        t1 = time.perf_counter()
+        free_card()
+        run()
+        took[name] = round(time.perf_counter() - t1, 1)
+    free_card()
+    say("train", f"phase 15 took {time.perf_counter() - t0:.1f} s (by part "
+                 f"{json.dumps(took)})")
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4159,7 +4587,7 @@ def main(argv=None) -> int:
     phase_kernels_direct(gen)
     report = {"main_path": [], "attention": [], "c1": [], "factor": [],
               "fault": [], "tune": [], "hybrid": [], "hybrid_plans": {},
-              "analyze": [], "serve": [],
+              "analyze": [], "serve": [], "train": [],
               "factor_panel_ms": {}, "factor_dgemm_check": {},
               "launches": {}, "launches_by_dtype": {}}
     A, B, C, host_out, params = phase_main(gen, report)
@@ -4177,6 +4605,7 @@ def main(argv=None) -> int:
                   attn, factors, hplan, tuned)
     del A, B, C, host_out, syrk, attn, bf16_io, factors
     phase_serve(report, card)
+    phase_train(report, card)
     entries = [*phase_timing(gen, report, card),
                phase_timing_attention(gen, report, card),
                phase_timing_direct(gen, report, card)]
@@ -4193,6 +4622,7 @@ def main(argv=None) -> int:
                       "hybrid_plan_s": report["hybrid_plans"],
                       "analyze": report["analyze"],
                       "serve": report["serve"],
+                      "train": report["train"],
                       "tune_calibration": report.get("tune_calibration"),
                       "tune_searches": report.get("tune_searches"),
                       "baseline": report.get("baseline"),

@@ -1,0 +1,5 @@
+"""Checkpointing (port of ``src/repro/checkpoint``)."""
+
+from repro_torch.checkpoint.manager import CheckpointManager
+
+__all__ = ["CheckpointManager"]

@@ -50,7 +50,7 @@ class ArchConfig:
     # --- execution policy (hillclimb knobs) ---
     param_dtype: str = "bfloat16"
     act_dtype: str = "bfloat16"
-    remat: bool = True             # the reference's; no effect here
+    remat: bool = True             # recompute each layer in the backward
     block_q: int = 512             # attention q-block
     microbatch: int = 1            # gradient-accumulation steps
     moe_groups: Optional[int] = None

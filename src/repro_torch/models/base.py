@@ -4,8 +4,11 @@ embedding and head around its layers.
 Port-only (the reference's models are plain classes over a param pytree).
 Each layer's parameters are an ``nn.ParameterDict`` in an ``nn.ModuleList``
 and a Python loop runs them; the top-level weights (``embed``,
-``final_norm``, ``lm_head``) are one more ``ParameterDict``.  Weights carry
-no gradient (training is ROADMAP module item 12c).
+``final_norm``, ``lm_head``) are one more ``ParameterDict``.  Weights are
+trainable parameters: ``forward`` records autograd's graph when gradients
+are enabled (the train step), ``prefill`` and ``decode`` never do.  With
+``cfg.remat`` each layer of a recorded ``forward`` is rematerialised in the
+backward (:func:`remat`), as the reference's ``jax.checkpoint`` does.
 """
 
 from __future__ import annotations
@@ -14,6 +17,7 @@ from typing import Dict, Optional
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.runtime import resolve_device
@@ -21,11 +25,21 @@ from repro_torch.models import layers as L
 
 
 def param_dict(tree: Dict) -> nn.ParameterDict:
-    """A nested dict of tensors as (nested) ParameterDicts, no gradient."""
+    """A nested dict of tensors as (nested) ParameterDicts of trainable
+    parameters."""
     return nn.ParameterDict({
-        k: param_dict(v) if isinstance(v, dict)
-        else nn.Parameter(v, requires_grad=False)
+        k: param_dict(v) if isinstance(v, dict) else nn.Parameter(v)
         for k, v in tree.items()})
+
+
+def remat(enabled: bool, fn, *args):
+    """``fn(*args)``; when ``enabled`` and autograd is recording, its
+    activations are not kept for the backward but recomputed there
+    (``torch.utils.checkpoint``, non-reentrant): the reference's
+    ``jax.checkpoint`` with ``nothing_saveable``."""
+    if enabled and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
 
 
 class ZooModel(nn.Module):

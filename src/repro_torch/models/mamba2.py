@@ -29,7 +29,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
-from repro_torch.models.base import ZooModel
+from repro_torch.models.base import ZooModel, remat
 
 Params = Dict[str, torch.Tensor]
 Cache = Dict[str, torch.Tensor]
@@ -84,8 +84,13 @@ def ssd_chunked(x, dt, a, B_, C_, chunk: int = 256,
         ca = torch.cumsum(la, dim=1)                           # (B, Lc, H)
         # intra-chunk: scores[t,s] = (C_t·B_s) exp(ca[t]-ca[s]) dt_s, s<=t
         cb = torch.einsum("bln,bmn->blm", cc, bc)              # (B, Lc, Lc)
-        decay = torch.exp(ca[:, :, None, :] - ca[:, None, :, :])
-        scores = cb[..., None] * torch.where(mask, decay, 0.0)  # (B,t,s,H)
+        # masked before the exp, not after as in the reference: above the
+        # diagonal ca[t] - ca[s] > 0 can overflow (past 88 in a long chunk),
+        # and the reference's where(mask, exp(.), 0) then has a 0 * inf =
+        # NaN gradient; the forward values are the same
+        decay = torch.exp(torch.where(
+            mask, ca[:, :, None, :] - ca[:, None, :, :], -torch.inf))
+        scores = cb[..., None] * decay                         # (B,t,s,H)
         xdt = xc.float() * dtc[..., None]                      # (B,Lc,H,P)
         y = torch.einsum("blsh,bshp->blhp", scores, xdt)
         # inter-chunk: y += exp(ca[t]) * C_t · h
@@ -209,6 +214,11 @@ def mamba_layer_apply(lp, x, cfg: ArchConfig):
     return x + y, h, tail
 
 
+def mamba_layer_out(lp, x, cfg: ArchConfig):
+    """The layer's output alone (the unit a recorded forward remats)."""
+    return mamba_layer_apply(lp, x, cfg)[0]
+
+
 def mamba_layer_decode(lp, x, h, conv_tail, cfg: ArchConfig):
     """One token through the layer; ``h`` and ``conv_tail`` in place."""
     return x + mamba_decode(lp["mamba"], L.rms_norm(x, lp["norm"],
@@ -252,12 +262,11 @@ class Mamba2Model(ZooModel):
             top = self._top_init(generator)
         return self.set_params(layers, top)
 
-    @torch.no_grad()
     def forward(self, inputs: torch.Tensor) -> torch.Tensor:
         top = self._params()
         x = self._embed(top, inputs)
         for lp in self.layers:
-            x = mamba_layer_apply(lp, x, self.cfg)[0]
+            x = remat(self.cfg.remat, mamba_layer_out, lp, x, self.cfg)
         return self._head(top, x)
 
     def init_cache(self, batch: int, max_len: int) -> Cache:

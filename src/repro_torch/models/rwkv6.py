@@ -7,8 +7,9 @@ them in plain ``jnp``; no Pallas kernel is on this path):
 
 - :func:`wkv_scan_ref`, the per-step recurrence (the oracle, and decode);
 - :func:`wkv_chunked`, an outer loop over chunks carrying M with the
-  per-step recurrence inside each (the reference rematerialises the inner
-  scan for its backward; without autograd that has no meaning here);
+  per-step recurrence inside each; with ``remat`` (``cfg.remat``) each
+  chunk is rematerialised in the backward, as in the reference, so a
+  recorded forward keeps only the chunk-boundary states;
 - :func:`wkv_associative`, the parallel form: log2(S) combine steps over
   tensors (torch has no ``associative_scan``), materialising (B, S, H, P, P).
 
@@ -32,7 +33,7 @@ import torch.nn.functional as F
 
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
-from repro_torch.models.base import ZooModel
+from repro_torch.models.base import ZooModel, remat as remat_call
 
 Params = Dict[str, torch.Tensor]
 Cache = Dict[str, torch.Tensor]
@@ -91,17 +92,19 @@ def wkv_associative(r, k, v, w, u, m0: Optional[torch.Tensor] = None):
 
 
 def wkv_chunked(r, k, v, w, u, chunk: int = 64,
-                m0: Optional[torch.Tensor] = None):
+                m0: Optional[torch.Tensor] = None, remat: bool = False):
     """Outer loop over chunks carrying M, the per-step recurrence inside
-    each.  A length the chunk does not divide is one chunk, as in the
-    reference."""
+    each; with ``remat`` and autograd recording, each chunk's steps are
+    recomputed in the backward.  A length the chunk does not divide is one
+    chunk, as in the reference."""
     S = r.shape[1]
     if S % chunk:
         chunk = S
     M, ys = m0, []
     for c0 in range(0, S, chunk):
         sl = slice(c0, c0 + chunk)
-        y, M = wkv_scan_ref(r[:, sl], k[:, sl], v[:, sl], w[:, sl], u, m0=M)
+        y, M = remat_call(remat, wkv_scan_ref, r[:, sl], k[:, sl], v[:, sl],
+                          w[:, sl], u, M)
         ys.append(y)
     return torch.cat(ys, dim=1), M
 
@@ -152,7 +155,8 @@ def timemix_apply(p: Params, x, cfg: ArchConfig, last, chunk: int = 64,
     if unroll:
         y, M = wkv_associative(r, k, v, w, p["u"])
     else:
-        y, M = wkv_chunked(r, k, v, w, p["u"], chunk=chunk)
+        y, M = wkv_chunked(r, k, v, w, p["u"], chunk=chunk,
+                           remat=cfg.remat)
     y = L.rms_norm(y.reshape(B, S, D).to(x.dtype), p["ln_x"], cfg.norm_eps)
     return (y * g) @ p["w_o"], x[:, -1], M
 
@@ -233,12 +237,14 @@ class RWKV6Model(ZooModel):
             lp["chan"], L.rms_norm(x, lp["ln2"], cfg.norm_eps), zeros_last)
         return x + y, (M, lt, lc)
 
-    @torch.no_grad()
+    def _layer_out(self, lp, x):
+        return self._layer_apply(lp, x)[0]
+
     def forward(self, inputs: torch.Tensor) -> torch.Tensor:
         top = self._params()
         x = self._embed(top, inputs)
         for lp in self.layers:
-            x = self._layer_apply(lp, x)[0]
+            x = remat_call(self.cfg.remat, self._layer_out, lp, x)
         return self._head(top, x)
 
     def init_cache(self, batch: int, max_len: int) -> Cache:

@@ -4,9 +4,11 @@ Port of ``src/repro/models/transformer.py``.  Covers the eight transformer
 archs (qwen2.5, codeqwen1.5, stablelm, llama3.2, the internvl2 backbone,
 the hubert encoder, qwen3-moe, deepseek-moe).  Each layer's parameters are
 an ``nn.ParameterDict`` in an ``nn.ModuleList`` and a Python loop runs them
-(the reference stacks the layers and scans them; ``remat`` and
-``scan_layers`` have no effect here).  Weights keep the reference's
-``(in, out)`` layout and are applied as ``x @ W``.
+(the reference stacks the layers and scans them; ``scan_layers`` has no
+effect here).  With ``cfg.remat`` a recorded ``forward`` rematerialises
+each layer in the backward, as the reference's ``jax.checkpoint`` does.
+Weights keep the reference's ``(in, out)`` layout and are applied as
+``x @ W``.
 
 API:
   TransformerModel(cfg, device=None)  CUDA unless ``device`` names another;
@@ -18,7 +20,9 @@ API:
   decode(cache, inputs) -> (logits, cache)
 
 Weights are loaded with ``init`` or ``models.convert.load_reference_params``
-and carry no gradient (training is ROADMAP module item 12c).  ``decode``
+and are trainable: ``forward`` records autograd's graph unless the caller
+disables it (serving callers run it under ``torch.inference_mode``);
+``prefill`` and ``decode`` never record it.  ``decode``
 writes the new token's K/V into the cache tensors in place and returns the
 cache with ``len`` advanced; each layer's decode attention is kernel 2 on a
 card.  The FSDP hook and the sharding specs (``weight_gather``,
@@ -33,7 +37,7 @@ import torch
 
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
-from repro_torch.models.base import ZooModel
+from repro_torch.models.base import ZooModel, remat
 
 Cache = Dict[str, torch.Tensor]
 
@@ -98,7 +102,10 @@ class TransformerModel(ZooModel):
         return x + y, kv
 
     # --------------------------------------------------------------- forward
-    @torch.no_grad()
+    def _layer_out(self, lp, x: torch.Tensor, positions: torch.Tensor
+                   ) -> torch.Tensor:
+        return self._layer_apply(lp, x, positions)[0]
+
     def forward(self, inputs: torch.Tensor) -> torch.Tensor:
         """Training-shape forward: logits for every position (B, S, V)."""
         top = self._params()
@@ -106,7 +113,7 @@ class TransformerModel(ZooModel):
         B, S = x.shape[:2]
         positions = torch.arange(S, device=self.device).expand(B, S)
         for lp in self.layers:
-            x, _ = self._layer_apply(lp, x, positions)
+            x = remat(self.cfg.remat, self._layer_out, lp, x, positions)
         return self._head(top, x)
 
     # ----------------------------------------------------------------- cache

@@ -29,7 +29,7 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as MB
-from repro_torch.models.base import ZooModel, param_dict
+from repro_torch.models.base import ZooModel, param_dict, remat
 
 Cache = Dict[str, torch.Tensor]
 
@@ -117,28 +117,38 @@ class Zamba2Model(ZooModel):
                             L.rms_norm(x, sp["mlp_norm"], cfg.norm_eps))
         return x, kv
 
+    def _shared_out(self, sp, x, positions):
+        return self._shared_apply(sp, x, positions)[0]
+
     def _run(self, x, cache: Optional[Cache] = None):
         """The whole stack on (B, S, D); with ``cache``, each layer's state
-        and each site's K/V are written into it."""
+        and each site's K/V are written into it.  Without, under a recorded
+        ``forward`` with ``cfg.remat``, each Mamba2 layer and each site's
+        shared block is rematerialised in the backward on its own, as in
+        the reference (whose sites sit outside its layer scans)."""
+        cfg = self.cfg
         B, S = x.shape[:2]
         positions = torch.arange(S, device=self.device).expand(B, S)
         for site in [*range(self.n_sites), None]:
             for i in self._site_layers(site):
-                x, h, tail = MB.mamba_layer_apply(self.layers[i], x,
-                                                  self.cfg)
-                if cache is not None:
-                    cache["h"][i], cache["conv"][i] = h, tail
+                if cache is None:
+                    x = remat(cfg.remat, MB.mamba_layer_out, self.layers[i],
+                              x, cfg)
+                    continue
+                x, cache["h"][i], cache["conv"][i] = MB.mamba_layer_apply(
+                    self.layers[i], x, cfg)
             if site is None:
                 break
-            x, (k, v) = self._shared_apply(self._site_params(site), x,
-                                           positions)
-            if cache is not None:
-                cache["k"][site, :, :S] = k
-                cache["v"][site, :, :S] = v
+            sp = self._site_params(site)
+            if cache is None:
+                x = remat(cfg.remat, self._shared_out, sp, x, positions)
+                continue
+            x, (k, v) = self._shared_apply(sp, x, positions)
+            cache["k"][site, :, :S] = k
+            cache["v"][site, :, :S] = v
         return x
 
     # --------------------------------------------------------------- forward
-    @torch.no_grad()
     def forward(self, inputs: torch.Tensor) -> torch.Tensor:
         top = self._params()
         return self._head(top, self._run(self._embed(top, inputs)))

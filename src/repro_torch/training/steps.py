@@ -1,17 +1,23 @@
-"""Arch-agnostic loss and serving step builders.
+"""Arch-agnostic train and serve step builders.
 
-Port of ``src/repro/training/steps.py`` for the steps that need no
-optimizer: the loss, the forward step and the serving steps, which wrap
-the model's entry points.  ``build_train_step``, ``init_train_state`` and
-``train_state_logical_axes`` need ``optim/`` and gradients: ROADMAP module
-item 12c.
+Port of ``src/repro/training/steps.py``.  The train state is
+``{"params": {name: parameter}, "opt": adamw state}``: ``params`` holds
+the model's own parameters (``dict(model.named_parameters())``), so a
+step that updates the state in place updates the model.
+``build_train_step`` assembles the reference's step: microbatched gradient
+accumulation in float32, the float32 cross-entropy, global-norm clipping
+and AdamW.  The serving steps wrap the model's entry points.  The train
+state's sharding axes (``train_state_logical_axes``) wait for ROADMAP
+module item 13.
 """
 
 from __future__ import annotations
 
-from typing import Callable, Optional
+from typing import Callable, Dict, Optional
 
 import torch
+
+from repro_torch.optim import adamw
 
 
 def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
@@ -29,6 +35,75 @@ def build_loss_fn(model) -> Callable:
         return cross_entropy(model.forward(batch["inputs"]),
                              batch["labels"].to(model.device))
     return loss_fn
+
+
+def train_state(model, opt_cfg: Optional[adamw.AdamWConfig] = None
+                ) -> Dict:
+    """The train state of ``model``'s current weights: its parameters by
+    name and a fresh optimizer state."""
+    params = dict(model.named_parameters())
+    use_master = opt_cfg.use_master if opt_cfg else True
+    return {"params": params, "opt": adamw.init(params, use_master)}
+
+
+def init_train_state(model, generator: torch.Generator,
+                     opt_cfg: Optional[adamw.AdamWConfig] = None) -> Dict:
+    """Random weights drawn from ``generator`` (on the model's device), and
+    their train state."""
+    model.init(generator)
+    return train_state(model, opt_cfg)
+
+
+def build_train_step(model, opt_cfg: adamw.AdamWConfig, microbatch: int = 1,
+                     unroll: bool = False) -> Callable:
+    """Returns ``train_step(state, batch) -> (state, metrics)``; ``batch``
+    holds ``inputs`` and ``labels`` tensors (moved to the model's device).
+    With ``microbatch`` > 1 the batch is split into that many consecutive
+    slices whose gradients are summed in float32 and divided by
+    ``microbatch``, and the loss is their losses' mean, as the reference's
+    ``lax.scan`` does (``unroll``, the reference's choice between the scan
+    and a Python loop, changes nothing here: the port always loops).  The
+    state is updated in place; metrics are ``loss``, ``grad_norm`` and
+    ``lr``, 0-dim float32 tensors on the device."""
+    loss_fn = build_loss_fn(model)
+
+    def value_and_grad(params, batch):
+        loss = loss_fn(batch)
+        grads = torch.autograd.grad(loss, list(params.values()),
+                                    allow_unused=True)
+        # a weight the forward never reads (a stub-frontend arch's token
+        # embedding) has a zero gradient, as in the reference
+        return loss.detach(), [torch.zeros_like(p) if g is None else g
+                               for p, g in zip(params.values(), grads)]
+
+    def train_step(state, batch):
+        params = state["params"]
+        if microbatch > 1:
+            b = batch["inputs"].shape[0]
+            if b % microbatch:
+                raise ValueError(f"a batch of {b} does not split into "
+                                 f"{microbatch} microbatches")
+            n = b // microbatch
+            losses, acc = [], None
+            for i in range(microbatch):
+                loss, g = value_and_grad(
+                    params, {k: x[i * n:(i + 1) * n]
+                             for k, x in batch.items()})
+                losses.append(loss)
+                g = [gi.float() for gi in g]
+                if acc is None:
+                    acc = g
+                else:
+                    torch._foreach_add_(acc, g)
+            torch._foreach_div_(acc, float(microbatch))
+            grads, loss = acc, torch.stack(losses).mean()
+        else:
+            loss, grads = value_and_grad(params, batch)
+        _, opt, metrics = adamw.update(dict(zip(params, grads)),
+                                       state["opt"], params, opt_cfg)
+        return {"params": params, "opt": opt}, dict(metrics, loss=loss)
+
+    return train_step
 
 
 def build_forward_step(model) -> Callable:

@@ -31,8 +31,8 @@ def t(x, dtype=None):
 
 
 def n(x):
-    return np.asarray(x.float().numpy() if isinstance(x, torch.Tensor)
-                      else x, np.float32)
+    return np.asarray(x.detach().float().numpy()
+                      if isinstance(x, torch.Tensor) else x, np.float32)
 
 
 def close(a, b, tol):
@@ -106,6 +106,7 @@ def check_port_init(model, ref_params):
         flat[".".join(str(p.key) for p in path)] = leaf
     seen = set()
     for name, p in model.named_parameters():
+        p = p.detach()
         if name.startswith(("layers.", "shared.")):
             stack, i, rest = name.split(".", 2)
             key = f"{stack}.{rest}"
@@ -125,3 +126,52 @@ def check_port_init(model, ref_params):
         assert float(p.abs().max()) <= cut, name
         assert 0.7 * std < float(p.float().std()) < 1.0 * std, name
     assert seen == set(flat)
+
+
+# ------------------------------------------------------------------ training
+TRAIN_B, TRAIN_S = 2, 32          # the reference test's train-step shape
+# warmup 1: the first step runs at the full learning rate
+TRAIN_OPT = dict(lr=1e-2, warmup_steps=1, total_steps=10)
+
+
+def train_batch(cfg, seed=1):
+    rng = np.random.default_rng(seed + 100)
+    return {"inputs": inputs(cfg, seed, TRAIN_B, TRAIN_S),
+            "labels": rng.integers(0, cfg.vocab_size,
+                                   (TRAIN_B, TRAIN_S)).astype(np.int32)}
+
+
+@functools.lru_cache(maxsize=None)
+def reference_train(arch, microbatch: int = 1, **overrides):
+    """The reference's smoke train state on seed-0 weights (``state0``) and
+    its jitted train step on :func:`train_batch`: the new state and the
+    metrics (``state1``, ``metrics``), all from one jitted call (numpy
+    leaves).  Without microbatches the step is the reference's
+    ``build_train_step`` body spelled out, so that its gradients
+    (``grads``) and loss come out too."""
+    from repro.optim import AdamWConfig, adamw
+    from repro.training import steps as r_steps
+
+    cfg = r_get_arch(arch).smoke().replace(**overrides)
+    model = r_get_model(cfg)
+    opt = AdamWConfig(**TRAIN_OPT)
+    loss_fn = r_steps.build_loss_fn(model)
+    step = r_steps.build_train_step(model, opt, microbatch)
+
+    def run(key, batch):
+        state = r_steps.init_train_state(model, key, opt)
+        out = {"state0": state}
+        if microbatch > 1:
+            out["state1"], out["metrics"] = step(state, batch)
+            return out
+        loss, grads = jax.value_and_grad(loss_fn)(state["params"], batch)
+        params, opt_state, metrics = adamw.update(
+            grads, state["opt"], state["params"], opt)
+        out.update(loss=loss, grads=grads, metrics=dict(metrics, loss=loss),
+                   state1={"params": params, "opt": opt_state})
+        return out
+
+    batch = train_batch(cfg)
+    out = jax.tree.map(np.asarray, jax.jit(run)(KEY, batch))
+    out["batch"] = batch
+    return out

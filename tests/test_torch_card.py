@@ -1106,7 +1106,9 @@ def test_smoke_decode_launches_kernel_2_per_layer_and_step(card, arch):
         cfg.family, cfg.num_layers)
     toks = torch.randint(0, cfg.vocab_size, (2, 12), generator=gen,
                          device=card)
-    full = model.forward(toks)
+    with torch.inference_mode():          # serving records no graph
+        full = model.forward(toks)
+    assert not full.requires_grad
     logits, cache = model.prefill(toks[:, :5], max_len=12)
     steps = 12 - 5
     before = (kfa.flash_partial.launches, kfa.flash_combine.launches)
@@ -1157,3 +1159,87 @@ def test_attention_decode_apply_kernel_matches_plain(card, dtype):
     mirror = TL.decode_attention(q, gpu[0], gpu[1], length.to(card) + 1)
     torch.testing.assert_close(kern.float(), mirror.float(), rtol=tol,
                                atol=tol)
+
+
+# ---------------------------------------------------------------- training
+@pytest.mark.parametrize("arch", ["stablelm-1.6b", "rwkv6-1.6b",
+                                  "zamba2-1.2b"])
+def test_smoke_train_step_on_card_matches_cpu(card, arch):
+    """One smoke train step (float32, TF32 off) on the card against the
+    same step on the CPU from the same weights and batch: the loss within
+    1e-5, ``grad_norm`` within 1e-4 and the first moment (a tenth of the
+    clipped gradient) per leaf within 1e-3 of its largest magnitude; then
+    AdamW fed the same gradients on both sides, the parameters within
+    1e-6.  (After each side's own step the parameters are not compared:
+    the first Adam step moves a weight by about lr times the sign of its
+    gradient, so a gradient within rounding of zero may go either way.)"""
+    from repro_torch.configs import get_arch
+    from repro_torch.models import get_model
+    from repro_torch.optim import AdamWConfig, adamw
+    from repro_torch.training import steps as tsteps
+
+    cfg = get_arch(arch).smoke()
+    opt = AdamWConfig(lr=1e-2, warmup_steps=1, total_steps=10)
+    gen = torch.Generator().manual_seed(0)
+    cpu = get_model(cfg, device="cpu").init(gen)
+    gpu = get_model(cfg).init(torch.Generator(device=card))
+    gpu.load_state_dict(cpu.state_dict())
+    rng = np.random.default_rng(3)
+    batch = {k: torch.from_numpy(rng.integers(
+        0, cfg.vocab_size, (2, 64)).astype(np.int32))
+        for k in ("inputs", "labels")}
+    out = []
+    for model in (cpu, gpu):
+        state = tsteps.train_state(model, opt)
+        step = tsteps.build_train_step(model, opt)
+        out.append(step(state, {k: v.to(model.device)
+                                for k, v in batch.items()}))
+    (sc, mc), (sg, mg) = out
+    for key, tol in (("loss", 1e-5), ("grad_norm", 1e-4)):
+        torch.testing.assert_close(mg[key].cpu(), mc[key], rtol=tol,
+                                   atol=tol)
+    for name, m in sc["opt"]["m"].items():
+        err = (sg["opt"]["m"][name].cpu() - m).abs().max()
+        assert err <= 1e-3 * max(float(m.abs().max()), 1e-30), name
+    grads = {k: torch.randn(p.shape, generator=gen)
+             for k, p in cpu.named_parameters()}
+    gpu.load_state_dict(cpu.state_dict())       # the same weights again
+    states = []
+    for model in (cpu, gpu):
+        state = tsteps.train_state(model, opt)
+        adamw.update({k: g.to(model.device) for k, g in grads.items()},
+                     state["opt"], state["params"], opt)
+        states.append(state)
+    for name, p in states[0]["params"].items():
+        torch.testing.assert_close(states[1]["params"][name].detach().cpu(),
+                                   p.detach(), rtol=1e-6, atol=1e-6)
+
+
+def test_checkpoint_roundtrip_of_card_tensors(card, tmp_path):
+    """A train state on the card saved (async) and restored onto card
+    tensors bit for bit, bf16 leaves included."""
+    from repro_torch.checkpoint import CheckpointManager
+
+    gen = torch.Generator(device=card).manual_seed(1)
+    state = {"params": {"w": torch.randn(64, 32, generator=gen,
+                                         device=card).to(torch.bfloat16)},
+             "opt": {"m": {"w": torch.randn(64, 32, generator=gen,
+                                            device=card)},
+                     "count": torch.tensor(4, dtype=torch.int32,
+                                           device=card)}}
+    keep = {"w": state["params"]["w"].clone(),
+            "m": state["opt"]["m"]["w"].clone()}
+    mgr = CheckpointManager(str(tmp_path))
+    mgr.save(4, state, data_cursor=4)
+    state["params"]["w"].add_(1.0)        # after the snapshot
+    mgr.wait()
+    target = {"params": {"w": torch.zeros(64, 32, dtype=torch.bfloat16,
+                                          device=card)},
+              "opt": {"m": {"w": torch.zeros(64, 32, device=card)},
+                      "count": torch.zeros((), dtype=torch.int32,
+                                           device=card)}}
+    restored, cursor = mgr.restore(mgr.latest_step(), target)
+    assert cursor == 4 and restored["params"]["w"].device.type == "cuda"
+    assert torch.equal(restored["params"]["w"], keep["w"])
+    assert torch.equal(restored["opt"]["m"]["w"], keep["m"])
+    assert int(restored["opt"]["count"]) == 4

@@ -48,7 +48,10 @@ assert {"repro_torch.configs", "repro_torch.configs.base",
         "repro_torch.models.base", "repro_torch.models.mamba2",
         "repro_torch.models.rwkv6", "repro_torch.models.zamba2",
         "repro_torch.training.steps", "repro_torch.launch.serve",
-        "repro_torch.examples.serve_decode"} <= set(sys.modules)
+        "repro_torch.examples.serve_decode", "repro_torch.optim.adamw",
+        "repro_torch.optim.compression", "repro_torch.data.pipeline",
+        "repro_torch.checkpoint.manager", "repro_torch.launch.train",
+        "repro_torch.examples.train_lm"} <= set(sys.modules)
 """
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT,
@@ -98,7 +101,8 @@ def no_card():
                                    "transformer_model", "get_model",
                                    "serve_main", "mamba2_model",
                                    "rwkv6_model", "zamba2_model",
-                                   "get_model_ssm", "serve_main_hybrid"])
+                                   "get_model_ssm", "serve_main_hybrid",
+                                   "train_main"])
 def test_default_device_raises_without_a_card(no_card, entry):
     import numpy as np
 
@@ -109,7 +113,7 @@ def test_default_device_raises_without_a_card(no_card, entry):
     from repro_torch.core.api import hclDeviceFactory, hclHybridRuntime
     from repro_torch.configs import get_arch
     from repro_torch.examples.mmooc_via_api import mmooc
-    from repro_torch.launch import serve
+    from repro_torch.launch import serve, train
     from repro_torch.models import (Mamba2Model, RWKV6Model,
                                     TransformerModel, Zamba2Model, get_model)
 
@@ -160,6 +164,8 @@ def test_default_device_raises_without_a_card(no_card, entry):
         "get_model_ssm": lambda: get_model(get_arch("rwkv6-1.6b").smoke()),
         "serve_main_hybrid": lambda: serve.main(["--arch", "zamba2-1.2b",
                                                  "--smoke"]),
+        "train_main": lambda: train.main(["--arch", "stablelm-1.6b",
+                                          "--smoke", "--steps", "1"]),
     }
     with pytest.raises(RuntimeError, match="no CUDA device"):
         calls[entry]()
@@ -178,6 +184,20 @@ def test_hybrid_examples_need_a_card_without_cpu_flag(no_card, name,
     assert res.returncode != 0
     assert "no CUDA device" in res.stderr
     assert "OK" not in res.stdout
+
+
+def test_train_example_needs_a_card_without_cpu_flag(no_card, tmp_path):
+    """``train_lm`` trains on the card unless ``--cpu`` is given: no
+    fallback to the host, and no checkpoint written."""
+    res = subprocess.run(
+        [sys.executable, "-m", "repro_torch.examples.train_lm", "--quick"],
+        capture_output=True, text=True, cwd=ROOT, timeout=240,
+        env={**os.environ, "PYTHONPATH": str(ROOT / "src"),
+             "OMP_NUM_THREADS": "1", "TMPDIR": str(tmp_path)})
+    assert res.returncode != 0
+    assert "no CUDA device" in res.stderr
+    assert "OK" not in res.stdout
+    assert not list(tmp_path.iterdir())
 
 
 @pytest.mark.parametrize("args", [
