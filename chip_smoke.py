@@ -209,7 +209,29 @@ printing any result.  Phases (each raises on failure; none is skipped):
      the save and restore seconds; (e) ``python -m
      repro_torch.examples.train_lm`` (180 M parameters, 200 steps) ending
      ``train_lm OK``.  No kernel of the three runs on this path (training
-     attention is the blocked float32 attention, not kernel 2).
+     attention is the blocked float32 attention, not kernel 2);
+ 16. the MESH tier and the sharded model zoo (``[mesh]`` lines; after
+     phase 15, in this process on a one-rank NCCL group torn down at the
+     end; one card, so no transfer between ranks happens here and the
+     multi-rank rings, gathers and reductions are shown only by the CPU
+     tests' gloo ranks): (a) ``ooc_gemm(backend="mesh")`` on phase 3's
+     24576^3 f32 host operands, cold and warm: its wall, kernel-1
+     launches (one) and P2P bytes (none), C row-sharded and bit for bit
+     phase 3's result (which phase 3 and 4 hold equal to the in-core and
+     vmem launches), then in bf16 on phase 7's operands, bit for bit its
+     result; (b) ``direct_mesh_ooc_gemm`` on the same operands, bit for
+     bit (a)'s, its wall beside; (c) ``launch/train.main --mesh on``
+     (stablelm-1.6b at phase 15 (b)'s cell, 2 steps, the state DTensors
+     placed by ``tree_shardings`` on a one-rank (data, model) mesh)
+     beside the plain run: losses within 1e-5 relative and every updated
+     parameter leaf within 1e-3 of its largest magnitude (phase 15 (a)'s
+     loss and leaf bounds), the step ms of each (median of 3 more) and
+     their first steps; (d) (c)'s state saved and restored onto plain
+     tensors and back onto the mesh by ``tree_shardings``: checksum and
+     loss on a fixed batch within ``tests/test_elastic.py``'s 1e-5 and
+     1e-4, with the seconds; (e) ``compressed_pod_psum`` over a one-rank
+     "pod" group on bf16 gradients of (c)'s parameter shapes, equal to a
+     local quantize and dequantize exactly.
 
 With ``--baseline DIR`` (another checkout, e.g. ``git archive`` of the
 parent commit unpacked into a directory ``.gitignore`` lists), phase 5 is
@@ -3337,7 +3359,9 @@ BLOCK_MATMUL_PATHS = ("host", "in_core", "vmem", "syrk_host", "direct_host",
                       "tune_syrk", "tune_cholesky", "tune_lu", "tune_oom",
                       "hybrid_gemm", "hybrid_gemm_lost_gpu0",
                       "hybrid_gemm_lost_phi0", "hybrid_syrk",
-                      "hybrid_cholesky") + ANALYZE_K1
+                      "hybrid_cholesky") + ANALYZE_K1 + (
+                          "mesh", "mesh_direct", "mesh_bfloat16",
+                          "mesh_direct_bfloat16")
 # the paths that launch kernel 2
 ATTENTION_PATHS = ("attention", "attention_f32", "tune_attention",
                    "hybrid_attention") + ANALYZE_K2 + SERVE_PATHS
@@ -4567,6 +4591,312 @@ def phase_train(report, card):
                  f"{json.dumps(took)})")
 
 
+# phase 16 (the MESH tier and the sharded model zoo, one NCCL rank)
+MESH_TRAIN = ("stablelm-1.6b", 8, 512, 2, 3)   # arch, B, S, steps, timed
+MESH_PARITY = (1e-5, 1e-4)    # tests/test_elastic.py: checksum, loss (rel)
+
+
+def mesh_ring_case(report, card, mesh, tag, A, B, C, alpha, beta, want,
+                   against):
+    """(a)/(b) ``ooc_gemm(backend="mesh")`` and ``direct_mesh_ooc_gemm``
+    on host operands at one rank: each one launch of kernel 1 and no
+    transfer, bit for bit equal to ``want`` (an earlier phase's result)."""
+    from repro_torch.core import MeshOocRuntime, ooc_gemm
+    from repro_torch.direct_impls import direct_mesh_ooc_gemm
+    from repro_torch.kernels.block_matmul import block_matmul
+
+    dt = str(A.dtype)[6:]
+    rt = MeshOocRuntime(mesh)
+    rows = {}
+    for name, run in (("tier", lambda: ooc_gemm(
+            A, B, C, alpha, beta, budget_bytes=rt.mem_size(),
+            backend="mesh", runtime=rt)),
+            ("direct", lambda: direct_mesh_ooc_gemm(A, B, C, alpha, beta,
+                                                    mesh))):
+        key = f"mesh{'_direct' if name == 'direct' else ''}" + (
+            "" if dt == "float32" else f"_{dt}")
+        walls = []
+        for i in range(2):              # cold (allocations), then warm
+            zero_counts(block_matmul)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            out = run()
+            local = out.to_local()
+            torch.cuda.synchronize()
+            walls.append(time.perf_counter() - t0)
+            if i == 0:
+                n = read_counts(block_matmul, report, key)
+            require(out.placements[0].is_shard(0)
+                    and tuple(local.shape) == tuple(want.shape),
+                    f"mesh {tag} {name}: placed {out.placements}, local "
+                    f"{tuple(local.shape)}")
+            require(torch.equal(local.cpu(), want),
+                    f"mesh {tag} {name}: differs from {against}")
+            del out, local
+        rows[name] = {"wall_s": walls, "launches": n}
+        require(n == 1, f"mesh {tag} {name}: {n} kernel-1 launches, not 1")
+    p2p = rt.last_p2p_bytes
+    require(p2p == 0, f"mesh {tag}: {p2p} P2P bytes at one rank")
+    row = {"part": tag, "dtype": dt, "shape": list(A.shape) + [B.shape[1]],
+           "p2p_bytes": p2p, "mem_bytes": rt.mem_size(), **rows}
+    report["mesh"].append(row)
+    say("mesh", f"({tag}) ooc_gemm(backend='mesh') {A.shape[0]}^3 {dt} at "
+                f"one NCCL rank (tier memory {rt.mem_size() / 2**30:.1f} "
+                f"GiB, the card's): wall cold {rows['tier']['wall_s'][0]:.3f}"
+                f" s / warm {rows['tier']['wall_s'][1]:.3f} s (host operands "
+                f"copied in, one product, result left on the card), kernel-1 "
+                f"launches {rows['tier']['launches']}, P2P bytes {p2p}; "
+                f"direct_mesh_ooc_gemm cold "
+                f"{rows['direct']['wall_s'][0]:.3f} s / warm "
+                f"{rows['direct']['wall_s'][1]:.3f} s, launches "
+                f"{rows['direct']['launches']}; both == {against} bitwise; "
+                f"card {card}")
+
+
+def param_checksum(params) -> float:
+    """Sum of |p| over every parameter, in float64 on the card."""
+    return float(sum(t.full_tensor().double().abs().sum()
+                     if hasattr(t, "full_tensor") else
+                     t.detach().double().abs().sum()
+                     for t in params.values()))
+
+
+def fixed_loss(model, batch) -> float:
+    from repro_torch.training import steps as tsteps
+    with torch.no_grad():
+        loss = tsteps.build_loss_fn(model)(batch)
+    return float(loss.full_tensor() if hasattr(loss, "full_tensor")
+                 else loss)
+
+
+def mesh_train_case(report, card):
+    """(c) ``launch/train.main`` with ``--mesh on`` (a one-rank (data,
+    model) DeviceMesh, the state DTensors placed by ``tree_shardings``)
+    beside the plain run, then (d) its state saved and restored onto plain
+    tensors and back onto the mesh.  Returns the sharded run's state's
+    parameter shapes for (e)."""
+    from repro_torch.checkpoint import CheckpointManager
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import tree_shardings
+    from repro_torch.launch import train
+    from repro_torch.models import get_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.training import steps as tsteps
+
+    arch, B, S, steps, timed = MESH_TRAIN
+    args = ["--arch", arch, "--steps", str(steps), "--batch", str(B),
+            "--seq", str(S), "--seed", str(SEED), "--log-every", "100",
+            "--device", "cuda"]
+    runs = {}
+    for mode in ("off", "on"):
+        free_card()
+        t0 = time.perf_counter()
+        res = train.main(args + ["--mesh", mode])
+        t_main = time.perf_counter() - t0
+        state, step, src = res["state"], res["train_step"], res["source"]
+        params = {k: (v.full_tensor() if hasattr(v, "full_tensor") else v)
+                  .detach().cpu() for k, v in state["params"].items()}
+        place = train.to_device
+        walls = []
+        for i in range(timed):
+            b = src.batch_at(steps + i, B, S)
+            batch = place({k: torch.from_numpy(v) for k, v in b.items()},
+                          torch.device("cuda"), res["mesh"])
+            torch.cuda.synchronize()
+            t1 = time.perf_counter()
+            _, m = step(state, batch)
+            train.value(m["loss"])
+            walls.append((time.perf_counter() - t1) * 1e3)
+        runs[mode] = {"losses": res["losses"], "params": params,
+                      "first_step_ms": res["step_s"][0] * 1e3,
+                      "step_ms": walls, "main_s": t_main,
+                      "placed": {type(v).__name__ for v in
+                                 state["params"].values()}}
+        if mode == "on":
+            model, mesh = res["model"], res["mesh"]
+            kept = (model, state, mesh, args)
+        del res, state, step
+    off, on = runs["off"], runs["on"]
+    require(on["placed"] == {"DTensor"} and off["placed"] == {"Parameter"},
+            f"mesh (c): state types {on['placed']} / {off['placed']}")
+    loss_err = max(abs(a - b) / abs(a) for a, b in zip(off["losses"],
+                                                       on["losses"]))
+    leaf = {k: ((on["params"][k].float() - p.float()).abs().max()
+                / p.float().abs().max().clamp_min(1e-30)).item()
+            for k, p in off["params"].items()}
+    worst = max(leaf, key=leaf.get)
+    p_abs = max((on["params"][k].float() - p.float()).abs().max().item()
+                for k, p in off["params"].items())
+    require(loss_err <= 1e-5, f"mesh (c): losses {on['losses']} sharded, "
+                              f"{off['losses']} plain")
+    require(leaf[worst] <= 1e-3, f"mesh (c): parameter {worst} off by "
+                                 f"{leaf[worst]:.3g} of its max")
+    med = {k: statistics.median(runs[k]["step_ms"]) for k in runs}
+    row = {"part": "c", "arch": arch, "B": B, "S": S, "steps": steps,
+           "losses_plain": off["losses"], "losses_mesh": on["losses"],
+           "loss_rel_err": loss_err, "param_max_abs_err": p_abs,
+           "worst_leaf": worst, "worst_leaf_err": leaf[worst],
+           "step_ms_plain": off["step_ms"], "step_ms_mesh": on["step_ms"],
+           "first_step_ms_plain": off["first_step_ms"],
+           "first_step_ms_mesh": on["first_step_ms"],
+           "main_s_plain": off["main_s"], "main_s_mesh": on["main_s"]}
+    report["mesh"].append(row)
+    say("mesh", f"(c) launch/train.main {arch} bf16 full width and depth, "
+                f"B={B} S={S}, {steps} steps on a one-rank (data, model) "
+                f"mesh (state DTensors by tree_shardings) beside the plain "
+                f"run: losses {on['losses']} vs {off['losses']} (max rel "
+                f"{loss_err:.2g}, limit 1e-5); parameters max abs diff "
+                f"{p_abs:.3g}, worst leaf {worst} {leaf[worst]:.2g} of its "
+                f"max (limit 1e-3); step ms (median of {timed} after "
+                f"{steps}) mesh {med['on']:.1f} vs plain {med['off']:.1f} "
+                f"({med['on'] / med['off'] - 1:+.1%}: DTensor's cost a step "
+                f"at one rank); first step mesh "
+                f"{on['first_step_ms']:.0f} ms vs plain "
+                f"{off['first_step_ms']:.0f} ms (sharding propagation "
+                f"warm-up); card {card}")
+    del runs, off, on
+
+    # (d) re-sharding: save the sharded state, restore onto plain tensors
+    # and back onto the mesh; checksum and loss on a fixed batch each time
+    model, state, mesh, _ = kept
+    gen = torch.Generator().manual_seed(SEED + 2)
+    batch = {k: torch.randint(0, model.cfg.vocab_size, (B, S),
+                              generator=gen) for k in ("inputs", "labels")}
+    saved = {"checksum": param_checksum(state["params"]),
+             "loss": fixed_loss(model, train.to_device(
+                 batch, torch.device("cuda"), mesh))}
+    ck = tempfile.mkdtemp(prefix="mesh_ckpt_")
+    t0 = time.perf_counter()
+    CheckpointManager(ck).save(1, state, data_cursor=1, blocking=True)
+    t_save = time.perf_counter() - t0
+    shapes = {"params": {k: v.shape for k, v in state["params"].items()}}
+    del kept, model, state
+    free_card()
+    cfg_model = get_model(get_arch(arch), device="cuda")
+    t0 = time.perf_counter()
+    plain = cfg_model.init(torch.Generator(device="cuda"))
+    target = tsteps.train_state(plain, AdamWConfig())
+    target, cursor = CheckpointManager(ck).restore(1, target)
+    t_plain = time.perf_counter() - t0
+    require(cursor == 1, f"mesh (d): cursor {cursor}")
+    plain_r = {"checksum": param_checksum(target["params"]),
+               "loss": fixed_loss(plain, {k: v.cuda()
+                                          for k, v in batch.items()})}
+    del plain, target, cfg_model
+    free_card()
+    model = get_model(get_arch(arch), device="cuda").init(
+        torch.Generator(device="cuda"))
+    state = tsteps.shard_train_state(model, mesh, AdamWConfig())
+    axes = tsteps.train_state_logical_axes(model, True, by_name=True)
+    t0 = time.perf_counter()
+    restored, cursor = CheckpointManager(ck).restore(
+        1, state, shardings=tree_shardings(axes, state, mesh), mesh=mesh)
+    with torch.no_grad():
+        for k, p in state["params"].items():
+            p.to_local().copy_(restored["params"][k].to_local())
+    t_mesh = time.perf_counter() - t0
+    mesh_r = {"checksum": param_checksum(state["params"]),
+              "loss": fixed_loss(model, train.to_device(
+                  batch, torch.device("cuda"), mesh))}
+    shutil.rmtree(ck, ignore_errors=True)
+    tc, tl = MESH_PARITY
+    for what, r in (("plain", plain_r), ("mesh", mesh_r)):
+        require(abs(r["checksum"] - saved["checksum"])
+                <= tc * abs(saved["checksum"])
+                and abs(r["loss"] - saved["loss"])
+                <= tl * max(abs(saved["loss"]), 1e-8),
+                f"mesh (d): restored onto {what} {r} vs saved {saved}")
+    row = {"part": "d", "saved": saved, "plain": plain_r, "mesh": mesh_r,
+           "save_s": t_save, "restore_plain_s": t_plain,
+           "restore_mesh_s": t_mesh, "state_bytes": state_bytes(state)}
+    report["mesh"].append(row)
+    say("mesh", f"(d) checkpoint of (c)'s sharded state "
+                f"({row['state_bytes'] / 1e9:.1f} GB, saved in {t_save:.1f}"
+                f" s): restored onto plain tensors ({t_plain:.1f} s) "
+                f"checksum {plain_r['checksum']:.6g} loss "
+                f"{plain_r['loss']:.6f}, back onto the mesh by "
+                f"tree_shardings ({t_mesh:.1f} s) checksum "
+                f"{mesh_r['checksum']:.6g} loss {mesh_r['loss']:.6f}, "
+                f"saved {saved['checksum']:.6g} / {saved['loss']:.6f} "
+                f"(parity bounds {tc:g} / {tl:g} relative); card {card}")
+    del model, state, restored
+    free_card()
+    return shapes["params"]
+
+
+def mesh_compression_case(report, card, shapes):
+    """(e) ``compressed_pod_psum`` over a one-rank "pod" group on bf16
+    gradients of (c)'s parameter shapes: equal to a local quantize and
+    dequantize, exactly."""
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.optim import compression
+
+    pod = make_mesh((1,), ("pod",))
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 3)
+    grads = {k: (torch.randn(s, generator=gen, device="cuda") * 1e-3).to(
+        torch.bfloat16) for k, s in shapes.items()}
+    error = {k: torch.zeros(s, device="cuda") for k, s in shapes.items()}
+    stats = {}
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    mean, err = compression.compressed_pod_psum(grads, error, pod,
+                                                stats=stats)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    for k, g in grads.items():
+        q, sc = compression.quantize(g.float() + error[k])
+        deq = compression.dequantize(q, sc)
+        require(torch.equal(stats["q"][k], q) and torch.equal(mean[k], deq)
+                and torch.equal(err[k], g.float() + error[k] - deq),
+                f"mesh (e): {k} differs from a local quantize/dequantize")
+    n = sum(g.numel() for g in grads.values())
+    row = {"part": "e", "tensors": len(grads), "elements": n,
+           "wall_s": wall, "wire_bytes_int32": 4 * n}
+    report["mesh"].append(row)
+    say("mesh", f"(e) compressed_pod_psum over a one-rank 'pod' group on "
+                f"{len(grads)} bf16 gradients ({n / 1e9:.3f} B elements): "
+                f"== local quantize/dequantize exactly (payloads, means, "
+                f"errors), {wall:.2f} s; int32 on the wire ({4 * n / 1e9:.1f}"
+                f" GB a reduction); card {card}")
+
+
+def phase_mesh(report, card, main_io, bf16_io):
+    """Phase 16: the MESH tier and the sharded model zoo on a one-rank
+    NCCL group, torn down at the end."""
+    from repro_torch.launch.mesh import init_distributed, make_mesh, shutdown
+
+    t0 = time.perf_counter()
+    took = {}
+    init_distributed("cuda")
+    try:
+        ring = make_mesh((1,), ("model",))
+        A, B, C, host_out, (alpha, beta, _) = main_io
+        t1 = time.perf_counter()
+        mesh_ring_case(report, card, ring, "a", A, B, C, alpha, beta,
+                       host_out, "phase 3's host-tier result (== phase 4's "
+                       "and the in-core launch, bitwise)")
+        A, B, C, bf_out = bf16_io
+        mesh_ring_case(report, card, ring, "a_bf16", A, B, C, alpha, beta,
+                       bf_out, "phase 7's bf16 result (== its in-core "
+                       "launch)")
+        took["ab"] = round(time.perf_counter() - t1, 1)
+        del A, B, C, host_out, bf_out
+        free_card()
+        t1 = time.perf_counter()
+        shapes = mesh_train_case(report, card)
+        took["cd"] = round(time.perf_counter() - t1, 1)
+        t1 = time.perf_counter()
+        mesh_compression_case(report, card, shapes)
+        took["e"] = round(time.perf_counter() - t1, 1)
+    finally:
+        shutdown()
+        free_card()
+    say("mesh", f"phase 16 took {time.perf_counter() - t0:.1f} s (by part "
+                f"{json.dumps(took)}); multi-rank rings, gathers and "
+                f"reductions run only on the CPU tests' gloo ranks (one "
+                f"card here)")
+
+
 def main(argv=None) -> int:
     import argparse
 
@@ -4587,7 +4917,7 @@ def main(argv=None) -> int:
     phase_kernels_direct(gen)
     report = {"main_path": [], "attention": [], "c1": [], "factor": [],
               "fault": [], "tune": [], "hybrid": [], "hybrid_plans": {},
-              "analyze": [], "serve": [], "train": [],
+              "analyze": [], "serve": [], "train": [], "mesh": [],
               "factor_panel_ms": {}, "factor_dgemm_check": {},
               "launches": {}, "launches_by_dtype": {}}
     A, B, C, host_out, params = phase_main(gen, report)
@@ -4603,9 +4933,12 @@ def main(argv=None) -> int:
     hplan = phase_hybrid(gen, report, A, B, C, host_out, params, syrk, attn)
     phase_analyze(report, card, (A, B, C, host_out, params), bf16_io, syrk,
                   attn, factors, hplan, tuned)
-    del A, B, C, host_out, syrk, attn, bf16_io, factors
+    main_io = (A, B, C, host_out, params)     # host tensors, for phase 16
+    del A, B, C, host_out, syrk, attn, factors
     phase_serve(report, card)
     phase_train(report, card)
+    phase_mesh(report, card, main_io, bf16_io)
+    del main_io, bf16_io
     entries = [*phase_timing(gen, report, card),
                phase_timing_attention(gen, report, card),
                phase_timing_direct(gen, report, card)]
@@ -4623,6 +4956,7 @@ def main(argv=None) -> int:
                       "analyze": report["analyze"],
                       "serve": report["serve"],
                       "train": report["train"],
+                      "mesh": report["mesh"],
                       "tune_calibration": report.get("tune_calibration"),
                       "tune_searches": report.get("tune_searches"),
                       "baseline": report.get("baseline"),

@@ -19,8 +19,17 @@ A state is a nested dict of tensors (the train state of
 ``dtype``.  Leaves are ``.npy`` files; a bfloat16 leaf, which numpy has no
 type for, is stored as its ``uint16`` bits with ``"bfloat16"`` in the
 manifest.  ``restore`` writes into the tensors of a target state of the
-same structure, on their device.  Re-sharding on restore (the reference's
-``shardings=``) waits for ROADMAP module item 13.
+same structure, on their device.
+
+Sharded states: a DTensor leaf is gathered (``full_tensor()``, which every
+rank calls) and rank 0 alone writes the checkpoint; every rank then waits
+on a barrier, at the save when it blocks and else at the next ``wait()``.
+On restore each rank reads the full leaves and keeps its shard of each:
+into a DTensor target as it is placed, or, with ``shardings=`` (a tree of
+placements from ``distributed.tree_shardings``) and ``mesh=``, onto new
+DTensors (``distribute_tensor``), as the reference re-shards a checkpoint
+onto the current mesh.  A checkpoint written on one mesh restores onto
+another (``tests/test_torch_elastic*.py``).
 """
 
 from __future__ import annotations
@@ -35,12 +44,13 @@ import numpy as np
 import torch
 
 
-def _leaves(tree: Mapping, prefix: str = "") -> Iterator[Tuple[str, Any]]:
+def _leaves(tree: Mapping, prefix: str = "", is_leaf=lambda x: False
+            ) -> Iterator[Tuple[str, Any]]:
     """(path, leaf) of a nested dict, in its order."""
     for k, v in tree.items():
         name = f"{prefix}{k}"
-        if isinstance(v, Mapping):
-            yield from _leaves(v, name + ".")
+        if isinstance(v, Mapping) and not is_leaf(v):
+            yield from _leaves(v, name + ".", is_leaf)
         else:
             yield name, v
 
@@ -52,6 +62,23 @@ def _to_numpy(t: torch.Tensor) -> Tuple[np.ndarray, str]:
         return t.view(torch.int16).numpy().view(np.uint16), "bfloat16"
     arr = t.numpy()
     return arr, str(arr.dtype)
+
+
+def _is_dtensor(t) -> bool:
+    from torch.distributed.tensor import DTensor
+    return isinstance(t, DTensor)
+
+
+def _rank() -> int:
+    import torch.distributed as dist
+    return dist.get_rank() if dist.is_initialized() else 0
+
+
+def _shard_of(full: torch.Tensor, mesh, placements):
+    """``full`` as a DTensor of which this rank keeps its own shard (every
+    rank holds the same full tensor, so nothing is sent)."""
+    from torch.distributed.tensor import distribute_tensor
+    return distribute_tensor(full, mesh, placements, src_data_rank=None)
 
 
 def _from_numpy(arr: np.ndarray, dtype: str) -> torch.Tensor:
@@ -67,14 +94,25 @@ class CheckpointManager:
         self.keep = keep
         self.proc = process_index
         self._thread: Optional[threading.Thread] = None
+        self._barrier = False       # a sharded save the ranks still await
         os.makedirs(directory, exist_ok=True)
 
     # ------------------------------------------------------------------ save
     def save(self, step: int, state: Mapping, data_cursor: int = 0,
              blocking: bool = False) -> None:
         self.wait()
+        leaves = list(_leaves(state))
+        sharded = any(_is_dtensor(t) for _, t in leaves)
+        if sharded:   # every rank gathers; rank 0 alone writes
+            leaves = [(n, t.full_tensor() if _is_dtensor(t) else t)
+                      for n, t in leaves]
+            self._barrier = True
+            if _rank() != 0:
+                if blocking:
+                    self.wait()
+                return
         # snapshot to host synchronously, then write async
-        host = [(name, *_to_numpy(leaf)) for name, leaf in _leaves(state)]
+        host = [(name, *_to_numpy(leaf)) for name, leaf in leaves]
 
         def _write():
             tmp = os.path.join(self.dir, f"tmp.{step}.{self.proc}")
@@ -98,6 +136,7 @@ class CheckpointManager:
 
         if blocking:
             _write()
+            self.wait()
         else:
             self._thread = threading.Thread(target=_write, daemon=True)
             self._thread.start()
@@ -106,6 +145,10 @@ class CheckpointManager:
         if self._thread is not None:
             self._thread.join()
             self._thread = None
+        if self._barrier:
+            import torch.distributed as dist
+            self._barrier = False
+            dist.barrier()
 
     def _gc(self) -> None:
         steps = sorted(self.all_steps())
@@ -126,12 +169,18 @@ class CheckpointManager:
         steps = self.all_steps()
         return steps[-1] if steps else None
 
-    def restore(self, step: int, target: Mapping) -> Tuple[Dict, int]:
-        """Loads checkpoint ``step`` into ``target``, a state of the same
-        structure: each tensor of ``target`` is overwritten in place (on
-        its device, in its dtype), so a model whose parameters the state
-        names trains on from the restored values.  Raises ``ValueError``
-        when a leaf's shape differs.  Returns (target, data_cursor)."""
+    def restore(self, step: int, target: Mapping, shardings=None,
+                mesh=None) -> Tuple[Dict, int]:
+        """Loads checkpoint ``step``.  Without ``shardings``, into
+        ``target``, a state of the same structure: each tensor of
+        ``target`` is overwritten in place (on its device, in its dtype; a
+        DTensor with its own shard), so a model whose parameters the state
+        names trains on from the restored values.  With ``shardings`` (a
+        tree of DTensor placements of ``target``'s structure) and ``mesh``,
+        ``target``'s leaves give only shapes (tensors of any device,
+        ``meta`` included) and each loaded leaf is placed onto ``mesh`` as a
+        new DTensor, in the target leaf's dtype.  Raises ``ValueError``
+        when a leaf's shape differs.  Returns (state, data_cursor)."""
         path = os.path.join(self.dir, f"step_{step:09d}")
         with open(os.path.join(path, "manifest.json")) as f:
             manifest = json.load(f)
@@ -142,8 +191,33 @@ class CheckpointManager:
                 raise ValueError(f"checkpoint leaf {name} shape "
                                  f"{tuple(meta['shape'])} != "
                                  f"{tuple(tgt.shape)}")
+        if shardings is not None and mesh is None:
+            raise ValueError("shardings= needs the mesh= they place onto")
+        places = dict(_leaves(shardings, is_leaf=lambda x: isinstance(
+            x, tuple))) if shardings is not None else {}
+        out: Dict = {}
         with torch.no_grad():
-            for _, tgt, meta in leaves:
-                arr = np.load(os.path.join(path, meta["file"]))
-                tgt.copy_(_from_numpy(arr, meta["dtype"]))
-        return target, manifest["data_cursor"]
+            for name, tgt, meta in leaves:
+                full = _from_numpy(np.load(os.path.join(path, meta["file"])),
+                                   meta["dtype"])
+                if shardings is not None:
+                    out[name] = _shard_of(
+                        full.to(device=mesh.device_type, dtype=tgt.dtype),
+                        mesh, places[name])
+                elif _is_dtensor(tgt):
+                    local = tgt.to_local()
+                    local.copy_(_shard_of(full.to(local.device),
+                                          tgt.device_mesh,
+                                          tgt.placements).to_local())
+                else:
+                    tgt.copy_(full)
+        if shardings is None:
+            return target, manifest["data_cursor"]
+        return _rebuild(target, out), manifest["data_cursor"]
+
+
+def _rebuild(tree: Mapping, by_name: Dict, prefix: str = "") -> Dict:
+    """``tree``'s structure with the leaf at each path from ``by_name``."""
+    return {k: _rebuild(v, by_name, f"{prefix}{k}.")
+            if isinstance(v, Mapping) else by_name[f"{prefix}{k}"]
+            for k, v in tree.items()}

@@ -4,7 +4,8 @@ Port of ``src/repro/configs/base.py``.  One ``ArchConfig`` per assigned
 architecture (exact published dims) lives in ``configs/<id>.py``; the
 registry resolves ``--arch <id>``.  Input shapes are the assignment's four
 LM shapes.  ``pdtype``/``adtype`` name torch dtypes.  ``input_specs`` (the
-dry-run's shape stand-ins) waits for ROADMAP module item 13.
+dry-run's shape stand-ins) comes with the dry-run, ROADMAP module item
+13b.
 """
 
 from __future__ import annotations

@@ -60,6 +60,7 @@ from repro_torch.core.exec_plan import (
 from repro_torch.core.runtime import (
     ExecState,
     HostOocRuntime,
+    MeshOocRuntime,
     OocRuntime,
     RuntimeFactory,
     ScheduleExecutor,
@@ -101,7 +102,8 @@ __all__ = [
     "AttentionPartition", "BlockCache", "BlockRef", "ComputeStage",
     "Device", "EVICT_POLICIES", "Event",
     "ExecState", "ExecutablePlan", "FactorPipelineSpec", "GemmPartition",
-    "HardwareModel", "HostOocRuntime", "Op", "OpKind", "OocRuntime",
+    "HardwareModel", "HostOocRuntime", "MeshOocRuntime", "Op", "OpKind",
+    "OocRuntime",
     "PipelineSpec", "RuntimeFactory", "Schedule", "ScheduleError",
     "ScheduleExecutor", "SimResult", "SliceRef", "Stream", "StreamFactory",
     "StreamedOperand", "TRAVERSALS", "VmemOocRuntime", "WriteBack",

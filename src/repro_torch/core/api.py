@@ -5,7 +5,8 @@ runtimes, streams, the partitioner, the pipeline compiler, the executor,
 observability, the trace analysis, the factorizations, the fault policy
 and the autotuner.  Tier sizes are the card's own
 (:func:`~repro_torch.core.runtime.tier_bytes`): ``HBM`` is the device
-memory, ``VMEM`` the shared memory a block may use.  Without a card the
+memory, ``MESH`` the same per rank of the ring, ``VMEM`` the shared
+memory a block may use.  Without a card the
 caller passes ``mem_bytes``.  The ``HYBRID`` composite has no size of its
 own: its placeholder reports 0, and the runtime made from it the sum of
 its members' budgets.
@@ -18,9 +19,9 @@ from typing import List, Optional
 from repro_torch.core.exec_plan import ExecutablePlan, compile_executable
 from repro_torch.core.partitioner import GemmPartition, plan_gemm_partition
 from repro_torch.core.pipeline import PipelineSpec, compile_pipeline
-from repro_torch.core.runtime import (NOT_PORTED, OocRuntime, RuntimeFactory,
-                                      ScheduleExecutor, not_ported,
-                                      register_op_handler, tier_bytes)
+from repro_torch.core.runtime import (OocRuntime, RuntimeFactory,
+                                      ScheduleExecutor, register_op_handler,
+                                      tier_bytes)
 from repro_torch.core.streams import Device, Schedule, Stream, StreamFactory
 
 
@@ -30,14 +31,12 @@ class hclDeviceFactory:
                mem_bytes: Optional[int] = None,
                torch_device=None) -> Device:
         """The hcl tier tuple; ``mem_bytes`` defaults to the card's size of
-        the tier on ``torch_device`` (``HYBRID``: 0, the composite's
-        placeholder)."""
+        the tier on ``torch_device`` (``MESH``: the card's memory, per
+        rank; ``HYBRID``: 0, the composite's placeholder)."""
         name = name.upper()
-        if name in NOT_PORTED:
-            raise not_ported(name)
         if name == "HYBRID":
             return Device(name, dev_id, mem_bytes or 0)
-        if name not in ("VMEM", "HBM"):
+        if name not in ("VMEM", "HBM", "MESH"):
             raise ValueError(f"unknown device type {name!r}")
         return Device(name, dev_id,
                       mem_bytes or tier_bytes(name, torch_device))
@@ -45,8 +44,8 @@ class hclDeviceFactory:
 
 class hclRuntimeFactory:
     @staticmethod
-    def create(device: Device, **kw) -> OocRuntime:
-        return RuntimeFactory.create(device, **kw)
+    def create(device: Device, mesh=None, **kw) -> OocRuntime:
+        return RuntimeFactory.create(device, mesh, **kw)
 
 
 class hclStreamFactory:

@@ -40,8 +40,9 @@ predict equal finish times (``tolerance=`` overrides the balancer's 5 %),
 each band runs on its member's executor, and every member computes on
 ``torch_device``.  The member budgets replace ``budget_bytes``.
 
-Not in this slice: ``backend="mesh"`` (ROADMAP module item 10), which
-raises ``NotImplementedError``.
+``backend="mesh"`` runs the SUMMA ring of :class:`MeshOocRuntime` over
+``mesh`` (a ``torch.distributed`` DeviceMesh with a ``"model"`` axis) or
+a prepared ``runtime``; it returns C as a row-sharded DTensor.
 """
 
 from __future__ import annotations
@@ -52,9 +53,10 @@ import torch
 
 from repro_torch.core import pipeline as plib
 from repro_torch.core.partitioner import GemmPartition, plan_gemm_partition
-from repro_torch.core.runtime import (HostOocRuntime, OocRuntime,
-                                      VmemOocRuntime, block_gemm,
-                                      device_tensor, host_tensor, not_ported,
+from repro_torch.core.runtime import (HostOocRuntime, MeshOocRuntime,
+                                      OocRuntime, VmemOocRuntime, as_tensor,
+                                      block_gemm, compute_dtype,
+                                      device_tensor, host_tensor,
                                       resolve_device)
 from repro_torch.core.streams import Device, OpKind, validate_schedule
 from repro_torch.obs import get_observability
@@ -66,17 +68,17 @@ def is_in_core(M: int, N: int, K: int, budget_bytes: int,
     return (M * K + K * N + M * N) * bytes_per_el <= budget_bytes
 
 
-def _check_slice(backend: str, tune, devices, faults) -> None:
+def _check_slice(backend: str, tune, devices, faults,
+                 backends=("host", "vmem")) -> None:
     if tune not in (None, "auto"):
         raise ValueError(f"unknown tune mode {tune!r}; expected None/'auto'")
     if faults is not None and (devices is not None or backend != "host"):
         raise ValueError("fault injection is supported on the host "
                          "pipeline backend only (hybrid paths take "
                          "fault_plans on run_hybrid_*)")
-    if backend == "mesh":
-        raise not_ported("MESH")
-    if backend not in ("host", "vmem"):
-        raise ValueError(f"unknown backend {backend!r}")
+    if backend not in backends:
+        raise ValueError(f"unknown backend {backend!r}; expected one of "
+                         f"{backends}")
 
 
 def _torch_device(runtime, torch_device) -> torch.device:
@@ -197,6 +199,22 @@ def _host_gemm_resilient(rt, A, B, C, alpha, beta, part, sched, *, faults,
     raise oom
 
 
+def _mesh_gemm(A, B, C, alpha, beta, mesh, runtime, budget_bytes):
+    """The SUMMA ring over ``mesh`` (or a prepared ``runtime``'s)."""
+    if runtime is None:
+        if mesh is None:
+            raise ValueError("backend='mesh' needs mesh= (a DeviceMesh) or "
+                             "runtime= (a MeshOocRuntime)")
+        runtime = MeshOocRuntime(mesh, device=Device("MESH", 0,
+                                                     budget_bytes))
+    if C is None:
+        t = as_tensor(A)
+        C = torch.zeros((t.shape[0], as_tensor(B).shape[1]),
+                        dtype=compute_dtype(t.dtype))
+        beta = 0.0
+    return runtime.gemm(A, B, C, alpha, beta)
+
+
 def ooc_gemm(
     A,
     B,
@@ -219,12 +237,17 @@ def ooc_gemm(
     faults=None,
     fault_policy=None,
     torch_device=None,
+    mesh=None,
 ) -> torch.Tensor:
     """Compute ``alpha * A @ B + beta * C`` streaming blocks through a memory
     tier of size ``budget_bytes``.
 
-    backend: "host" (schedule-driven block streaming from host memory) or
-    "vmem" (one launch of the block GEMM on device-resident operands).
+    backend: "host" (schedule-driven block streaming from host memory),
+    "vmem" (one launch of the block GEMM on device-resident operands) or
+    "mesh" (the SUMMA ring of :class:`MeshOocRuntime` over ``mesh``'s
+    ``"model"`` axis, or over a prepared ``runtime``'s; every rank passes
+    the full operands, or row/column-sharded DTensors, and gets C back as
+    a row-sharded DTensor).
 
     traversal / evict (host backend): block-grid step order and
     residency-cache eviction policy — they change which H2D transfers the
@@ -255,7 +278,10 @@ def ooc_gemm(
     come from the specs, so ``budget_bytes`` is ignored on this path; host
     operands in, a CPU tensor out.
     """
-    _check_slice(backend, tune, devices, faults)
+    _check_slice(backend, tune, devices, faults,
+                 ("host", "vmem", "mesh"))
+    if backend == "mesh":
+        return _mesh_gemm(A, B, C, alpha, beta, mesh, runtime, budget_bytes)
     dev = _torch_device(runtime, torch_device)
     if devices is not None:
         from repro_torch.hybrid import plan_hybrid_gemm, run_hybrid_gemm

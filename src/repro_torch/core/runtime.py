@@ -29,8 +29,11 @@ copy-on-write device snapshots.
 The hybrid composite (``HYBRID``, ``repro_torch.hybrid.executor``)
 registers itself when its module is imported, which
 :class:`RuntimeFactory` does on first use.
-Not in this slice, and asking for it raises ``NotImplementedError`` naming
-the ROADMAP module item: ``MeshOocRuntime`` (item 10).
+
+  * :class:`MeshOocRuntime` — the ``MESH`` tier: a SUMMA ring over the
+    ranks of a ``torch.distributed`` device mesh axis, each ring step's
+    block product on the same kernel, the next B block's send/receive
+    issued before it (NCCL between cards, gloo between CPU ranks).
 
 Every entry point takes ``torch_device`` (default: CUDA).  Without a card
 and without ``torch_device="cpu"`` from the caller they raise; on the CPU
@@ -58,16 +61,6 @@ from repro_torch.core.streams import (BlockRef, Device, Op, OpKind, Schedule,
 from repro_torch.kernels import ops as kops
 from repro_torch.obs import get_observability
 
-# what is left out of this slice, by the ROADMAP module item that ports it
-NOT_PORTED = {
-    "MESH": "the MESH tier (MeshOocRuntime) is ROADMAP module item 10",
-}
-
-
-def not_ported(what: str) -> NotImplementedError:
-    return NotImplementedError(f"not ported yet: {NOT_PORTED[what]}")
-
-
 def resolve_device(torch_device=None, arg: str = "torch_device"
                    ) -> torch.device:
     """The torch device an entry point runs on: CUDA unless the caller
@@ -89,12 +82,12 @@ def resolve_device(torch_device=None, arg: str = "torch_device"
 
 def tier_bytes(name: str, torch_device=None) -> int:
     """A memory tier's size on the card: ``HBM`` is the device memory
-    (``total_memory``), ``VMEM`` the shared memory one block may use
-    (``shared_memory_per_block_optin``, where the GEMM kernel's tiles
-    live).  Without a card there is no size to report: the caller passes
-    one explicitly."""
+    (``total_memory``), ``MESH`` the same per rank, ``VMEM`` the shared
+    memory one block may use (``shared_memory_per_block_optin``, where the
+    GEMM kernel's tiles live).  Without a card there is no size to report:
+    the caller passes one explicitly."""
     name = name.upper()
-    if name not in ("HBM", "VMEM"):
+    if name not in ("HBM", "MESH", "VMEM"):
         raise ValueError(f"no card size for tier {name!r}")
     dev = resolve_device(torch_device)
     if dev.type != "cuda":
@@ -102,7 +95,7 @@ def tier_bytes(name: str, torch_device=None) -> int:
             f"tier {name!r} has no size on {dev}; pass its memory "
             f"explicitly (Device({name!r}, 0, mem_bytes))")
     props = torch.cuda.get_device_properties(dev)
-    if name == "HBM":
+    if name in ("HBM", "MESH"):
         return int(props.total_memory)
     return int(props.shared_memory_per_block_optin)
 
@@ -188,9 +181,10 @@ class OocRuntime:
         raise NotImplementedError
 
     @classmethod
-    def from_device(cls, device: Device, **kw) -> "OocRuntime":
+    def from_device(cls, device: Device, *, mesh=None,
+                    **kw) -> "OocRuntime":
         """Factory hook :class:`RuntimeFactory` calls for the registered
-        tier."""
+        tier (a tier that needs no mesh ignores ``mesh``)."""
         return cls(device=device, **kw)
 
     # hcl-style helpers shared by backends ------------------------------------
@@ -1328,16 +1322,136 @@ class VmemOocRuntime(OocRuntime):
             block=(bm, bn, bk))
 
 
+def ring_shards(A, B, C, axis_mesh, dev: torch.device):
+    """This rank's operands of a SUMMA ring over the 1-D ``axis_mesh``: A's
+    and C's row block and B's column block, on ``dev`` (full operands are
+    cut, DTensors sharded so already give their shards)."""
+    from torch.distributed.tensor import DTensor
+
+    n, me = axis_mesh.size(), axis_mesh.get_local_rank()
+
+    def shard(x, dim):
+        if isinstance(x, DTensor):
+            return device_tensor(x.to_local(), dev)
+        x = as_tensor(x)
+        if x.shape[dim] % n:
+            raise ValueError(f"SUMMA needs M, N divisible by the mesh axis "
+                             f"({n}), got shape {tuple(x.shape)}")
+        step = x.shape[dim] // n
+        return device_tensor(x.narrow(dim, me * step, step), dev)
+
+    return shard(A, 0), shard(B, 1), shard(C, 0).clone()
+
+
+def ring_peers(axis_mesh) -> Tuple[int, int]:
+    """(send-to, receive-from) global ranks of this rank's ring step: each
+    block moves to the previous rank, the reference's ``ppermute`` with
+    ``(i, i - 1)``."""
+    import torch.distributed as dist
+
+    group, n = axis_mesh.get_group(), axis_mesh.size()
+    me = axis_mesh.get_local_rank()
+    return (dist.get_global_rank(group, (me - 1) % n),
+            dist.get_global_rank(group, (me + 1) % n))
+
+
+@register_runtime("MESH")
+class MeshOocRuntime(OocRuntime):
+    """Mesh tier: a SUMMA ring over a ``torch.distributed`` mesh axis.
+
+    The operands are sharded across the 1-D sub-mesh ``mesh[axis]`` (A and
+    C by row blocks, B by column blocks); each rank streams the other
+    ranks' B blocks through a double buffer while kernel 1 consumes the
+    current one: step t issues the next block's send and receive
+    (``batch_isend_irecv``) before its product, so the transfer overlaps
+    the compute — the paper's two-stream overlap with the link between the
+    ranks as the "PCIe link" and the neighbours' memory as the "host
+    memory".  ``overlap=False`` keeps the reference's serial order
+    (product, then transfer).  The last step sends nothing (no rank reads
+    the block it would carry); at one rank the ring is one product and no
+    transfer.
+
+    Each product is ``alpha * a @ b + beta * c`` into C's column slice of
+    the step (a row-strided view, which kernel 1 takes as it is), so an
+    output element is summed in the kernel's one k order and the result
+    equals the in-core launch bit for bit.  ``gemm`` returns C as a
+    DTensor on ``mesh[axis]`` sharded by rows (``Shard(0)``), as the
+    reference returns its sharded array; ``full_tensor()`` gathers it.
+
+    ``device``'s memory defaults to the card's (``tier_bytes("MESH")``,
+    per rank); on a CPU mesh the caller passes one.
+    """
+
+    def __init__(self, mesh, axis: str = "model",
+                 device: Optional[Device] = None):
+        names = mesh.mesh_dim_names or ()
+        if axis not in names:
+            raise ValueError(f"the mesh has no axis {axis!r} (axes {names})")
+        self.mesh = mesh
+        self.axis = axis
+        self.axis_mesh = mesh[axis] if mesh.ndim > 1 else mesh
+        self.torch_device = resolve_device(mesh.device_type)
+        self.device = device or Device(
+            "MESH", 0, tier_bytes("MESH", self.torch_device))
+        self.last_p2p_bytes = 0
+
+    @classmethod
+    def from_device(cls, device: Device, *, mesh=None, torch_device=None,
+                    **kw) -> "MeshOocRuntime":
+        if mesh is None:
+            raise ValueError("MESH runtime needs a torch.distributed "
+                             "DeviceMesh (mesh=)")
+        rt = cls(mesh, device=device, **kw)
+        if torch_device is not None \
+                and resolve_device(torch_device) != rt.torch_device:
+            raise ValueError(f"torch_device {torch_device} differs from "
+                             f"the mesh's {rt.torch_device}")
+        return rt
+
+    def gemm(self, A, B, C, alpha, beta, part=None, overlap: bool = True,
+             **kw):
+        import torch.distributed as dist
+        from torch.distributed.tensor import DTensor, Shard
+
+        am, dev = self.axis_mesh, self.torch_device
+        n, me = am.size(), am.get_local_rank()
+        a, b_cur, acc = ring_shards(A, B, C, am, dev)
+        nb = b_cur.shape[1]
+        to, frm = ring_peers(am)
+        group = am.get_group()
+        b_nxt = torch.empty_like(b_cur) if n > 1 else None
+        self.last_p2p_bytes = 0
+
+        def exchange():
+            ops = [dist.P2POp(dist.isend, b_cur, to, group),
+                   dist.P2POp(dist.irecv, b_nxt, frm, group)]
+            self.last_p2p_bytes += b_cur.numel() * b_cur.element_size()
+            return dist.batch_isend_irecv(ops)
+
+        for t in range(n):
+            last = t == n - 1
+            reqs = exchange() if overlap and not last else []
+            col = ((me + t) % n) * nb
+            out = acc[:, col:col + nb]
+            block_gemm(a, b_cur, out, alpha=alpha, beta=beta, out=out)
+            if not overlap and not last:
+                reqs = exchange()
+            for r in reqs:
+                r.wait()
+            if not last:
+                b_cur, b_nxt = b_nxt, b_cur
+        return DTensor.from_local(acc, am, (Shard(0),), run_check=False)
+
+
 class RuntimeFactory:
     """``hclRuntimeFactory``: device tuple -> runtime, via the declarative
     registry populated by :func:`register_runtime`.  Extra keyword arguments
-    are forwarded to the tier's ``from_device`` hook (``torch_device=``)."""
+    are forwarded to the tier's ``from_device`` hook (``torch_device=``;
+    ``mesh=`` for ``MESH``)."""
 
     @staticmethod
-    def create(device: Device, **kw) -> OocRuntime:
+    def create(device: Device, mesh=None, **kw) -> OocRuntime:
         name = device.name.upper()
-        if name in NOT_PORTED:
-            raise not_ported(name)
         cls = _RUNTIME_REGISTRY.get(name)
         if cls is None and name in _LAZY_RUNTIME_MODULES:
             importlib.import_module(_LAZY_RUNTIME_MODULES[name])
@@ -1347,7 +1461,7 @@ class RuntimeFactory:
                 f"unknown device type {device.name!r}; registered tiers: "
                 f"{RuntimeFactory.registered()}"
             )
-        return cls.from_device(device, **kw)
+        return cls.from_device(device, mesh=mesh, **kw)
 
     @staticmethod
     def registered() -> List[str]:

@@ -17,10 +17,11 @@ handler runs the library's block GEMM (kernel 1), so C1 measures the
 planning and abstraction layers and not a second interpreter; the vmem path
 is fully standalone: its own CUDA kernel (``csrc/direct_vmem_gemm.cu``,
 kernel 3), ctypes binding and argument checks, all below, sharing nothing
-with ``repro_torch.kernels`` but the build helper ``_build``.
-
-Not in this slice: ``direct_mesh_ooc_gemm`` (a ring across several cards,
-ROADMAP module item 10).
+with ``repro_torch.kernels`` but the build helper ``_build``; the mesh
+path is a standalone SUMMA ring over ``torch.distributed`` point-to-point
+calls with its own sharding and ring bookkeeping, whose block products are
+the library's block GEMM (kernel 1, as the host path's), so on the same
+ranks it equals the MESH tier bit for bit.
 """
 
 from __future__ import annotations
@@ -32,7 +33,8 @@ from typing import Optional, Tuple
 import torch
 
 from repro_torch.core.runtime import (ScheduleExecutor, as_tensor,
-                                      host_tensor, resolve_device)
+                                      block_gemm, host_tensor,
+                                      resolve_device)
 from repro_torch.core.streams import (BlockRef, Device, Op, OpKind, Schedule,
                                       SliceRef, StreamFactory)
 from repro_torch.kernels import _build
@@ -208,3 +210,44 @@ def direct_vmem_ooc_gemm(A, B, C, alpha, beta,
 
 direct_vmem_ooc_gemm.launches = 0
 direct_vmem_ooc_gemm.launches_by_dtype = {}
+
+
+# ===========================================================================
+# 3. mesh-tier direct implementation (hand-written SUMMA ring)
+# ===========================================================================
+def direct_mesh_ooc_gemm(A, B, C, alpha, beta, mesh, axis="model"):
+    """Standalone SUMMA ring with its own bookkeeping: this rank's row
+    blocks of A and C and column block of B, the B blocks passed around
+    the ranks of ``mesh[axis]`` with isend/irecv issued before each block
+    product.  Every rank passes the full operands; C comes back as a
+    DTensor sharded by rows."""
+    import torch.distributed as dist
+    from torch.distributed.tensor import DTensor, Shard
+
+    ring = mesh[axis] if mesh.ndim > 1 else mesh
+    Pn, me, group = ring.size(), ring.get_local_rank(), ring.get_group()
+    dev = resolve_device(mesh.device_type)
+    A, B, C = (as_tensor(x) for x in (A, B, C))
+    M, K = A.shape
+    N = B.shape[1]
+    assert M % Pn == 0 and N % Pn == 0
+    mb, nb = M // Pn, N // Pn
+    a = A[me * mb:(me + 1) * mb].to(dev).contiguous()
+    b = B[:, me * nb:(me + 1) * nb].to(dev).contiguous()
+    acc = C[me * mb:(me + 1) * mb].to(dev).clone()
+    spare = torch.empty_like(b)
+    dst = dist.get_global_rank(group, (me - 1) % Pn)
+    src = dist.get_global_rank(group, (me + 1) % Pn)
+    for t in range(Pn):
+        reqs = []
+        if t < Pn - 1:
+            reqs = dist.batch_isend_irecv(
+                [dist.P2POp(dist.isend, b, dst, group),
+                 dist.P2POp(dist.irecv, spare, src, group)])
+        col = ((me + t) % Pn) * nb
+        view = acc[:, col:col + nb]
+        block_gemm(a, b, view, alpha=alpha, beta=beta, out=view)
+        for r in reqs:
+            r.wait()
+        b, spare = spare, b
+    return DTensor.from_local(acc, ring, (Shard(0),), run_check=False)

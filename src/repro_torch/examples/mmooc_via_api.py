@@ -4,7 +4,9 @@ Port of ``examples/mmooc_via_api.py``.  This file is the LOC *numerator*
 for claim C4: compare with the backend-specific implementations in
 ``repro_torch/direct_impls.py``.  The same code runs on every memory tier
 by changing the device tuple — the paper's {"GPU"| "PHI"| "FPGA"} becomes
-{"HBM"| "VMEM"} on one card (the MESH tier is ROADMAP module item 10).
+{"HBM"| "VMEM"| "MESH"}; the MESH tier's ring runs over the ranks of a
+``torch.distributed`` device mesh (here one rank: NCCL on the card, gloo
+with ``--cpu``) and returns C as a row-sharded DTensor.
 
     python -m repro_torch.examples.mmooc_via_api          # on the card
     python -m repro_torch.examples.mmooc_via_api --cpu    # plain versions
@@ -15,13 +17,14 @@ import numpy as np
 
 from repro_torch.core.api import (hclDeviceFactory, hclMatrixPartitioner,
                                   hclRuntimeFactory)
+from repro_torch.launch.mesh import init_distributed, make_mesh, shutdown
 
 
 def mmooc(A, B, C, alpha, beta, device_name="HBM", device_id=0,
-          mem_bytes=None, torch_device=None):
+          mem_bytes=None, torch_device=None, mesh=None):
     d = hclDeviceFactory.create(device_name, device_id, mem_bytes,
                                 torch_device)
-    r = hclRuntimeFactory.create(d, torch_device=torch_device)
+    r = hclRuntimeFactory.create(d, mesh, torch_device=torch_device)
     part = hclMatrixPartitioner(A.shape[0], B.shape[1], A.shape[1],
                                 d.mem_size(), A.dtype.itemsize)
     return r.gemm(A, B, C, alpha, beta, part)
@@ -39,12 +42,18 @@ def main():
     B = rng.standard_normal((K, N)).astype(np.float32)
     C = rng.standard_normal((M, N)).astype(np.float32)
     budget = (A.nbytes + B.nbytes + C.nbytes) // 5   # force out-of-core
-    for dev in ("HBM", "VMEM"):
-        out = mmooc(A, B, C, 1.5, 0.5, dev, mem_bytes=budget,
-                    torch_device=torch_device)
-        err = np.abs(out.cpu().numpy() - (1.5 * A @ B + 0.5 * C)).max()
-        print(f"{dev}: max err {err:.2e}")
-        assert err < 1e-2
+    init_distributed(torch_device or "cuda")
+    try:
+        mesh = make_mesh((1,), ("model",))
+        for dev in ("HBM", "VMEM", "MESH"):
+            out = mmooc(A, B, C, 1.5, 0.5, dev, mem_bytes=budget,
+                        torch_device=torch_device, mesh=mesh)
+            out = out.full_tensor() if dev == "MESH" else out
+            err = np.abs(out.cpu().numpy() - (1.5 * A @ B + 0.5 * C)).max()
+            print(f"{dev}: max err {err:.2e}")
+            assert err < 1e-2
+    finally:
+        shutdown()
     print("mmooc_via_api OK")
 
 

@@ -682,7 +682,7 @@ class HybridOocRuntime(OocRuntime):
         self.last_span_groups: SpanGroups = []
 
     @classmethod
-    def from_device(cls, device: Device, *, devices=None,
+    def from_device(cls, device: Device, *, devices=None, mesh=None,
                     **kw) -> "HybridOocRuntime":
         if not devices:
             raise ValueError(

@@ -1,2 +1,2 @@
-"""Serving and training drivers (port of ``src/repro/launch``; its mesh
-helpers are ROADMAP module item 13, so this package imports nothing)."""
+"""Serving and training drivers and the device meshes under them (port of
+``src/repro/launch``)."""

@@ -14,8 +14,12 @@ kernel's plain version.  :func:`decode_attention` is the plain mirror of the
 reference's decode attention; the tests and ``chip_smoke.py`` compare
 kernel 2 with it, and no model path calls it.
 
-The logical sharding axes (the reference's ``*_axes`` functions) wait for
-ROADMAP module item 13.
+``attention_axes`` and ``mlp_axes`` are the reference's logical sharding
+axes.  On DTensors (a sharded model, ``models.base``) the blocked
+attention, the decode step's cache writes and kernel 2 run on each rank's
+own batch rows and heads (``local_map``; :func:`local_decode`): rows and
+heads are independent, so they need no communication; a cache sharded
+along its sequence raises.
 """
 
 from __future__ import annotations
@@ -27,6 +31,8 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.kernels import ops as kops
+from repro_torch.models.spmd import (head_placements, is_dtensor, on_shards,
+                                     split_heads)
 
 Params = Mapping[str, torch.Tensor]
 
@@ -169,6 +175,15 @@ def attention_init(generator: torch.Generator, d_model: int, n_heads: int,
     return p
 
 
+def attention_axes(qkv_bias: bool) -> Dict[str, tuple]:
+    a = {"wq": ("embed", "heads"), "wk": ("embed", "kv_heads"),
+         "wv": ("embed", "kv_heads"), "wo": ("heads", "embed")}
+    if qkv_bias:
+        a.update({"bq": ("heads",), "bk": ("kv_heads",),
+                  "bv": ("kv_heads",)})
+    return a
+
+
 def _project(p: Params, x: torch.Tensor, name: str) -> torch.Tensor:
     y = x @ p["w" + name]
     return y + p["b" + name] if ("b" + name) in p else y
@@ -180,13 +195,19 @@ def attention_apply(p: Params, x: torch.Tensor, *, n_heads: int, n_kv: int,
                     block_q: int = 512):
     """Full-sequence attention (training / prefill).  Returns (out, (k, v))."""
     B, S, _ = x.shape
-    q = _project(p, x, "q").reshape(B, S, n_heads, head_dim)
-    k = _project(p, x, "k").reshape(B, S, n_kv, head_dim)
-    v = _project(p, x, "v").reshape(B, S, n_kv, head_dim)
+    q = split_heads(_project(p, x, "q"), n_heads, head_dim)
+    k = split_heads(_project(p, x, "k"), n_kv, head_dim)
+    v = split_heads(_project(p, x, "v"), n_kv, head_dim)
     if rope_theta:
         q = apply_rope(q, positions, rope_theta)
         k = apply_rope(k, positions, rope_theta)
-    o = blockwise_causal_attention(q, k, v, block_q=block_q, causal=causal)
+    attn = lambda q_, k_, v_: blockwise_causal_attention(   # noqa: E731
+        q_, k_, v_, block_q=block_q, causal=causal)
+    if is_dtensor(q):
+        # each rank attends with its own batch rows and heads
+        pl = head_placements(q.device_mesh, B, (n_heads, n_kv), 2)
+        attn = on_shards(attn, (pl, pl, pl), (pl,))
+    o = attn(q, k, v)
     return o.reshape(B, S, n_heads * head_dim) @ p["wo"], (k, v)
 
 
@@ -199,17 +220,48 @@ def attention_decode_apply(p: Params, x: torch.Tensor,
     token sees itself) with kernel 2.  x: (B, D); caches (B, Smax, Hkv, d);
     length (B,) int32 on the caches' device.  Returns the (B, D) output."""
     B, _ = x.shape
-    q = _project(p, x, "q").reshape(B, n_heads, head_dim)
-    k = _project(p, x, "k").reshape(B, n_kv, head_dim)
-    v = _project(p, x, "v").reshape(B, n_kv, head_dim)
+    q = split_heads(_project(p, x, "q"), n_heads, head_dim)
+    k = split_heads(_project(p, x, "k"), n_kv, head_dim)
+    v = split_heads(_project(p, x, "v"), n_kv, head_dim)
     if rope_theta:
         pos = length.float()[:, None]                        # (B, 1)
         q = apply_rope(q[:, None], pos, rope_theta)[:, 0]
         k = apply_rope(k[:, None], pos, rope_theta)[:, 0]
+    o = local_decode(q, k, v, k_cache, v_cache, length)
+    return o.reshape(B, n_heads * head_dim) @ p["wo"]
+
+
+def _decode_core(q, k, v, k_cache, v_cache, length):
     cache_update(k_cache, k.to(k_cache.dtype), length)
     cache_update(v_cache, v.to(v_cache.dtype), length)
-    o = kops.flash_decode_attention(q, k_cache, v_cache, length + 1)
-    return o.reshape(B, n_heads * head_dim) @ p["wo"]
+    return kops.flash_decode_attention(q, k_cache, v_cache, length + 1)
+
+
+def local_decode(q, k, v, k_cache, v_cache, length):
+    """Writes the new token's k, v (B, Hkv, d) into the caches (B, Smax,
+    Hkv, d) at ``length`` and runs kernel 2 for q (B, H, d).  On DTensor
+    caches both run on each rank's shard of the caches as they are placed
+    (batch rows and KV heads sharded, or replicated); q, k, v and
+    ``length`` are redistributed to match."""
+    if not is_dtensor(k_cache):
+        return _decode_core(q, k, v, k_cache, v_cache, length)
+    from torch.distributed.tensor import Replicate, Shard
+    from torch.distributed.tensor.experimental import local_map
+
+    cp = k_cache.placements
+    if tuple(v_cache.placements) != tuple(cp) or any(
+            isinstance(pl, Shard) and pl.dim not in (0, 2) for pl in cp):
+        raise NotImplementedError(
+            f"decode on caches placed {cp}: only batch rows and KV heads "
+            "may be sharded")
+    head = tuple(Shard(1) if isinstance(pl, Shard) and pl.dim == 2 else pl
+                 for pl in cp)                       # (B, H, d) placements
+    rows = tuple(pl if isinstance(pl, Shard) and pl.dim == 0 else Replicate()
+                 for pl in cp)                       # (B,) placements
+    return local_map(_decode_core, out_placements=(head,),
+                     in_placements=(head, head, head, cp, cp, rows),
+                     redistribute_inputs=True)(q, k, v, k_cache, v_cache,
+                                               length)
 
 
 # --------------------------------------------------------------------------
@@ -225,6 +277,13 @@ def mlp_init(generator: torch.Generator, d_model: int, d_ff: int,
     if gated:
         p["w_gate"] = dense_init(generator, (d_model, d_ff), 0, dtype)
     return p
+
+
+def mlp_axes(gated: bool = True) -> Dict[str, tuple]:
+    a = {"w_up": ("embed", "ffn"), "w_down": ("ffn", "embed")}
+    if gated:
+        a["w_gate"] = ("embed", "ffn")
+    return a
 
 
 def mlp_apply(p: Params, x: torch.Tensor, gated: bool = True) -> torch.Tensor:

@@ -16,8 +16,8 @@ bounds the chunk count, as the reference does.
 
 Decode carries (state h, conv tail) in O(1) memory.  :func:`mamba_decode`
 updates both in place, so a model's cache tensors (or views of them) are
-advanced without copies.  The sharding axes (``mamba_axes``) wait for
-ROADMAP module item 13.
+advanced without copies.  ``mamba_axes`` are the reference's logical
+sharding axes; the models take the reference's ``weight_gather`` hook.
 """
 
 from __future__ import annotations
@@ -30,6 +30,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models.base import ZooModel, remat
+from repro_torch.models.spmd import (batch_local, is_dtensor, keep_shards,
+                                     on_shards, split_heads, write_)
 
 Params = Dict[str, torch.Tensor]
 Cache = Dict[str, torch.Tensor]
@@ -150,6 +152,12 @@ def mamba_init(generator: torch.Generator, cfg: ArchConfig) -> Params:
     }
 
 
+def mamba_axes(cfg: ArchConfig) -> Dict[str, tuple]:
+    return {"in_proj": ("embed", "inner"), "conv_w": (None, "inner"),
+            "A_log": (None,), "D_skip": (None,), "dt_bias": (None,),
+            "gate_norm": ("inner",), "out_proj": ("inner", "embed")}
+
+
 def _mamba_project(p: Params, x, cfg: ArchConfig):
     di, H, P, N = mamba_dims(cfg)
     z, xbc, dt = torch.split(x @ p["in_proj"], [di, di + 2 * N, H], dim=-1)
@@ -164,16 +172,26 @@ def mamba_apply(p: Params, x, cfg: ArchConfig, chunk: int = 256):
     xbc, tail = causal_conv(xbc, p["conv_w"])
     xbc = F.silu(xbc)
     xs, B_, C_ = torch.split(xbc, [di, N, N], dim=-1)
-    xs = xs.reshape(Bb, S, H, P)
+    xs = split_heads(xs, H, P)
     dt = F.softplus(dt.float() + p["dt_bias"])                 # (B, S, H)
     a = torch.exp(-torch.exp(p["A_log"]) * dt)                 # (B, S, H)
     if not cfg.scan_layers:  # cost mode: bound the unrolled chunk count
         chunk = max(chunk, S // 8 if S >= 8 else S)
-    y, h = ssd_chunked(xs, dt, a, B_, C_, chunk=chunk)
+    ssd = lambda *t: ssd_chunked(*t, chunk=chunk)              # noqa: E731
+    if is_dtensor(xs):
+        ssd = batch_local(ssd, 2)
+    y, h = ssd(xs, dt, a, B_, C_)
     y = y + p["D_skip"][None, None, :, None] * xs.float()
     y = y.reshape(Bb, S, di).to(x.dtype)
     y = L.rms_norm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
     return y @ p["out_proj"], h, tail
+
+
+def _ssm_step(h, a, dtx, B_, C_):
+    """h <- a h + dtx ⊗ B in place; returns C · h.  h: (B, H, P, N);
+    a: (B, H); dtx: (B, H, P); B_, C_: (B, N), all float32."""
+    h.mul_(a[..., None, None]).add_(dtx[..., None] * B_[:, None, None, :])
+    return (h @ C_[:, None, :, None])[..., 0]                  # (B, H, P)
 
 
 def mamba_decode(p: Params, x, h, conv_tail, cfg: ArchConfig):
@@ -184,16 +202,21 @@ def mamba_decode(p: Params, x, h, conv_tail, cfg: ArchConfig):
     di, H, P, N = mamba_dims(cfg)
     z, xbc, dt = _mamba_project(p, x[:, None], cfg)
     xbc, tail = causal_conv(xbc, p["conv_w"], conv_tail)
-    conv_tail.copy_(tail)
+    write_(conv_tail, tail)
     xbc = F.silu(xbc[:, 0])                                    # (B, conv)
     z = z[:, 0]
     xs, B_, C_ = torch.split(xbc, [di, N, N], dim=-1)
-    xs = xs.reshape(Bb, H, P).float()
+    xs = split_heads(xs, H, P).float()
     dt = F.softplus(dt[:, 0].float() + p["dt_bias"])
     a = torch.exp(-torch.exp(p["A_log"]) * dt)                 # (B, H)
-    h.mul_(a[..., None, None]).add_(
-        (dt[..., None] * xs)[..., None] * B_.float()[:, None, None, :])
-    y = (h @ C_.float()[:, None, :, None])[..., 0]             # (B, H, P)
+    step = _ssm_step
+    if is_dtensor(h):
+        # in place on each rank's rows and heads of the cache's state
+        heads, rows = keep_shards(h.placements, (0, 1)), \
+            keep_shards(h.placements, (0,))
+        step = on_shards(_ssm_step, (h.placements, heads, heads, rows,
+                                     rows), (heads,))
+    y = step(h, a, dt[..., None] * xs, B_.float(), C_.float())
     y = y + p["D_skip"][None, :, None] * xs
     y = y.reshape(Bb, di).to(x.dtype)
     y = L.rms_norm(y * F.silu(z), p["gate_norm"], cfg.norm_eps)
@@ -262,12 +285,25 @@ class Mamba2Model(ZooModel):
             top = self._top_init(generator)
         return self.set_params(layers, top)
 
+    def layer_axes(self) -> Dict:
+        return {"norm": ("embed",), "mamba": mamba_axes(self.cfg)}
+
+    def cache_logical_axes(self) -> Dict:
+        return {"h": ("layer", "batch", "inner_heads", None, None),
+                "conv": ("layer", "batch", None, "inner"),
+                "len": ("batch",)}
+
+    def _layer_out(self, lp, x):
+        return mamba_layer_out(self._gather(lp, self.layer_axes()), x,
+                               self.cfg)
+
     def forward(self, inputs: torch.Tensor) -> torch.Tensor:
-        top = self._params()
-        x = self._embed(top, inputs)
-        for lp in self.layers:
-            x = remat(self.cfg.remat, mamba_layer_out, lp, x, self.cfg)
-        return self._head(top, x)
+        with self._dist():
+            top = self._top()
+            x = self._embed(top, inputs)
+            for lp in self.layers:
+                x = remat(self.cfg.remat, self._layer_out, lp, x)
+            return self._head(top, x)
 
     def init_cache(self, batch: int, max_len: int) -> Cache:
         return mamba_cache(self.cfg, batch, self.device)
@@ -278,24 +314,27 @@ class Mamba2Model(ZooModel):
         """Process a full prompt; return (last-token logits, the state
         after it).  The state does not grow with length: ``max_len`` is
         accepted and unused, as in the reference."""
-        top = self._params()
-        x = self._embed(top, inputs)
-        B, S = x.shape[:2]
-        cache = self.init_cache(B, S)
-        for i, lp in enumerate(self.layers):
-            x, cache["h"][i], cache["conv"][i] = mamba_layer_apply(
-                lp, x, self.cfg)
-        cache["len"].fill_(S)
-        return self._head(top, x[:, -1]), cache
+        with self._dist():
+            top = self._top()
+            x = self._embed(top, inputs)
+            B, S = x.shape[:2]
+            cache = self.init_cache(B, S)
+            for i, lp in enumerate(self.layers):
+                x, cache["h"][i], cache["conv"][i] = mamba_layer_apply(
+                    self._gather(lp, self.layer_axes()), x, self.cfg)
+            cache["len"].fill_(S)
+            return self._head(top, x[:, -1]), cache
 
     @torch.no_grad()
     def decode(self, cache: Cache, inputs: torch.Tensor
                ) -> Tuple[torch.Tensor, Cache]:
         """One decode step.  inputs: (B,) token ids.  The cache's h and conv
         are advanced in place; the returned cache has ``len`` + 1."""
-        top = self._params()
-        x = self._embed(top, inputs)
-        for i, lp in enumerate(self.layers):
-            x = mamba_layer_decode(lp, x, cache["h"][i], cache["conv"][i],
-                                   self.cfg)
-        return self._head(top, x), dict(cache, len=cache["len"] + 1)
+        with self._dist():
+            top = self._top()
+            x = self._embed(top, inputs)
+            for i, lp in enumerate(self.layers):
+                x = mamba_layer_decode(self._gather(lp, self.layer_axes()),
+                                       x, cache["h"][i], cache["conv"][i],
+                                       self.cfg)
+            return self._head(top, x), dict(cache, len=cache["len"] + 1)

@@ -20,8 +20,9 @@ a long prompt's prefill is bound by the host's op issue.
 
 Faithful simplifications (the reference's DESIGN.md §5): static token-shift
 mix coefficients, one w projection for the decay.  Head layout: H heads of
-size P, D = H*P.  The sharding axes (``timemix_axes``, ``chanmix_axes``)
-wait for ROADMAP module item 13.
+size P, D = H*P.  ``timemix_axes`` and ``chanmix_axes`` are the
+reference's logical sharding axes; the model takes the reference's
+``weight_gather`` hook.
 """
 
 from __future__ import annotations
@@ -34,6 +35,8 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models.base import ZooModel, remat as remat_call
+from repro_torch.models.spmd import (batch_local, is_dtensor, keep_shards,
+                                     on_shards, split_heads, write_)
 
 Params = Dict[str, torch.Tensor]
 Cache = Dict[str, torch.Tensor]
@@ -132,15 +135,22 @@ def timemix_init(generator: torch.Generator, cfg: ArchConfig) -> Params:
     return p
 
 
+def timemix_axes() -> Dict[str, tuple]:
+    return {"mu": (None, "embed"), "w_r": ("embed", "inner"),
+            "w_k": ("embed", "inner"), "w_v": ("embed", "inner"),
+            "w_g": ("embed", "inner"), "w_w": ("embed", "inner"),
+            "w_o": ("inner", "embed"), "u": ("inner_heads", None),
+            "ln_x": ("inner",)}
+
+
 def _timemix_project(p: Params, x, xprev, H, P):
     diff = xprev - x
     mix = lambda i: x + diff * p["mu"][i]                     # noqa: E731
-    shp = x.shape[:-1] + (H, P)
-    r = (mix(0) @ p["w_r"]).reshape(shp)
-    k = (mix(1) @ p["w_k"]).reshape(shp)
-    v = (mix(2) @ p["w_v"]).reshape(shp)
+    r = split_heads(mix(0) @ p["w_r"], H, P)
+    k = split_heads(mix(1) @ p["w_k"], H, P)
+    v = split_heads(mix(2) @ p["w_v"], H, P)
     g = F.silu(mix(3) @ p["w_g"])
-    w = torch.exp(-torch.exp((mix(4) @ p["w_w"]).float().reshape(shp)
+    w = torch.exp(-torch.exp(split_heads((mix(4) @ p["w_w"]).float(), H, P)
                              - 3.0))
     return r, k, v, g, w
 
@@ -153,10 +163,13 @@ def timemix_apply(p: Params, x, cfg: ArchConfig, last, chunk: int = 64,
     H = D // P
     r, k, v, g, w = _timemix_project(p, x, _shift(x, last), H, P)
     if unroll:
-        y, M = wkv_associative(r, k, v, w, p["u"])
+        wkv = wkv_associative
     else:
-        y, M = wkv_chunked(r, k, v, w, p["u"], chunk=chunk,
-                           remat=cfg.remat)
+        wkv = lambda *a: wkv_chunked(*a, chunk=chunk,      # noqa: E731
+                                     remat=cfg.remat)
+    if is_dtensor(r):
+        wkv = batch_local(wkv, 2, replicated=(4,))
+    y, M = wkv(r, k, v, w, p["u"])
     y = L.rms_norm(y.reshape(B, S, D).to(x.dtype), p["ln_x"], cfg.norm_eps)
     return (y * g) @ p["w_o"], x[:, -1], M
 
@@ -170,7 +183,12 @@ def timemix_decode(p: Params, x, cfg: ArchConfig, last, M):
     H = D // P
     r, k, v, g, w = _timemix_project(p, x, last, H, P)
     kf = k.float()
-    y = _wkv_step(M, r.float(), p["u"] * kf, kf, v.float(), w)
+    step = _wkv_step
+    if is_dtensor(M):
+        # in place on each rank's rows and heads of the cache's state
+        rows = keep_shards(M.placements, (0, 1))
+        step = on_shards(_wkv_step, (M.placements,) + (rows,) * 5, (rows,))
+    y = step(M, r.float(), p["u"] * kf, kf, v.float(), w)
     y = L.rms_norm(y.reshape(B, D).to(x.dtype), p["ln_x"], cfg.norm_eps)
     return (y * g) @ p["w_o"], x, M
 
@@ -184,6 +202,11 @@ def chanmix_init(generator: torch.Generator, cfg: ArchConfig) -> Params:
         "w_v": L.dense_init(generator, (F_, D), 0, dt),
         "w_r": L.dense_init(generator, (D, D), 0, dt),
     }
+
+
+def chanmix_axes() -> Dict[str, tuple]:
+    return {"mu": (None, "embed"), "w_k": ("embed", "ffn"),
+            "w_v": ("ffn", "embed"), "w_r": ("embed", "inner")}
 
 
 def chanmix_apply(p: Params, x, last):
@@ -225,9 +248,20 @@ class RWKV6Model(ZooModel):
             top = self._top_init(generator)
         return self.set_params(layers, top)
 
+    def layer_axes(self) -> Dict:
+        return {"ln1": ("embed",), "ln2": ("embed",),
+                "time": timemix_axes(), "chan": chanmix_axes()}
+
+    def cache_logical_axes(self) -> Dict:
+        return {"M": ("layer", "batch", "inner_heads", None, None),
+                "last_t": ("layer", "batch", "embed_act"),
+                "last_c": ("layer", "batch", "embed_act"),
+                "len": ("batch",)}
+
     def _layer_apply(self, lp, x):
         """(x after the layer, (M, last_t, last_c))."""
         cfg = self.cfg
+        lp = self._gather(lp, self.layer_axes())
         zeros_last = x.new_zeros((x.shape[0], cfg.d_model))
         y, lt, M = timemix_apply(
             lp["time"], L.rms_norm(x, lp["ln1"], cfg.norm_eps), cfg,
@@ -241,11 +275,12 @@ class RWKV6Model(ZooModel):
         return self._layer_apply(lp, x)[0]
 
     def forward(self, inputs: torch.Tensor) -> torch.Tensor:
-        top = self._params()
-        x = self._embed(top, inputs)
-        for lp in self.layers:
-            x = remat_call(self.cfg.remat, self._layer_out, lp, x)
-        return self._head(top, x)
+        with self._dist():
+            top = self._top()
+            x = self._embed(top, inputs)
+            for lp in self.layers:
+                x = remat_call(self.cfg.remat, self._layer_out, lp, x)
+            return self._head(top, x)
 
     def init_cache(self, batch: int, max_len: int) -> Cache:
         cfg = self.cfg
@@ -268,15 +303,16 @@ class RWKV6Model(ZooModel):
         """Process a full prompt; return (last-token logits, the state
         after it).  The state does not grow with length: ``max_len`` is
         accepted and unused, as in the reference."""
-        top = self._params()
-        x = self._embed(top, inputs)
-        B, S = x.shape[:2]
-        cache = self.init_cache(B, S)
-        for i, lp in enumerate(self.layers):
-            x, (cache["M"][i], cache["last_t"][i], cache["last_c"][i]) = \
-                self._layer_apply(lp, x)
-        cache["len"].fill_(S)
-        return self._head(top, x[:, -1]), cache
+        with self._dist():
+            top = self._top()
+            x = self._embed(top, inputs)
+            B, S = x.shape[:2]
+            cache = self.init_cache(B, S)
+            for i, lp in enumerate(self.layers):
+                x, (cache["M"][i], cache["last_t"][i],
+                    cache["last_c"][i]) = self._layer_apply(lp, x)
+            cache["len"].fill_(S)
+            return self._head(top, x[:, -1]), cache
 
     @torch.no_grad()
     def decode(self, cache: Cache, inputs: torch.Tensor
@@ -285,10 +321,15 @@ class RWKV6Model(ZooModel):
         shift states are advanced in place (the shift states cast to the
         activation dtype, as the reference casts them); the returned cache
         has ``len`` + 1."""
+        with self._dist():
+            return self._decode(cache, inputs)
+
+    def _decode(self, cache: Cache, inputs: torch.Tensor):
         cfg = self.cfg
-        top = self._params()
+        top = self._top()
         x = self._embed(top, inputs)
         for i, lp in enumerate(self.layers):
+            lp = self._gather(lp, self.layer_axes())
             last_t, last_c = cache["last_t"][i], cache["last_c"][i]
             y, lt, _ = timemix_decode(
                 lp["time"], L.rms_norm(x, lp["ln1"], cfg.norm_eps), cfg,
@@ -297,6 +338,6 @@ class RWKV6Model(ZooModel):
             y, lc = chanmix_apply(
                 lp["chan"], L.rms_norm(x, lp["ln2"], cfg.norm_eps), last_c)
             x = x + y
-            last_t.copy_(lt)
-            last_c.copy_(lc)
+            write_(last_t, lt)
+            write_(last_c, lc)
         return self._head(top, x), dict(cache, len=cache["len"] + 1)

@@ -18,6 +18,8 @@ API:
   init_cache(batch, max_len) -> {"k", "v": (L, B, Smax, Hkv, d), "len": (B,)}
   prefill(inputs, max_len) -> (last-token logits, filled cache)
   decode(cache, inputs) -> (logits, cache)
+  layer_axes() / param_logical_axes() / cache_logical_axes() -> logical axes
+  cache_specs(batch, max_len) -> the cache's shapes (``meta`` tensors)
 
 Weights are loaded with ``init`` or ``models.convert.load_reference_params``
 and are trainable: ``forward`` records autograd's graph unless the caller
@@ -25,8 +27,10 @@ disables it (serving callers run it under ``torch.inference_mode``);
 ``prefill`` and ``decode`` never record it.  ``decode``
 writes the new token's K/V into the cache tensors in place and returns the
 cache with ``len`` advanced; each layer's decode attention is kernel 2 on a
-card.  The FSDP hook and the sharding specs (``weight_gather``,
-``*_logical_axes``, ``cache_specs``) wait for item 13.
+card.  The reference's hooks (``shard_ec``, ``shard_assign``,
+``weight_gather``; ``models.base``) run where the reference runs them:
+the weight gather on the embedding and head and on each layer's weights,
+the MoE hooks in ``forward``'s dispatch.
 """
 
 from __future__ import annotations
@@ -43,6 +47,26 @@ Cache = Dict[str, torch.Tensor]
 
 
 class TransformerModel(ZooModel):
+    def _has_embed(self) -> bool:
+        # the embedding table exists unless the arch never consumes tokens
+        # (an encoder with a stubbed frontend); a causal stub-frontend arch
+        # (VLM) still decodes text tokens
+        return not self.cfg.embedding_input or self.cfg.causal
+
+    def layer_axes(self) -> Dict:
+        cfg = self.cfg
+        lp = {"attn_norm": ("embed",), "mlp_norm": ("embed",),
+              "attn": L.attention_axes(cfg.qkv_bias)}
+        if cfg.is_moe:
+            lp["moe"] = M.moe_axes(cfg.num_shared_experts)
+        else:
+            lp["mlp"] = L.mlp_axes(True)
+        return lp
+
+    def cache_logical_axes(self) -> Dict:
+        ax = ("layer", "batch", "cache_seq", "kv_heads", None)
+        return {"k": ax, "v": ax, "len": ("batch",)}
+
     # ------------------------------------------------------------------ init
     def _layer_init(self, gen: torch.Generator) -> Dict:
         cfg = self.cfg
@@ -71,25 +95,25 @@ class TransformerModel(ZooModel):
         with torch.device(self.device):
             layers = [self._layer_init(generator)
                       for _ in range(cfg.num_layers)]
-            # the embedding table exists unless the arch never consumes
-            # tokens (an encoder with a stubbed frontend); a causal
-            # stub-frontend arch (VLM) still decodes text tokens
-            top = self._top_init(generator, embed=not cfg.embedding_input
-                                 or cfg.causal)
+            top = self._top_init(generator, embed=self._has_embed())
         return self.set_params(layers, top)
 
     # ----------------------------------------------------------------- layer
-    def _mlp(self, lp, xn: torch.Tensor, groups: Optional[int]):
+    def _mlp(self, lp, xn: torch.Tensor, groups: Optional[int],
+             hooks: bool = True):
         cfg = self.cfg
         if cfg.is_moe:
             return M.moe_apply(lp["moe"], xn, top_k=cfg.num_experts_per_tok,
                                capacity_factor=cfg.capacity_factor,
-                               groups=groups)
+                               groups=groups,
+                               shard_ec=self.shard_ec if hooks else None,
+                               shard_rep=self.shard_assign if hooks else None)
         return L.mlp_apply(lp["mlp"], xn, gated=True)
 
     def _layer_apply(self, lp, x: torch.Tensor, positions: torch.Tensor
                      ) -> Tuple[torch.Tensor, Tuple]:
         cfg = self.cfg
+        lp = self._gather(lp, self.layer_axes())
         h, kv = L.attention_apply(
             lp["attn"], L.rms_norm(x, lp["attn_norm"], cfg.norm_eps),
             n_heads=cfg.num_heads, n_kv=cfg.num_kv_heads,
@@ -108,13 +132,14 @@ class TransformerModel(ZooModel):
 
     def forward(self, inputs: torch.Tensor) -> torch.Tensor:
         """Training-shape forward: logits for every position (B, S, V)."""
-        top = self._params()
-        x = self._embed(top, inputs)
-        B, S = x.shape[:2]
-        positions = torch.arange(S, device=self.device).expand(B, S)
-        for lp in self.layers:
-            x = remat(self.cfg.remat, self._layer_out, lp, x, positions)
-        return self._head(top, x)
+        with self._dist():
+            top = self._top()
+            x = self._embed(top, inputs)
+            B, S = x.shape[:2]
+            positions = torch.arange(S, device=self.device).expand(B, S)
+            for lp in self.layers:
+                x = remat(self.cfg.remat, self._layer_out, lp, x, positions)
+            return self._head(top, x)
 
     # ----------------------------------------------------------------- cache
     def init_cache(self, batch: int, max_len: int) -> Cache:
@@ -132,17 +157,18 @@ class TransformerModel(ZooModel):
                 ) -> Tuple[torch.Tensor, Cache]:
         """Process a full prompt; return (last-token logits, filled cache
         of ``max(max_len, S)`` positions)."""
-        top = self._params()
-        x = self._embed(top, inputs)
-        B, S = x.shape[:2]
-        positions = torch.arange(S, device=self.device).expand(B, S)
-        cache = self.init_cache(B, max(max_len or S, S))
-        for i, lp in enumerate(self.layers):
-            x, (k, v) = self._layer_apply(lp, x, positions)
-            cache["k"][i, :, :S] = k
-            cache["v"][i, :, :S] = v
-        cache["len"].fill_(S)
-        return self._head(top, x[:, -1]), cache
+        with self._dist():
+            top = self._top()
+            x = self._embed(top, inputs)
+            B, S = x.shape[:2]
+            positions = torch.arange(S, device=self.device).expand(B, S)
+            cache = self.init_cache(B, max(max_len or S, S))
+            for i, lp in enumerate(self.layers):
+                x, (k, v) = self._layer_apply(lp, x, positions)
+                cache["k"][i, :, :S] = k
+                cache["v"][i, :, :S] = v
+            cache["len"].fill_(S)
+            return self._head(top, x[:, -1]), cache
 
     # ---------------------------------------------------------------- decode
     @torch.no_grad()
@@ -150,11 +176,16 @@ class TransformerModel(ZooModel):
                ) -> Tuple[torch.Tensor, Cache]:
         """One decode step.  inputs: (B,) token ids.  The caches' K/V are
         written in place; the returned cache has ``len`` + 1."""
+        with self._dist():
+            return self._decode(cache, inputs)
+
+    def _decode(self, cache: Cache, inputs: torch.Tensor):
         cfg = self.cfg
-        top = self._params()
-        x = top["embed"][inputs.to(self.device)].to(cfg.adtype)
+        top = self._top()
+        x = self._lookup(top, inputs)
         length = cache["len"]                                   # (B,)
         for i, lp in enumerate(self.layers):
+            lp = self._gather(lp, self.layer_axes())
             xn = L.rms_norm(x, lp["attn_norm"], cfg.norm_eps)
             x = x + L.attention_decode_apply(
                 lp["attn"], xn, cache["k"][i], cache["v"][i], length,
@@ -162,7 +193,7 @@ class TransformerModel(ZooModel):
                 head_dim=cfg.head_dim_, rope_theta=cfg.rope_theta)
             xn = L.rms_norm(x, lp["mlp_norm"], cfg.norm_eps)
             if cfg.is_moe:
-                y = self._mlp(lp, xn[:, None, :], 1)[:, 0]
+                y = self._mlp(lp, xn[:, None, :], 1, hooks=False)[:, 0]
             else:
                 y = self._mlp(lp, xn, None)
             x = x + y

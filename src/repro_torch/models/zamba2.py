@@ -15,8 +15,9 @@ Decode state: per-layer Mamba2 (h, conv), advanced in place, and per-site
 K/V caches (sites, B, Smax, Hkv, d).  Each site's decode attention is
 ``layers.attention_decode_apply`` on views of its site's caches: the new
 token's K/V are written in place and the attention runs kernel 2 on a
-card.  The sharding axes and the ``weight_gather`` hook wait for ROADMAP
-module item 13.
+card.  The reference's sharding axes and ``weight_gather`` hook: each
+Mamba2 layer's and each site's shared block's weights are gathered at
+their point of use, as are the embedding and head.
 """
 
 from __future__ import annotations
@@ -29,7 +30,8 @@ from torch import nn
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as MB
-from repro_torch.models.base import ZooModel, param_dict, remat
+from repro_torch.models.base import (ZooModel, param_dict, remat,
+                                    stack_axes)
 
 Cache = Dict[str, torch.Tensor]
 
@@ -46,11 +48,13 @@ class Zamba2Model(ZooModel):
       decode(cache, inputs) -> (logits, cache)  everything in place
     """
 
-    def __init__(self, cfg: ArchConfig, device=None):
+    STACKS = ("layers", "shared")
+
+    def __init__(self, cfg: ArchConfig, device=None, **hooks):
         if cfg.shared_attn_every <= 0:
             raise ValueError(f"{cfg.name}: a hybrid model needs "
                              f"shared_attn_every > 0")
-        super().__init__(cfg, device)
+        super().__init__(cfg, device, **hooks)
         every = cfg.shared_attn_every
         self.n_sites = cfg.num_layers // every
         self.main = cfg.num_layers - cfg.num_layers % every
@@ -94,9 +98,38 @@ class Zamba2Model(ZooModel):
         self.shared = nn.ModuleList(param_dict(sp) for sp in shared)
         return self
 
+    # -------------------------------------------------------------- sharding
+    def layer_axes(self) -> Dict:
+        return {"norm": ("embed",), "mamba": MB.mamba_axes(self.cfg)}
+
+    def shared_axes(self) -> Dict:
+        return {"attn_norm": ("embed",), "mlp_norm": ("embed",),
+                "attn": L.attention_axes(self.cfg.qkv_bias),
+                "mlp": L.mlp_axes(True)}
+
+    def param_logical_axes(self) -> Dict:
+        return {**super().param_logical_axes(),
+                "shared": stack_axes(self.shared_axes())}
+
+    def cache_logical_axes(self) -> Dict:
+        kv = ("layer", "batch", "cache_seq", "kv_heads", None)
+        return {"h": ("layer", "batch", "inner_heads", None, None),
+                "conv": ("layer", "batch", None, "inner"),
+                "k": kv, "v": kv, "len": ("batch",)}
+
     # --------------------------------------------------------------- helpers
     def _site_params(self, site: int):
-        return self.shared[site % self.cfg.num_shared_attn_blocks]
+        """Site ``site``'s shared block, gathered for use."""
+        return self._gather(
+            self.shared[site % self.cfg.num_shared_attn_blocks],
+            self.shared_axes())
+
+    def _layer(self, i: int):
+        """Mamba2 layer ``i``, gathered for use."""
+        return self._gather(self.layers[i], self.layer_axes())
+
+    def _layer_out(self, i: int, x):
+        return MB.mamba_layer_out(self._layer(i), x, self.cfg)
 
     def _site_layers(self, site: Optional[int]) -> range:
         """The Mamba2 layers before site ``site``, or the tail's (None)."""
@@ -117,8 +150,8 @@ class Zamba2Model(ZooModel):
                             L.rms_norm(x, sp["mlp_norm"], cfg.norm_eps))
         return x, kv
 
-    def _shared_out(self, sp, x, positions):
-        return self._shared_apply(sp, x, positions)[0]
+    def _shared_out(self, site: int, x, positions):
+        return self._shared_apply(self._site_params(site), x, positions)[0]
 
     def _run(self, x, cache: Optional[Cache] = None):
         """The whole stack on (B, S, D); with ``cache``, each layer's state
@@ -132,17 +165,16 @@ class Zamba2Model(ZooModel):
         for site in [*range(self.n_sites), None]:
             for i in self._site_layers(site):
                 if cache is None:
-                    x = remat(cfg.remat, MB.mamba_layer_out, self.layers[i],
-                              x, cfg)
+                    x = remat(cfg.remat, self._layer_out, i, x)
                     continue
                 x, cache["h"][i], cache["conv"][i] = MB.mamba_layer_apply(
-                    self.layers[i], x, cfg)
+                    self._layer(i), x, cfg)
             if site is None:
                 break
-            sp = self._site_params(site)
             if cache is None:
-                x = remat(cfg.remat, self._shared_out, sp, x, positions)
+                x = remat(cfg.remat, self._shared_out, site, x, positions)
                 continue
+            sp = self._site_params(site)
             x, (k, v) = self._shared_apply(sp, x, positions)
             cache["k"][site, :, :S] = k
             cache["v"][site, :, :S] = v
@@ -150,8 +182,9 @@ class Zamba2Model(ZooModel):
 
     # --------------------------------------------------------------- forward
     def forward(self, inputs: torch.Tensor) -> torch.Tensor:
-        top = self._params()
-        return self._head(top, self._run(self._embed(top, inputs)))
+        with self._dist():
+            top = self._top()
+            return self._head(top, self._run(self._embed(top, inputs)))
 
     # ----------------------------------------------------------------- cache
     def init_cache(self, batch: int, max_len: int) -> Cache:
@@ -169,13 +202,14 @@ class Zamba2Model(ZooModel):
                 ) -> Tuple[torch.Tensor, Cache]:
         """Process a full prompt; return (last-token logits, filled cache
         of ``max(max_len, S)`` positions per site)."""
-        top = self._params()
-        x = self._embed(top, inputs)
-        B, S = x.shape[:2]
-        cache = self.init_cache(B, max(max_len or S, S))
-        x = self._run(x, cache)
-        cache["len"].fill_(S)
-        return self._head(top, x[:, -1]), cache
+        with self._dist():
+            top = self._top()
+            x = self._embed(top, inputs)
+            B, S = x.shape[:2]
+            cache = self.init_cache(B, max(max_len or S, S))
+            x = self._run(x, cache)
+            cache["len"].fill_(S)
+            return self._head(top, x[:, -1]), cache
 
     # ---------------------------------------------------------------- decode
     @torch.no_grad()
@@ -184,13 +218,17 @@ class Zamba2Model(ZooModel):
         """One decode step.  inputs: (B,) token ids.  The Mamba2 states and
         the sites' K/V are written in place; the returned cache has
         ``len`` + 1."""
+        with self._dist():
+            return self._decode(cache, inputs)
+
+    def _decode(self, cache: Cache, inputs: torch.Tensor):
         cfg = self.cfg
-        top = self._params()
+        top = self._top()
         x = self._embed(top, inputs)
         length = cache["len"]
         for site in [*range(self.n_sites), None]:
             for i in self._site_layers(site):
-                x = MB.mamba_layer_decode(self.layers[i], x, cache["h"][i],
+                x = MB.mamba_layer_decode(self._layer(i), x, cache["h"][i],
                                           cache["conv"][i], cfg)
             if site is None:
                 break

@@ -13,8 +13,10 @@ tensors computed on the device: a step never waits on the host.
 PyTorch's multi-tensor ops (``torch._foreach_*``): a dozen calls whatever
 the number of tensors, each a pass over the state.  Where the reference
 rounds a product before a sum (``b1 m + (1 - b1) g``), the card may fuse
-the two (one rounding fewer, a last-bit difference).  The ZeRO sharding of the state
-(``state_logical_axes``) waits for ROADMAP module item 13.
+the two (one rounding fewer, a last-bit difference).  ``state_logical_axes``
+gives the state's logical axes (ZeRO: the moments and the master copy are
+sharded as their parameters); on DTensor parameters the state made by
+:func:`init` has their placements and :func:`update` runs on DTensors.
 """
 
 from __future__ import annotations
@@ -57,13 +59,14 @@ def schedule(cfg: AdamWConfig, step: torch.Tensor) -> torch.Tensor:
 
 def init(params: Tensors, use_master: bool = True) -> Dict:
     """Zero moments (f32), ``count`` 0 and, with ``use_master``, an f32
-    copy of every parameter; all on the parameters' device."""
+    copy of every parameter; all on the parameters' device (the moments
+    and the copy placed as their parameters when those are DTensors)."""
+    zeros = lambda p: torch.zeros_like(                      # noqa: E731
+        p, dtype=torch.float32, memory_format=torch.contiguous_format)
     with torch.no_grad():
         state = {
-            "m": {k: torch.zeros(p.shape, dtype=torch.float32,
-                                 device=p.device) for k, p in params.items()},
-            "v": {k: torch.zeros(p.shape, dtype=torch.float32,
-                                 device=p.device) for k, p in params.items()},
+            "m": {k: zeros(p) for k, p in params.items()},
+            "v": {k: zeros(p) for k, p in params.items()},
             "count": torch.zeros((), dtype=torch.int32,
                                  device=next(iter(params.values())).device),
         }
@@ -71,6 +74,19 @@ def init(params: Tensors, use_master: bool = True) -> Dict:
             state["master"] = {k: p.detach().float().clone()
                                for k, p in params.items()}
     return state
+
+
+def state_logical_axes(param_axes, use_master: bool = True) -> Dict:
+    """Optimizer-state logical axes mirror the parameters'."""
+    axes = {"m": param_axes, "v": param_axes, "count": ()}
+    if use_master:
+        axes["master"] = param_axes
+    return axes
+
+
+def _local(tensors):
+    """Each DTensor's shard on this rank (a plain tensor as it is)."""
+    return [t.to_local() if hasattr(t, "to_local") else t for t in tensors]
 
 
 def global_norm(tensors) -> torch.Tensor:
@@ -133,5 +149,7 @@ def update(grads: Tensors, state: Dict, params: Tensors, cfg: AdamWConfig
     torch._foreach_mul_(upd, lr)
     torch._foreach_sub_(p32, upd)
     del upd
-    torch._foreach_copy_([params[k] for k in names], p32)
+    # DTensor has no rule for a multi-tensor copy; the master copy is
+    # placed as its parameter, so the shards copy as they lie
+    torch._foreach_copy_(_local([params[k] for k in names]), _local(p32))
     return params, state, {"grad_norm": gnorm, "lr": lr}

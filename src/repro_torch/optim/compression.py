@@ -6,13 +6,17 @@ quantization residual is carried to the next step, which keeps the applied
 gradient unbiased in the long run; Karimireddy et al., 2019).  Wire cost:
 1 byte an element plus one f32 scale a tensor.
 
-``compressed_pod_psum``, the cross-pod reduction with a shared scale, runs
-only inside a collective over the pod axis: ROADMAP module item 13.
+:func:`compressed_pod_psum` is the cross-pod reduction with a shared
+scale, over the ranks of a device mesh's ``"pod"`` axis: the reference's
+``pmax`` is an ``all_reduce(MAX)`` and its ``psum`` an ``all_reduce(SUM)``.
+The int8 payloads are summed as int32 on the wire: NCCL has no int16
+reduction, and an int32 sum of int8 values is exactly the reference's
+int16 sum (|sum| <= 127 * 256 < 2^15 for up to 256 pods).
 """
 
 from __future__ import annotations
 
-from typing import Dict, Mapping, Tuple
+from typing import Dict, Mapping, Optional, Tuple
 
 import torch
 
@@ -52,10 +56,34 @@ def init_error(params: Tensors) -> Dict[str, torch.Tensor]:
             for k, p in params.items()}
 
 
-def compressed_pod_psum(grads, error, axis_name: str = "pod"):
-    """The mean gradient across pods, int8 on the wire with a shared scale
-    and error feedback.  It needs the pod axis of a device mesh, which the
-    port does not have yet."""
-    raise NotImplementedError(
-        "compressed_pod_psum runs inside a collective over the pod axis: "
-        "ROADMAP module item 13 (distribution) ports it")
+def compressed_pod_psum(grads: Tensors, error: Tensors, mesh,
+                        axis_name: str = "pod", stats: Optional[dict] = None
+                        ) -> Tuple[Dict[str, torch.Tensor],
+                                   Dict[str, torch.Tensor]]:
+    """The mean gradient across the ranks of ``mesh[axis_name]`` (a
+    ``DeviceMesh``; one rank a pod), int8 on the wire with a shared scale
+    and error feedback.  ``grads`` and ``error`` are this rank's tensors by
+    name.  The shared scale is the largest of the pods' scales (one scalar
+    ``all_reduce(MAX)``), so the dequantized sum is exact up to
+    quantization: sum_i q_i s = s sum_i q_i.  Returns ({name: mean
+    gradient}, {name: new error}); given a dict, ``stats["q"]`` receives
+    each tensor's int8 payload."""
+    import torch.distributed as dist
+
+    group = (mesh[axis_name] if mesh.ndim > 1 else mesh).get_group()
+    npods = float(dist.get_world_size(group))
+    deq, errs, payloads = {}, {}, {}
+    for k, g in grads.items():
+        corrected = g.float() + error[k]
+        s = corrected.abs().max() / 127.0 + 1e-12
+        dist.all_reduce(s, op=dist.ReduceOp.MAX, group=group)
+        q = torch.clamp(torch.round(corrected / s), -127, 127).to(
+            torch.int8)
+        qsum = q.to(torch.int32)
+        dist.all_reduce(qsum, op=dist.ReduceOp.SUM, group=group)
+        deq[k] = qsum.float() * s / npods
+        errs[k] = corrected - q.float() * s
+        payloads[k] = q
+    if stats is not None:
+        stats["q"] = payloads
+    return deq, errs

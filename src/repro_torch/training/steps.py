@@ -6,9 +6,11 @@ the model's own parameters (``dict(model.named_parameters())``), so a
 step that updates the state in place updates the model.
 ``build_train_step`` assembles the reference's step: microbatched gradient
 accumulation in float32, the float32 cross-entropy, global-norm clipping
-and AdamW.  The serving steps wrap the model's entry points.  The train
-state's sharding axes (``train_state_logical_axes``) wait for ROADMAP
-module item 13.
+and AdamW.  The serving steps wrap the model's entry points.
+``train_state_logical_axes`` gives the state's logical axes, in the
+reference's layout or by parameter name (the port's state).  On a sharded
+model (``ZooModel.shard``) the state's tensors are DTensors and the step
+runs on them as it stands (``launch.train``).
 """
 
 from __future__ import annotations
@@ -24,16 +26,26 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean token cross-entropy, float32 logsumexp.  The label's logit is
     picked by index: the reference contracts a one-hot instead (for its
     vocab-sharded logits), which gives the same value."""
+    from repro_torch.models.spmd import is_dtensor
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
-    ll = logits.gather(-1, labels.long().unsqueeze(-1)).squeeze(-1)
+    if is_dtensor(logits):
+        # on vocab-sharded logits the label's logit is a masked sum (the
+        # reference's one-hot contraction; the same value), which stays
+        # local to each shard
+        hit = torch.arange(logits.shape[-1], device=logits.device) \
+            == labels.long().unsqueeze(-1)
+        ll = torch.where(hit, logits, 0.0).sum(-1)
+    else:
+        ll = logits.gather(-1, labels.long().unsqueeze(-1)).squeeze(-1)
     return (lse - ll).mean()
 
 
 def build_loss_fn(model) -> Callable:
     def loss_fn(batch):
-        return cross_entropy(model.forward(batch["inputs"]),
-                             batch["labels"].to(model.device))
+        with model._dist():
+            return cross_entropy(model.forward(batch["inputs"]),
+                                 batch["labels"].to(model.device))
     return loss_fn
 
 
@@ -52,6 +64,45 @@ def init_train_state(model, generator: torch.Generator,
     their train state."""
     model.init(generator)
     return train_state(model, opt_cfg)
+
+
+def train_state_logical_axes(model, use_master: bool = True,
+                             by_name: bool = False) -> Dict:
+    """The train state's logical axes: the reference's tree
+    (``param_logical_axes``), or with ``by_name`` the port's state keyed by
+    parameter name (``named_logical_axes``)."""
+    pax = model.named_logical_axes() if by_name else \
+        model.param_logical_axes()
+    return {"params": pax,
+            "opt": adamw.state_logical_axes(pax, use_master)}
+
+
+def shard_train_state(model, mesh, opt_cfg: Optional[adamw.AdamWConfig]
+                      = None, rules=None) -> Dict:
+    """``model``'s weights placed on ``mesh`` (``ZooModel.shard``) and their
+    train state, every leaf a DTensor placed by ``tree_shardings`` of
+    ``train_state_logical_axes`` (the optimizer's moments and master copy
+    as their parameters, the step count replicated)."""
+    from repro_torch.distributed.sharding import distribute, tree_shardings
+
+    model.shard(mesh, rules)
+    state = train_state(model, opt_cfg)
+    use_master = opt_cfg.use_master if opt_cfg else True
+    places = tree_shardings(
+        train_state_logical_axes(model, use_master, by_name=True), state,
+        mesh, rules)
+    for name, p in state["params"].items():
+        if tuple(p.placements) != places["params"][name]:
+            raise AssertionError(f"{name} placed {p.placements}, the rules "
+                                 f"give {places['params'][name]}")
+
+    def place(tree, pl):
+        if isinstance(tree, dict):
+            return {k: place(v, pl[k]) for k, v in tree.items()}
+        return distribute(tree, mesh, pl)
+
+    state["opt"] = place(state["opt"], places["opt"])
+    return state
 
 
 def build_train_step(model, opt_cfg: adamw.AdamWConfig, microbatch: int = 1,
@@ -77,6 +128,10 @@ def build_train_step(model, opt_cfg: adamw.AdamWConfig, microbatch: int = 1,
                                for p, g in zip(params.values(), grads)]
 
     def train_step(state, batch):
+        with model._dist():
+            return _step(state, batch)
+
+    def _step(state, batch):
         params = state["params"]
         if microbatch > 1:
             b = batch["inputs"].shape[0]

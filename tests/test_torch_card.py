@@ -1243,3 +1243,56 @@ def test_checkpoint_roundtrip_of_card_tensors(card, tmp_path):
     assert torch.equal(restored["params"]["w"], keep["w"])
     assert torch.equal(restored["opt"]["m"]["w"], keep["m"])
     assert int(restored["opt"]["count"]) == 4
+
+
+@pytest.mark.parametrize("dtype", GEMM_DTYPES)
+def test_one_rank_mesh_ring_equals_in_core_bitwise(card, dtype):
+    """The MESH tier's ring and ``direct_mesh_ooc_gemm`` on a one-rank
+    NCCL group: one launch of kernel 1 on the whole problem, no transfer,
+    C row-sharded (one shard) and bit for bit the in-core launch's."""
+    import torch.distributed as dist
+    from repro_torch.launch.mesh import init_distributed, make_mesh, shutdown
+
+    M, N, K = 384, 256, 320
+    A, B, C = (torch.from_numpy(x).to(dtype) for x in _inputs(24, M, N, K))
+    incore = T.ooc_gemm(A, B, C, 1.5, 0.5,
+                        budget_bytes=sum(t.numel() * t.element_size()
+                                         for t in (A, B, C)))
+    init_distributed("cuda")
+    try:
+        assert dist.get_backend() == "nccl"
+        mesh = make_mesh((1,), ("model",))
+        rt = T.MeshOocRuntime(mesh)
+        assert rt.mem_size() == torch.cuda.get_device_properties(
+            card).total_memory
+        block_matmul.launches = 0
+        out = T.ooc_gemm(A, B, C, 1.5, 0.5, budget_bytes=rt.mem_size(),
+                         backend="mesh", runtime=rt)
+        assert block_matmul.launches == 1 and rt.last_p2p_bytes == 0
+        assert out.placements[0].is_shard(0)
+        assert torch.equal(out.to_local().cpu(), incore)
+        direct = D.direct_mesh_ooc_gemm(A, B, C, 1.5, 0.5, mesh)
+        assert torch.equal(direct.full_tensor().cpu(), incore)
+    finally:
+        shutdown()
+
+
+def test_sharded_smoke_steps_on_one_rank_match_plain(card):
+    """The sharded train and decode steps (DTensors on a one-rank NCCL
+    (data, model) mesh, the weight gather on) of llama3.2-3b,
+    deepseek-moe-16b, rwkv6-1.6b and zamba2-1.2b smoke against the plain
+    steps on the card (kernel 2 in both decodes), within 1e-5."""
+    from _torch_dist import sharded_steps_rank
+    from repro_torch.launch.mesh import init_distributed, shutdown
+
+    archs = ["llama3.2-3b", "deepseek-moe-16b", "rwkv6-1.6b", "zamba2-1.2b"]
+    init_distributed("cuda")
+    try:
+        res = sharded_steps_rank(0, 1, archs, (1, 1), device="cuda")
+    finally:
+        shutdown()
+    for arch, r in res.items():
+        l0, l1 = r["loss"]
+        assert abs(l0 - l1) <= 1e-5 * max(1.0, abs(l0)), (arch, r)
+        for k in ("param_err", "opt_err", "decode_err", "cache_err"):
+            assert r[k] <= 1e-5, (arch, k, r[k])

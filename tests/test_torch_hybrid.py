@@ -417,9 +417,9 @@ def test_factory_rejects_unknown_tier():
         T.RuntimeFactory.create(T.Device("NOPE", 0, 1))
     for tier in ("HBM", "VMEM", "HYBRID"):
         assert tier in T.RuntimeFactory.registered()
-    # the MESH tier is ROADMAP module item 10
-    assert "MESH" not in T.RuntimeFactory.registered()
-    with pytest.raises(NotImplementedError, match="item 10"):
+    # the MESH tier (ROADMAP module item 10) is registered and needs a mesh
+    assert "MESH" in T.RuntimeFactory.registered()
+    with pytest.raises(ValueError, match="DeviceMesh"):
         T.RuntimeFactory.create(T.Device("MESH", 0, 1 << 20))
 
 

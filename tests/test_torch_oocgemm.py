@@ -183,20 +183,42 @@ def test_float64_operands_follow_the_reference():
     (dict(backend="mesh"), "item 10"),
 ], ids=["kw2-item 10"])                 # the id this case always had
 def test_paths_outside_the_slice_raise(kw, item):
+    """The mesh backend (ROADMAP ``item``) needs its mesh: ``ooc_gemm``
+    without ``mesh=`` or ``runtime=`` raises, and ``ooc_syrk`` has no mesh
+    path (nor has the reference's)."""
     A, B, C = _problem(61, 64, 64, 64)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match="needs mesh="):
         T.ooc_gemm(A, B, C, budget_bytes=1 << 12, torch_device=CPU, **kw)
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(ValueError, match="unknown backend 'mesh'"):
         T.ooc_syrk(A, budget_bytes=1 << 12, torch_device=CPU, **kw)
 
 
 @pytest.mark.parametrize("tier,item", [("MESH", "item 10")])
 def test_tiers_outside_the_slice_raise(tier, item):
-    with pytest.raises(NotImplementedError, match=item):
-        T.RuntimeFactory.create(T.Device(tier, 0, 1 << 20),
-                                torch_device=CPU)
-    with pytest.raises(NotImplementedError, match=item):
-        hclDeviceFactory.create(tier, 0, mem_bytes=1 << 20)
+    """The MESH tier (ROADMAP ``item``) is registered: the factory makes
+    its runtime over a given DeviceMesh and raises without one; the hcl
+    device factory makes its tier tuple."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    assert tier in T.RuntimeFactory.registered()
+    with pytest.raises(ValueError, match="DeviceMesh"):
+        T.RuntimeFactory.create(T.Device(tier, 0, 1 << 20))
+    assert hclDeviceFactory.create(tier, 0, mem_bytes=1 << 20) \
+        == T.Device(tier, 0, 1 << 20)
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("model",))
+        rt = T.RuntimeFactory.create(T.Device(tier, 0, 1 << 20), mesh=mesh)
+        assert isinstance(rt, T.MeshOocRuntime) and rt.mem_size() == 1 << 20
+        A, B, C = _problem(62, 32, 24, 16)
+        out = rt.gemm(A, B, C, 1.5, 0.5)
+        ref = R.ooc_gemm(A, B, C, 1.5, 0.5, budget_bytes=1 << 30)
+        np.testing.assert_allclose(out.full_tensor().numpy(), ref,
+                                   rtol=1e-5, atol=1e-5)
+    finally:
+        dist.destroy_process_group()
 
 
 # 16-bit host operands as the reference's callers hold them: ml_dtypes

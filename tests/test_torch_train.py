@@ -345,5 +345,29 @@ def test_shared_scale_int8_sum_exact(rng):
 
 
 def test_compressed_pod_psum_waits_for_item_13():
-    with pytest.raises(NotImplementedError, match="item 13"):
-        compression.compressed_pod_psum({}, {})
+    """``compressed_pod_psum`` (ROADMAP item 13a) over a one-rank ``pod``
+    group: the mean of one pod is its own gradient quantized and
+    dequantized, and the error its residual, exactly."""
+    import torch.distributed as dist
+    from torch.distributed.device_mesh import init_device_mesh
+
+    rng = np.random.default_rng(13)
+    grads = {k: torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+             for k, s in (("a", (8, 5)), ("b", (7,)))}
+    error = {k: torch.from_numpy(rng.standard_normal(g.shape).astype(
+        np.float32) * 1e-3) for k, g in grads.items()}
+    dist.init_process_group("gloo", store=dist.HashStore(), rank=0,
+                            world_size=1)
+    try:
+        mesh = init_device_mesh("cpu", (1,), mesh_dim_names=("pod",))
+        stats = {}
+        mean, err = compression.compressed_pod_psum(grads, error, mesh,
+                                                    stats=stats)
+    finally:
+        dist.destroy_process_group()
+    for k, g in grads.items():
+        q, s = compression.quantize(g + error[k])
+        deq = compression.dequantize(q, s)
+        assert torch.equal(stats["q"][k], q)
+        assert torch.equal(mean[k], deq)
+        assert torch.equal(err[k], g + error[k] - deq)
