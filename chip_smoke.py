@@ -231,7 +231,32 @@ printing any result.  Phases (each raises on failure; none is skipped):
      loss on a fixed batch within ``tests/test_elastic.py``'s 1e-5 and
      1e-4, with the seconds; (e) ``compressed_pod_psum`` over a one-rank
      "pod" group on bf16 gradients of (c)'s parameter shapes, equal to a
-     local quantize and dequantize exactly.
+     local quantize and dequantize exactly; (f) ``layers.local_decode`` on
+     decode caches of llama3.2-3b's widths placed (Shard(0), Shard(1)) on
+     a (1, 1) (data, model) mesh, so its sequence-parallel branch runs
+     (kernel 2's partial pass on the rank's slice, the partials'
+     all-gather, the combine pass; counted under the path
+     ``seq_decode``), in bf16 and f32 against the unsplit kernel 2 within
+     phase 17 (c)'s tolerances.
+ 17. the dry-run and sequence-parallel decode (``[dryrun]`` lines; after
+     phase 16): the card's ``total_memory`` equal to the dry-run's
+     ``HBM_BYTES``; (a) ``python -m repro_torch.launch.dryrun`` in a child
+     process with a time limit on llama3.2-3b decode_32k at 16x16 (256
+     fake ranks, fake ``cuda`` tensors; its caches' 8 KV heads do not
+     divide the model axis, so every layer decodes sequence-parallel,
+     kernel 2 a fake operator): status OK, the peak of live device
+     storage, wire bytes by collective kind and the roofline row; (b)
+     phase 15 (b)'s cell traced on a one-rank fake mesh, its flops equal
+     to ``FlopCounterMode``'s count of the same step run on the card, its
+     predicted peak memory and roofline bound beside phase 15's measured
+     ``max_memory_allocated`` and step; (c) one llama3.2-3b decode cache
+     (B 4, 544 positions, 528 valid) split into 2, 4 and 8 sequence
+     slices: each slice's write and kernel-2 partial pass, the combine pass
+     over their partials, against the same write and the unsplit kernel 2
+     within 1e-5 in f32 and 2^-7 |want| + 1e-4 in bf16 (two roundings of
+     the output at most); the fold of 2-8 slices, which phase 16 (f)'s one
+     rank does not reach (its launches are kept in the part's row; the
+     kernels line counts (f)'s).
 
 With ``--baseline DIR`` (another checkout, e.g. ``git archive`` of the
 parent commit unpacked into a directory ``.gitignore`` lists), phase 5 is
@@ -240,7 +265,14 @@ followed by ``[base]`` lines: that tree's kernels 1 and 2, built from its
 f32 outputs compared bit for bit; in bf16, where the parent may sum on
 the CUDA cores and this tree on the tensor cores, each within 2e-2 of the
 plain version and this tree's equal to kernel 3's), and the MMOOC walls of
-both in both executor modes; phase 7 adds both trees' bf16 MMOOC walls.
+both in both executor modes; phase 7 adds both trees' bf16 MMOOC walls;
+after phase 17, phase 14 (c)'s serving cell (llama3.2-3b bf16, batch 4,
+prompt 512, gen 32, as ``launch/serve.main`` serves it) runs from each
+tree in processes of their own, ten pairs in ABBA turns, each timing three
+``generate`` calls after an untimed one and counting the device ops of a
+decode step under ``torch.profiler``; then the host time of kernel 2's
+``torch.library`` operators against their launch functions called
+directly.
 Without arguments it needs one card and nothing else.
 
 The line before the last is a JSON object describing each kernel, with
@@ -3364,7 +3396,8 @@ BLOCK_MATMUL_PATHS = ("host", "in_core", "vmem", "syrk_host", "direct_host",
                           "mesh_direct_bfloat16")
 # the paths that launch kernel 2
 ATTENTION_PATHS = ("attention", "attention_f32", "tune_attention",
-                   "hybrid_attention") + ANALYZE_K2 + SERVE_PATHS
+                   "hybrid_attention") + ANALYZE_K2 + SERVE_PATHS + (
+                       "seq_decode",)
 
 
 def phase_timing(gen, report, card):
@@ -4860,6 +4893,86 @@ def mesh_compression_case(report, card, shapes):
                 f" GB a reduction); card {card}")
 
 
+def mesh_seq_decode_case(report, card):
+    """(f) sequence-parallel decode through ``layers.local_decode`` on the
+    one-rank group: decode caches of llama3.2-3b's widths (:data:`SEQ_CASE`)
+    as DTensors on a (1, 1) (data, model) mesh placed (Shard(0), Shard(1)),
+    batch rows on "data" and the sequence on "model", as the rules place
+    them where the KV heads do not divide the model axis.  So the
+    sequence branch runs whole: the rank's slice write and kernel-2
+    partial pass, the functional all-gather of its partials over NCCL, the
+    combine pass.  Against the same write and the unsplit kernel 2 on
+    plain tensors, in bf16 and f32 (:data:`SEQ_TOL`); the ``seq_decode``
+    counts are set to 0 just before the two decodes and read just after:
+    the launches of this path in the kernels line."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models.layers import (SEQ_DECODE_PATH, cache_update,
+                                           local_decode)
+
+    mesh = make_mesh((1, 1), ("data", "model"))
+    placed = (Shard(0), Shard(1))
+    rep = (Replicate(), Replicate())
+    B, S, L, hkv, G, d = SEQ_CASE
+    gen = torch.Generator(device="cuda").manual_seed(SEED + 5)
+    wrappers = (kfa.flash_partial, kfa.flash_combine)
+    cases = []
+    for dt in (torch.bfloat16, torch.float32):
+        q = rand((B, hkv * G, d), gen, dt)
+        kn, vn = (rand((B, hkv, d), gen, dt) for _ in range(2))
+        k0, v0 = (rand((B, S, hkv, d), gen, dt) for _ in range(2))
+        length = torch.full((B,), L, dtype=torch.int32, device="cuda")
+        k_all, v_all = k0.clone(), v0.clone()
+        cache_update(k_all, kn, length)
+        cache_update(v_all, vn, length)
+        saved = tuple(w.launches for w in wrappers)
+        want = kfa.flash_decode_attention(q, k_all, v_all, length + 1)
+        kfa.flash_partial.launches, kfa.flash_combine.launches = saved
+        cases.append((dt, [DTensor.from_local(t, mesh, rep)
+                           for t in (q, kn, vn, length)],
+                      [DTensor.from_local(t, mesh, placed) for t in (k0, v0)],
+                      k_all, v_all, want))
+    for w in wrappers:
+        w.launches_by_path[SEQ_DECODE_PATH] = 0
+    outs = [local_decode(*args, *caches, length)
+            for _, (*args, length), caches, *_ in cases]
+    torch.cuda.synchronize()
+    la = {p: w.launches_by_path[SEQ_DECODE_PATH]
+          for p, w in zip(("partial", "combine"), wrappers)}
+    rows = []
+    for (dt, _, (kc, vc), k_all, v_all, want), out in zip(cases, outs):
+        require(isinstance(out, DTensor)
+                and tuple(out.placements) == (Shard(0), Replicate()),
+                f"mesh (f): {dt}: the decode came back as {type(out)} "
+                f"{getattr(out, 'placements', None)}")
+        diff = (out.to_local().float() - want.float()).abs()
+        atol, rtol = SEQ_TOL[dt]
+        ok = bool((diff <= atol + rtol * want.float().abs()).all())
+        same = (torch.equal(kc.to_local(), k_all)
+                and torch.equal(vc.to_local(), v_all))
+        require(ok and same, f"mesh (f): {dt}: max err {diff.max().item()} "
+                             f"against the unsplit kernel 2 (atol {atol}, "
+                             f"rtol {rtol}), caches equal {same}")
+        rows.append({"dtype": str(dt)[6:], "max_abs_err": diff.max().item()})
+    require(la == {"partial": len(cases), "combine": len(cases)},
+            f"mesh (f): kernel 2 launched {la} under {SEQ_DECODE_PATH!r}, "
+            f"expected one partial and one combine pass a decode")
+    report["launches"][SEQ_DECODE_PATH] = la
+    report["mesh"].append({"part": "f", "rows": rows, "launches": la})
+    say("mesh", f"(f) local_decode on caches (B={B}, S={S}, Hkv={hkv}, "
+                f"d={d}; {L} valid, the new token at {L}) placed "
+                f"{placed} on a one-rank (data, model) mesh, q with G={G}: "
+                + "; ".join(f"{r['dtype']} max err {r['max_abs_err']:.3g}"
+                            for r in rows)
+                + f" against the unsplit kernel 2 on plain tensors, caches "
+                f"equal to its write; kernel 2 launched under "
+                f"{SEQ_DECODE_PATH!r} {json.dumps(la)} in the two decodes "
+                f"(slice pass, NCCL all-gather of the partials, combine); "
+                f"card {card}")
+
+
 def phase_mesh(report, card, main_io, bf16_io):
     """Phase 16: the MESH tier and the sharded model zoo on a one-rank
     NCCL group, torn down at the end."""
@@ -4888,6 +5001,9 @@ def phase_mesh(report, card, main_io, bf16_io):
         t1 = time.perf_counter()
         mesh_compression_case(report, card, shapes)
         took["e"] = round(time.perf_counter() - t1, 1)
+        t1 = time.perf_counter()
+        mesh_seq_decode_case(report, card)
+        took["f"] = round(time.perf_counter() - t1, 1)
     finally:
         shutdown()
         free_card()
@@ -4895,6 +5011,384 @@ def phase_mesh(report, card, main_io, bf16_io):
                 f"{json.dumps(took)}); multi-rank rings, gathers and "
                 f"reductions run only on the CPU tests' gloo ranks (one "
                 f"card here)")
+
+
+# phase 17 (the dry-run on fake ranks, and sequence-parallel decode)
+# (a): 8 KV heads on a model axis of 16, so the caches shard the sequence
+DRYRUN_CELL = ("llama3.2-3b", "decode_32k")
+DRYRUN_TIMEOUT = 300
+# (c): llama3.2-3b's decode widths at phase 14's serving step: B, cache
+# positions, valid, Hkv, G, d; the sequence split into these many slices
+SEQ_CASE = (4, 544, 528, 8, 3, 128)
+SEQ_SPLITS = (2, 4, 8)
+# (atol, rtol) against the unsplit kernel 2: f32 to its summation order,
+# bf16 to two roundings of the output (2^-7 relative)
+SEQ_TOL = {torch.float32: (1e-5, 0.0), torch.bfloat16: (1e-4, 2.0 ** -7)}
+
+
+def dryrun_cli_case(report, card):
+    """(a) ``python -m repro_torch.launch.dryrun`` in a child process on
+    llama3.2-3b decode_32k at 16x16: 256 fake ranks, fake tensors on the
+    card's device; the caches' 8 KV heads do not divide the model axis of
+    16, so every layer decodes sequence-parallel (fault 1's path)."""
+    arch, shape = DRYRUN_CELL
+    with tempfile.TemporaryDirectory() as out:
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.dryrun", "--arch",
+             arch, "--shape", shape, "--out", out], capture_output=True,
+            text=True, timeout=DRYRUN_TIMEOUT, env=child_env())
+        wall = time.perf_counter() - t0
+        path = os.path.join(out, f"{arch}__{shape}__single.json")
+        require(res.returncode == 0 and os.path.exists(path),
+                f"dryrun (a): the CLI failed (rc {res.returncode}): "
+                f"{res.stdout[-1000:]} {res.stderr[-3000:]}")
+        with open(path) as f:
+            art = json.load(f)
+    require(art["status"] == "OK", f"dryrun (a): {arch} {shape} is "
+                                   f"{art['status']}: {art.get('error')} "
+                                   f"{art.get('traceback')}")
+    require(art["trace_device"] == "cuda" and art["flops_per_device"] > 0,
+            f"dryrun (a): traced on {art['trace_device']} with "
+            f"{art['flops_per_device']} flops")
+    r = art["roofline"]
+    report["dryrun"].append({"part": "a", "wall_s": wall, **art})
+    say("dryrun", f"(a) launch.dryrun {arch} {shape} on {art['mesh']} "
+                  f"({art['chips']} fake ranks, fake {art['trace_device']} "
+                  f"tensors): OK in {art['trace_s']} s of trace "
+                  f"({wall:.1f} s with the process); device_hbm_bytes "
+                  f"{art['device_hbm_bytes']} "
+                  f"({art['device_hbm_bytes'] / 2**30:.2f} GiB, fits "
+                  f"{art['fits_hbm']}); {art['n_params']} parameters; "
+                  f"per device {art['flops_per_device']:.4g} flops, "
+                  f"{art['bytes_per_device']:.4g} bytes, wire bytes by "
+                  f"kind {json.dumps(art['collectives'])} (counts "
+                  f"{json.dumps(art['collective_counts_scan_body'])}); "
+                  f"roofline (H100 SXM data sheet) Tc {r['t_compute_s']:.3g} "
+                  f"s, Tm {r['t_memory_s']:.3g} s, Tx "
+                  f"{r['t_collective_s']:.3g} s, bound {r['bottleneck']}, "
+                  f"frac {r['roofline_fraction']:.3f}, useful "
+                  f"{r['useful_flops_ratio']:.2f}; card {card}")
+
+
+def dryrun_train_case(report, card):
+    """(b) phase 15 (b)'s cell traced on a one-rank fake mesh: its flops
+    equal to ``FlopCounterMode``'s count of the real step on the card, its
+    predicted peak memory and roofline bound beside phase 15's
+    measurements."""
+    from torch.utils.flop_counter import FlopCounterMode
+
+    from repro_torch.configs import ShapeConfig, get_arch
+    from repro_torch.launch.dryrun import fake_world, trace_cell
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import get_model
+    from repro_torch.optim import AdamWConfig
+    from repro_torch.training import steps as tsteps
+
+    arch, B, S, _, _ = TRAIN_MAIN
+    cfg = get_arch(arch)
+    t0 = time.perf_counter()
+    with fake_world(1):
+        art = trace_cell(cfg, ShapeConfig("train_phase15b", S, B, "train"),
+                         make_mesh((1, 1), ("data", "model")))
+    trace_s = time.perf_counter() - t0
+    free_card()
+    model = get_model(cfg, device="cuda").init(
+        torch.Generator(device="cuda").manual_seed(SEED))
+    opt = AdamWConfig()
+    state = tsteps.train_state(model, opt)
+    g = torch.Generator(device="cuda").manual_seed(SEED)
+    batch = {k: torch.randint(0, cfg.vocab_size, (B, S), generator=g,
+                              device="cuda", dtype=torch.int32)
+             for k in ("inputs", "labels")}
+    step = tsteps.build_train_step(model, opt)
+    with FlopCounterMode(display=False) as fc:
+        step(state, batch)
+    torch.cuda.synchronize()
+    real = fc.get_total_flops()
+    del model, state, step, batch
+    free_card()
+    require(art["flops_per_device"] == real,
+            f"dryrun (b): the trace's {art['flops_per_device']} flops, the "
+            f"real step's {real}")
+    measured = next(r for r in report["train"] if r["part"] == "b")
+    r = art["roofline"]
+    bound_ms = max(r["t_compute_s"], r["t_memory_s"],
+                   r["t_collective_s"]) * 1e3
+    row = {"part": "b", "arch": arch, "B": B, "S": S, "trace_s": trace_s,
+           "flops": art["flops_per_device"], "real_flops": real,
+           "bytes": art["bytes_per_device"],
+           "predicted_peak_bytes": art["device_hbm_bytes"],
+           "measured_peak_bytes": measured["peak_bytes"],
+           "bound_ms": bound_ms, "bottleneck": r["bottleneck"],
+           "measured_step_ms": measured["step_ms_median"]}
+    report["dryrun"].append(row)
+    say("dryrun", f"(b) {arch} train B={B} S={S} (phase 15 (b)'s cell) "
+                  f"traced on a one-rank fake mesh in {trace_s:.1f} s: "
+                  f"{art['flops_per_device']:.6g} flops == FlopCounterMode's "
+                  f"{real} of the real step on the card; predicted peak "
+                  f"{art['device_hbm_bytes'] / 1e9:.2f} GB against phase 15's "
+                  f"measured max_memory_allocated "
+                  f"{measured['peak_bytes'] / 1e9:.2f} GB; roofline bound "
+                  f"{bound_ms:.2f} ms ({r['bottleneck']}; Tc "
+                  f"{r['t_compute_s'] * 1e3:.2f} ms, Tm "
+                  f"{r['t_memory_s'] * 1e3:.2f} ms of "
+                  f"{art['bytes_per_device'] / 1e9:.1f} GB moved op by op) "
+                  f"against the measured step {measured['step_ms_median']:.2f}"
+                  f" ms; card {card}")
+
+
+def seq_decode_case(report, card, gen):
+    """(c) fault 1's sequence-parallel decode on the card: one cache of
+    llama3.2-3b's decode widths split into 2, 4 and 8 slices, each slice's
+    write and kernel-2 partial pass (``layers.seq_slice_partials``), their
+    partials in slice order folded by the combine pass
+    (``layers.seq_combine``), against the same write and the unsplit
+    kernel 2; in f32 and bf16."""
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.models.layers import (SEQ_DECODE_PATH, cache_update,
+                                           seq_combine, seq_slice_partials)
+
+    B, S, L, hkv, G, d = SEQ_CASE
+    wrappers = (kfa.flash_partial, kfa.flash_combine)
+    kept = [w.launches_by_path.pop(SEQ_DECODE_PATH, 0) for w in wrappers]
+    rows = []
+    for dt in (torch.float32, torch.bfloat16):
+        q = rand((B, hkv * G, d), gen, dt)
+        kn, vn = (rand((B, hkv, d), gen, dt) for _ in range(2))
+        k0, v0 = (rand((B, S, hkv, d), gen, dt) for _ in range(2))
+        length = torch.full((B,), L, dtype=torch.int32, device="cuda")
+        k_all, v_all = k0.clone(), v0.clone()
+        cache_update(k_all, kn, length)
+        cache_update(v_all, vn, length)
+        saved = tuple(w.launches for w in wrappers)
+        want = kfa.flash_decode_attention(q, k_all, v_all, length + 1)
+        kfa.flash_partial.launches, kfa.flash_combine.launches = saved
+        for W in SEQ_SPLITS:
+            n = S // W
+            ks, vs = k0.clone(), v0.clone()
+            parts = [seq_slice_partials(q, kn, vn, ks[:, r * n:(r + 1) * n],
+                                        vs[:, r * n:(r + 1) * n], length, r)
+                     for r in range(W)]
+            out = seq_combine((torch.cat([p[0] for p in parts], -1),
+                               torch.cat([p[1] for p in parts], -1),
+                               torch.cat([p[2] for p in parts], -2)),
+                              q.dtype)
+            torch.cuda.synchronize()
+            diff = (out.float() - want.float()).abs()
+            err = diff.max().item()
+            atol, rtol = SEQ_TOL[dt]
+            ok = bool((diff <= atol + rtol * want.float().abs()).all())
+            require(ok and torch.equal(ks, k_all) and torch.equal(vs, v_all),
+                    f"dryrun (c): {W} slices {dt}: max err {err} against "
+                    f"the unsplit kernel 2 (atol {atol}, rtol {rtol}), "
+                    f"caches equal {torch.equal(ks, k_all)} "
+                    f"{torch.equal(vs, v_all)}")
+            rows.append({"dtype": str(dt)[6:], "slices": W,
+                         "slice_positions": n, "max_abs_err": err})
+        del q, kn, vn, k0, v0, k_all, v_all, ks, vs, want, out
+    la = {p: w.launches_by_path.get(SEQ_DECODE_PATH, 0)
+          for p, w in zip(("partial", "combine"), wrappers)}
+    for w, n in zip(wrappers, kept):
+        w.launches_by_path[SEQ_DECODE_PATH] = n
+    report["dryrun"].append({"part": "c", "rows": rows, "launches": la})
+    say("dryrun", f"(c) sequence-parallel decode, B={B} S={S} ({L} valid, "
+                  f"the new token written at {L}), Hkv={hkv} G={G} d={d}: "
+                  + "; ".join(f"{r['dtype']} {r['slices']} slices of "
+                              f"{r['slice_positions']}: max err "
+                              f"{r['max_abs_err']:.3g}" for r in rows)
+                  + f" against the unsplit kernel 2 ((atol, rtol) "
+                  f"{SEQ_TOL[torch.float32]} f32, {SEQ_TOL[torch.bfloat16]} "
+                  f"bf16), caches equal to the unsplit write; kernel 2 "
+                  f"launched {json.dumps(la)} (phase 16 (f) holds the "
+                  f"path's count); card {card}")
+
+
+def phase_dryrun(report, card, gen):
+    """Phase 17: the dry-run on fake ranks (a, b) and the sequence-parallel
+    decode's kernel-2 passes on the card (c)."""
+    from repro_torch.distributed.cost_analysis import HBM_BYTES
+
+    t0 = time.perf_counter()
+    total = torch.cuda.get_device_properties(0).total_memory
+    say("dryrun", f"total_memory {total} B; the dry-run's HBM_BYTES "
+                  f"{HBM_BYTES}")
+    require(total == HBM_BYTES, f"dryrun: the card's total_memory {total} "
+                                f"!= cost_analysis.HBM_BYTES {HBM_BYTES}")
+    took = {}
+    for name, run in (("a", lambda: dryrun_cli_case(report, card)),
+                      ("b", lambda: dryrun_train_case(report, card)),
+                      ("c", lambda: seq_decode_case(report, card, gen))):
+        t1 = time.perf_counter()
+        run()
+        took[name] = round(time.perf_counter() - t1, 1)
+    free_card()
+    say("dryrun", f"phase 17 took {time.perf_counter() - t0:.1f} s (by part "
+                  f"{json.dumps(took)})")
+
+
+SERVE_TURN = ("llama3.2-3b", 4, 512, 32)     # phase 14 (c)'s serving cell
+# the base tree's and this tree's serving processes: ten pairs in ABBA
+# blocks, so each side runs first in half of them; each process times
+# SERVE_REPS generate calls after an untimed one
+SERVE_ORDER = ("base", "this", "this", "base") * 5
+SERVE_REPS = 3
+# one process serving SERVE_TURN from the tree on its PYTHONPATH as
+# launch/serve.main does (random weights and prompts from seed 0): one
+# untimed generate (it builds the tree's kernel 2), SERVE_REPS timed ones
+# (decode tok/s), then PROFILE_STEPS decode steps under torch.profiler
+# (device ops a step)
+SERVE_CHILD = r"""
+import json, sys
+import torch
+from torch.autograd import DeviceType
+from torch.profiler import ProfilerActivity, profile
+from repro_torch.configs import get_arch
+from repro_torch.launch.serve import generate
+from repro_torch.models import get_model
+
+arch, (B, P, gen, reps, steps) = sys.argv[1], map(int, sys.argv[2:7])
+cfg = get_arch(arch)
+rng = torch.Generator(device="cuda").manual_seed(0)
+model = get_model(cfg, device="cuda").init(rng)
+prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=rng,
+                        device="cuda")
+generate(model, prompts, gen)
+tok_s = [B * (gen - 1) / generate(model, prompts, gen)["decode_s"]
+         for _ in range(reps)]
+logits, cache = model.prefill(prompts, max_len=P + gen)
+tok = logits.argmax(-1)
+with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(steps):
+        logits, cache = model.decode(cache, tok)
+        tok = logits.argmax(-1)
+    torch.cuda.synchronize()
+ops = sum(1 for e in prof.profiler.kineto_results.events()
+          if e.device_type() == DeviceType.CUDA)
+print(json.dumps({"tok_s": tok_s, "device_ops_per_step": ops / steps}))
+"""
+
+
+def serve_child(tree):
+    """:data:`SERVE_CHILD` on :data:`SERVE_TURN` from ``tree``'s sources
+    in a process of its own: its decode tok/s and device ops a step."""
+    arch, B, P, gen = SERVE_TURN
+    res = subprocess.run(
+        [sys.executable, "-c", SERVE_CHILD, arch, str(B), str(P), str(gen),
+         str(SERVE_REPS), str(PROFILE_STEPS)], capture_output=True,
+        text=True, timeout=600,
+        env={**os.environ, "PYTHONPATH": os.path.join(tree, "src")})
+    require(res.returncode == 0, f"base serve: {tree} failed (rc "
+                                 f"{res.returncode}): {res.stderr[-2000:]}")
+    return json.loads(res.stdout.strip().splitlines()[-1])
+
+
+def library_dispatch_us(n=500, rounds=5):
+    """Host time (us) of one call of kernel 2's passes at llama3.2-3b's
+    decode step (:data:`SEQ_CASE`, bf16 caches), by layer of the call:
+    ``op`` through the ``torch.library`` operator, as the model calls it;
+    ``impl`` the operator's CUDA implementation called directly (the
+    wrapper's Python, ``_lib()`` and the launch); ``lib`` the ``_lib()``
+    lookup alone; ``launch`` the C launch function through ctypes on
+    arguments made once.  ``n`` calls back to back a round (fewer than the
+    launch queue holds), all in turns for ``rounds`` rounds; medians.  The
+    launch counts are restored after."""
+    from repro_torch.kernels import flash_attention as kfa
+
+    B, S, L, hkv, G, d = SEQ_CASE
+    H = hkv * G
+    gen = torch.Generator(device="cuda").manual_seed(SEED)
+    qf = rand((B, H, d), gen)
+    k, v = (rand((B, S, hkv, d), gen, torch.bfloat16) for _ in range(2))
+    lens = torch.full((B,), L + 1, dtype=torch.int32, device="cuda")
+    m, l, acc = kfa.empty_partials(B, H, kfa.nsplits(S, 512), d, "cuda")
+    out = torch.empty((B, H, d), dtype=torch.bfloat16, device="cuda")
+    lib, ops = kfa._lib(), torch.ops.repro_torch
+    stream = torch.cuda.current_stream().cuda_stream
+    pargs = (kfa._DTYPE_CODE[k.dtype], int(kfa._vector_ok(k, v)),
+             qf.data_ptr(), k.data_ptr(), v.data_ptr(), lens.data_ptr(), 0,
+             m.data_ptr(), l.data_ptr(), acc.data_ptr(), B, S, hkv, G, d,
+             512, m.shape[-1], *k.stride()[:3], *v.stride()[:3],
+             1.0 / math.sqrt(d), stream)
+    cargs = (kfa._DTYPE_CODE[out.dtype], m.data_ptr(), l.data_ptr(),
+             acc.data_ptr(), m.shape[-1], None, None, None, out.data_ptr(),
+             out.stride(0), out.stride(1), B, H, d, 1, stream)
+    calls = {
+        "partial_op": lambda: ops.flash_partial(qf, k, v, lens, 0, m, l,
+                                                acc, 512, ""),
+        "partial_impl": lambda: kfa._partial_cuda(qf, k, v, lens, 0, m, l,
+                                                  acc, 512, ""),
+        "partial_launch": lambda: lib.repro_flash_partial(*pargs),
+        "combine_op": lambda: ops.flash_combine(m, l, acc, None, None, None,
+                                                out, True, ""),
+        "combine_impl": lambda: kfa._combine_cuda(m, l, acc, None, None,
+                                                  None, out, True, ""),
+        "combine_launch": lambda: lib.repro_flash_combine(*cargs),
+        "lib": kfa._lib}
+    saved = (kfa.flash_partial.launches, kfa.flash_combine.launches)
+    times = {name: [] for name in calls}
+    for fn in calls.values():
+        fn()
+    for _ in range(rounds):
+        for name, fn in calls.items():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            for _ in range(n):
+                fn()
+            times[name].append((time.perf_counter() - t0) / n * 1e6)
+    torch.cuda.synchronize()
+    kfa.flash_partial.launches, kfa.flash_combine.launches = saved
+    return {name: statistics.median(t) for name, t in times.items()}
+
+
+def phase_baseline_serve(report, card, base):
+    """Phase 14 (c)'s serving cell from the base tree and this one, each
+    process on its own (:func:`serve_child`), in the turns of
+    :data:`SERVE_ORDER`: decode tok/s and device ops a step; and the host
+    cost of this tree's ``torch.library`` operators for kernel 2
+    (:func:`library_dispatch_us`), which the base tree calls directly."""
+    here = os.path.dirname(os.path.abspath(__file__))
+    trees = {"base": base, "this": here}
+    runs = {"base": [], "this": []}
+    for who in SERVE_ORDER:
+        runs[who].append(serve_child(trees[who]))
+    tok = {w: [t for r in rs for t in r["tok_s"]] for w, rs in runs.items()}
+    ops = {w: [r["device_ops_per_step"] for r in rs]
+           for w, rs in runs.items()}
+    # pair i: the i-th process of each tree, adjacent in SERVE_ORDER
+    mean = {w: [statistics.mean(r["tok_s"]) for r in rs]
+            for w, rs in runs.items()}
+    pairs = [t / b for b, t in zip(mean["base"], mean["this"])]
+    q = statistics.quantiles(mean["base"], n=4)
+    us = library_dispatch_us()
+    layers = 28                                 # llama3.2-3b
+    extra_ms = layers * (us["partial_op"] - us["partial_impl"]
+                         + us["combine_op"] - us["combine_impl"]) / 1e3
+    report["baseline_serve"] = {"runs": runs, "pair_ratios": pairs,
+                                "library_dispatch_us": us,
+                                "library_ms_per_step": extra_ms}
+    med = {w: statistics.median(t) for w, t in mean.items()}
+    say("base", f"serve {SERVE_TURN[0]} bf16 B={SERVE_TURN[1]} prompt "
+                f"{SERVE_TURN[2]} gen {SERVE_TURN[3]}, {len(SERVE_ORDER)} "
+                f"processes in ABBA turns, {SERVE_REPS} timed runs each: "
+                f"decode tok/s base {json.dumps(tok['base'])}, this tree "
+                f"{json.dumps(tok['this'])}; process means' medians "
+                f"{med['base']:.2f} / {med['this']:.2f} "
+                f"({med['this'] / med['base']:.3f}x), the base's quartiles "
+                f"{q[0]:.2f}-{q[2]:.2f}; this tree faster in "
+                f"{sum(r > 1 for r in pairs)} of {len(pairs)} pairs (ratios "
+                f"{json.dumps(pairs)}); device ops a step base "
+                f"{json.dumps(ops['base'])}, this tree "
+                f"{json.dumps(ops['this'])}; card {card}")
+    say("base", f"kernel 2's passes at llama3.2-3b's step, host us a call "
+                f"(median of 5 rounds of 500), through torch.library / its "
+                f"CUDA implementation called directly / the C launch alone: "
+                f"partial {us['partial_op']:.2f} / {us['partial_impl']:.2f} "
+                f"/ {us['partial_launch']:.2f}, combine "
+                f"{us['combine_op']:.2f} / {us['combine_impl']:.2f} / "
+                f"{us['combine_launch']:.2f}; _lib() {us['lib']:.2f}; the "
+                f"operators add {extra_ms:.3f} ms a step of {layers} layers;"
+                f" card {card}")
 
 
 def main(argv=None) -> int:
@@ -4918,6 +5412,7 @@ def main(argv=None) -> int:
     report = {"main_path": [], "attention": [], "c1": [], "factor": [],
               "fault": [], "tune": [], "hybrid": [], "hybrid_plans": {},
               "analyze": [], "serve": [], "train": [], "mesh": [],
+              "dryrun": [],
               "factor_panel_ms": {}, "factor_dgemm_check": {},
               "launches": {}, "launches_by_dtype": {}}
     A, B, C, host_out, params = phase_main(gen, report)
@@ -4939,6 +5434,9 @@ def main(argv=None) -> int:
     phase_train(report, card)
     phase_mesh(report, card, main_io, bf16_io)
     del main_io, bf16_io
+    phase_dryrun(report, card, gen)
+    if args.baseline:
+        phase_baseline_serve(report, card, args.baseline)
     entries = [*phase_timing(gen, report, card),
                phase_timing_attention(gen, report, card),
                phase_timing_direct(gen, report, card)]
@@ -4957,6 +5455,8 @@ def main(argv=None) -> int:
                       "serve": report["serve"],
                       "train": report["train"],
                       "mesh": report["mesh"],
+                      "dryrun": report["dryrun"],
+                      "baseline_serve": report.get("baseline_serve"),
                       "tune_calibration": report.get("tune_calibration"),
                       "tune_searches": report.get("tune_searches"),
                       "baseline": report.get("baseline"),

@@ -7,7 +7,8 @@ from repro_torch.configs.base import (
     ShapeConfig,
     cell_is_supported,
     get_arch,
+    input_specs,
 )
 
 __all__ = ["ARCH_IDS", "ArchConfig", "SHAPES", "ShapeConfig",
-           "cell_is_supported", "get_arch"]
+           "cell_is_supported", "get_arch", "input_specs"]

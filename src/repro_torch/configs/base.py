@@ -3,9 +3,10 @@
 Port of ``src/repro/configs/base.py``.  One ``ArchConfig`` per assigned
 architecture (exact published dims) lives in ``configs/<id>.py``; the
 registry resolves ``--arch <id>``.  Input shapes are the assignment's four
-LM shapes.  ``pdtype``/``adtype`` name torch dtypes.  ``input_specs`` (the
-dry-run's shape stand-ins) comes with the dry-run, ROADMAP module item
-13b.
+LM shapes.  ``pdtype``/``adtype`` name torch dtypes.  ``input_specs``
+gives the dry-run's stand-ins of every model input: tensors without data,
+on the ``meta`` device (or fake ones under ``launch.dryrun``'s
+``FakeTensorMode``), in place of the reference's ``jax.ShapeDtypeStruct``.
 """
 
 from __future__ import annotations
@@ -154,3 +155,30 @@ def cell_is_supported(cfg: ArchConfig, shape: ShapeConfig) -> Tuple[bool, str]:
     if shape.name == "long_500k" and not sub_quadratic:
         return False, "pure full-attention arch; 500k decode needs sub-quadratic backbone"
     return True, ""
+
+
+def input_specs(cfg: ArchConfig, shape: ShapeConfig,
+                device="meta") -> Dict[str, torch.Tensor]:
+    """Data-free stand-ins (``torch.empty`` on ``device``: ``meta``, or a
+    fake device under a ``FakeTensorMode``) for every model input of this
+    cell, in the reference's shapes and dtypes.
+
+    train:   tokens/labels (B, S) int32 (or frame/patch embeddings for
+             stubbed-frontend archs: (B, S, D) act_dtype + labels).
+    prefill: tokens (B, S).
+    decode:  tokens (B,); the cache's stand-ins come from the model itself
+             (``cache_specs``).
+    """
+    B, S = shape.global_batch, shape.seq_len
+    spec = lambda *dims, dtype=torch.int32: torch.empty(  # noqa: E731
+        dims, dtype=dtype, device=device)
+    if shape.kind in ("train", "prefill"):
+        inputs = spec(B, S, cfg.d_model, dtype=cfg.adtype) \
+            if cfg.embedding_input else spec(B, S)
+        if shape.kind == "prefill":
+            return {"inputs": inputs}
+        return {"inputs": inputs, "labels": spec(B, S)}
+    # decode: one new token against a cache of max length S.  Even
+    # stubbed-frontend VLMs decode *text* tokens (the frontend only feeds
+    # prefill), so decode inputs are always token ids.
+    return {"inputs": spec(B)}

@@ -176,13 +176,14 @@ def tree_shardings(axes_tree, shape_tree, mesh, rules=None):
 
 def distribute(x: torch.Tensor, mesh, place) -> torch.Tensor:
     """``x`` as a DTensor with placements ``place`` on ``mesh``: every rank
-    passes the same full tensor and keeps its shard (a DTensor is
-    redistributed instead)."""
+    passes the same full tensor and keeps its shard, with no collective
+    (``src_data_rank=None``: no rank's copy is broadcast over the others');
+    a DTensor is redistributed instead."""
     from torch.distributed.tensor import DTensor, distribute_tensor
 
     if isinstance(x, DTensor):
         return x.redistribute(mesh, place)
-    return distribute_tensor(x, mesh, place)
+    return distribute_tensor(x, mesh, place, src_data_rank=None)
 
 
 def constrain(x, logical: Sequence[Optional[str]], mesh, rules=None):

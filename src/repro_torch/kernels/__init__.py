@@ -10,13 +10,17 @@ from typing import Optional
 _COUNT_LOCK = threading.Lock()
 
 
-def count_launch(wrapper, dtype: Optional[str] = None) -> None:
+def count_launch(wrapper, dtype: Optional[str] = None,
+                 path: Optional[str] = None) -> None:
     """One launch of ``wrapper``'s kernel: ``wrapper.launches`` and, given
-    ``dtype``, ``wrapper.launches_by_dtype[dtype]`` go up by one.  Under a
-    lock, since several threads may launch at once (the hybrid members'
-    executors) and a bare ``+= 1`` can lose an increment."""
+    ``dtype``, ``wrapper.launches_by_dtype[dtype]`` (given ``path``,
+    ``wrapper.launches_by_path[path]``) go up by one.  Under a lock, since
+    several threads may launch at once (the hybrid members' executors) and
+    a bare ``+= 1`` can lose an increment."""
     with _COUNT_LOCK:
         wrapper.launches += 1
-        if dtype is not None:
-            by_dtype = wrapper.launches_by_dtype
-            by_dtype[dtype] = by_dtype.get(dtype, 0) + 1
+        for key, table in ((dtype, "launches_by_dtype"),
+                           (path, "launches_by_path")):
+            if key is not None:
+                counts = getattr(wrapper, table)
+                counts[key] = counts.get(key, 0) + 1

@@ -32,6 +32,15 @@ raises.  ``flash_partial.launches`` and ``flash_combine.launches`` count
 kernel launches, and nothing else (under a lock: the hybrid members launch
 from several threads).
 
+On a card both passes run as operators of their own,
+``torch.ops.repro_torch.flash_partial`` and ``flash_combine``: the CUDA
+implementation launches the kernel and counts it (``launches``, and
+``launches_by_path`` under the wrapper's ``path=``), the fake one (for a
+``FakeTensorMode`` trace, ``launch.dryrun``) launches nothing, and a flop
+formula counts each pass at its own work (``torch.utils.flop_counter``):
+the partial pass ``4 B H S d`` (scores and ``p @ v`` over all S positions,
+since a fake trace cannot read the lengths), the combine ``2 B H n d``.
+
 ``NEG_INF`` is the finite -1e30 everywhere, so two empty partials meet as
 ``exp(0) * 0`` and never as ``-inf - -inf``.  KV types: float32, bfloat16
 and float16, read in their own dtype; q is computed in float32.
@@ -221,15 +230,101 @@ def _vector_ok(k: torch.Tensor, v: torch.Tensor) -> bool:
             and all(s % vec == 0 for t in (k, v) for s in t.stride()[:3]))
 
 
+# the two passes as operators: a CUDA implementation that launches the
+# kernel, a fake one that launches nothing, and their flop formulas
+_OPS = torch.library.Library("repro_torch", "FRAGMENT")
+_OPS.define("flash_partial(Tensor q, Tensor k, Tensor v, Tensor? lens, "
+            "int len_all, Tensor(a!) m, Tensor(b!) l, Tensor(c!) acc, "
+            "int block_s, str path) -> ()")
+_OPS.define("flash_combine(Tensor? m, Tensor? l, Tensor? acc, "
+            "Tensor(a!)? mc, Tensor(b!)? lc, Tensor(c!)? ac, "
+            "Tensor(d!)? out, bool normalise, str path) -> ()")
+
+
+def _partial_cuda(q, k, v, lens, len_all, m, l, acc, block_s, path):
+    B, H, d = q.shape
+    _, S, hkv, _ = k.shape
+    with torch.cuda.device(q.device):
+        stream = torch.cuda.current_stream(q.device).cuda_stream
+        err = _lib().repro_flash_partial(
+            _DTYPE_CODE[k.dtype], int(_vector_ok(k, v)), q.data_ptr(),
+            k.data_ptr(), v.data_ptr(),
+            None if lens is None else lens.data_ptr(), len_all,
+            m.data_ptr(), l.data_ptr(), acc.data_ptr(), B, S, hkv, H // hkv,
+            d, block_s, m.shape[-1], *k.stride()[:3], *v.stride()[:3],
+            1.0 / math.sqrt(d), stream)
+    if err != 0:
+        raise RuntimeError(f"flash_partial kernel launch failed: CUDA error "
+                           f"{err} (B={B}, S={S}, H={H}, Hkv={hkv}, d={d}, "
+                           f"dtype={k.dtype}, block_s={block_s})")
+    count_launch(flash_partial, path=path or None)
+
+
+def _combine_cuda(m, l, acc, mc, lc, ac, out, normalise, path):
+    ref = mc if mc is not None else m
+    B, H = ref.shape[:2]
+    d = (ac if ac is not None else acc).shape[-1]
+    n = 0 if m is None else m.shape[-1]
+    ptr = lambda t: None if t is None else t.data_ptr()     # noqa: E731
+    out_dtype = out.dtype if out is not None else torch.float32
+    with torch.cuda.device(ref.device):
+        stream = torch.cuda.current_stream(ref.device).cuda_stream
+        err = _lib().repro_flash_combine(
+            _DTYPE_CODE[out_dtype], ptr(m), ptr(l), ptr(acc), n, ptr(mc),
+            ptr(lc), ptr(ac), ptr(out),
+            0 if out is None else out.stride(0),
+            0 if out is None else out.stride(1), B, H, d, int(normalise),
+            stream)
+    if err != 0:
+        raise RuntimeError(f"flash_combine kernel launch failed: CUDA error "
+                           f"{err} (B={B}, H={H}, d={d}, splits={n})")
+    count_launch(flash_combine, path=path or None)
+
+
+_OPS.impl("flash_partial", _partial_cuda, "CUDA")
+_OPS.impl("flash_combine", _combine_cuda, "CUDA")
+
+
+@torch.library.register_fake("repro_torch::flash_partial", lib=_OPS)
+def _partial_fake(q, k, v, lens, len_all, m, l, acc, block_s, path):
+    return None
+
+
+@torch.library.register_fake("repro_torch::flash_combine", lib=_OPS)
+def _combine_fake(m, l, acc, mc, lc, ac, out, normalise, path):
+    return None
+
+
+def _register_flops() -> None:
+    from torch.utils.flop_counter import register_flop_formula
+
+    @register_flop_formula(torch.ops.repro_torch.flash_partial)
+    def _partial_flops(q, k, *args, out_val=None, **kwargs):
+        B, H, d = q
+        return 4 * B * H * k[1] * d
+
+    @register_flop_formula(torch.ops.repro_torch.flash_combine)
+    def _combine_flops(m, l, acc, mc, lc, ac, *args, out_val=None,
+                       **kwargs):
+        n = 0 if acc is None else acc[2]
+        B, H, d = ac if ac is not None else (acc[0], acc[1], acc[3])
+        return 2 * B * H * (n + (ac is not None)) * d
+
+
+_register_flops()
+
+
 def flash_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                   length: Length, *, block_s: int = 512,
-                  out: Optional[Partials] = None) -> Partials:
+                  out: Optional[Partials] = None,
+                  path: Optional[str] = None) -> Partials:
     """The partial pass: per split of ``block_s`` positions, ``(m, l, acc)``.
 
     q (B, H, d); k, v (B, S, Hkv, d) with unit stride on d and any strides
     on b, s and the kv head; length (B,) valid positions (a tensor, or an
     int for every row).  ``out`` receives the partials (see
-    :func:`empty_partials`); new tensors if None.
+    :func:`empty_partials`); new tensors if None.  A launch is counted in
+    ``launches`` and, given ``path``, in ``launches_by_path[path]``.
     """
     B, H, d, S, hkv, G = _check(q, k, v, block_s)
     n = nsplits(S, block_s)
@@ -255,29 +350,19 @@ def flash_partial(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         lens = length.to(device=q.device, dtype=torch.int32).contiguous()
         if lens.numel() != B:
             raise ValueError(f"length has {lens.numel()} rows, q has {B}")
-        len_ptr, len_all = lens.data_ptr(), 0
+        len_all = 0
     else:
-        len_ptr, len_all = None, int(length)
-    m, l, acc = out
-    with torch.cuda.device(q.device):
-        stream = torch.cuda.current_stream(q.device).cuda_stream
-        err = _lib().repro_flash_partial(
-            _DTYPE_CODE[k.dtype], int(_vector_ok(k, v)), qf.data_ptr(),
-            k.data_ptr(), v.data_ptr(), len_ptr, len_all, m.data_ptr(),
-            l.data_ptr(), acc.data_ptr(), B, S, hkv, G, d, block_s, n,
-            *k.stride()[:3], *v.stride()[:3], 1.0 / math.sqrt(d), stream)
-    if err != 0:
-        raise RuntimeError(f"flash_partial kernel launch failed: CUDA error "
-                           f"{err} (B={B}, S={S}, H={H}, Hkv={hkv}, d={d}, "
-                           f"dtype={k.dtype}, block_s={block_s})")
-    count_launch(flash_partial)
+        lens, len_all = None, int(length)
+    torch.ops.repro_torch.flash_partial(qf, k, v, lens, len_all, *out,
+                                        block_s, path or "")
     return out
 
 
 def flash_combine(partials: Optional[Partials], *,
                   carry: Optional[Partials] = None, normalise: bool = False,
                   out: Optional[torch.Tensor] = None,
-                  out_dtype: torch.dtype = torch.float32):
+                  out_dtype: torch.dtype = torch.float32,
+                  path: Optional[str] = None):
     """The combine pass over ``partials`` (m, l (B, H, n); acc (B, H, n, d);
     None for no split), starting from ``carry`` (m, l (B, H); acc
     (B, H, d)) when given.
@@ -285,7 +370,8 @@ def flash_combine(partials: Optional[Partials], *,
     ``normalise=False``: the fold is written back into ``carry`` in place
     (it must be given), which is returned.  ``normalise=True``: returns
     ``acc / max(l, 1e-20)`` as (B, H, d) in ``out_dtype`` (into ``out`` when
-    given, unit stride on d); the carry is only read.
+    given, unit stride on d); the carry is only read.  A launch is counted
+    as :func:`flash_partial`'s is.
     """
     ref = carry[0] if carry is not None else \
         (partials[0] if partials is not None else None)
@@ -326,22 +412,9 @@ def flash_combine(partials: Optional[Partials], *,
         raise ValueError(f"flash_combine runs on cpu or cuda, not {dev}")
     if normalise and out is None:
         out = torch.empty((B, H, d), dtype=out_dtype, device=dev)
-    mp, lp, ap = (None, None, None) if partials is None else \
-        (t.data_ptr() for t in partials)
-    mc, lc, ac = (None, None, None) if carry is None else \
-        (t.data_ptr() for t in carry)
-    with torch.cuda.device(dev):
-        stream = torch.cuda.current_stream(dev).cuda_stream
-        err = _lib().repro_flash_combine(
-            _DTYPE_CODE[out_dtype], mp, lp, ap, n, mc, lc, ac,
-            None if out is None else out.data_ptr(),
-            0 if out is None else out.stride(0),
-            0 if out is None else out.stride(1), B, H, d, int(normalise),
-            stream)
-    if err != 0:
-        raise RuntimeError(f"flash_combine kernel launch failed: CUDA error "
-                           f"{err} (B={B}, H={H}, d={d}, splits={n})")
-    count_launch(flash_combine)
+    torch.ops.repro_torch.flash_combine(
+        *(partials or (None,) * 3), *(carry or (None,) * 3),
+        out if normalise else None, normalise, path or "")
     return out if normalise else carry
 
 
@@ -361,3 +434,5 @@ def flash_decode_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 flash_partial.launches = 0
 flash_combine.launches = 0
+flash_partial.launches_by_path = {}
+flash_combine.launches_by_path = {}

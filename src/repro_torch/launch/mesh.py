@@ -18,7 +18,7 @@ from __future__ import annotations
 
 import math
 import os
-from typing import Sequence
+from typing import Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -57,13 +57,16 @@ def shutdown() -> None:
 
 
 def _device_type() -> str:
-    return "cuda" if dist.get_backend() == "nccl" else "cpu"
+    """The mesh's device: the host's on gloo, the card's on NCCL (and on a
+    fake group, ``launch.dryrun``'s, whose tensors claim the card)."""
+    return "cpu" if dist.get_backend() == "gloo" else "cuda"
 
 
-def make_mesh(shape: Sequence[int], axes: Sequence[str]):
+def make_mesh(shape: Sequence[int], axes: Sequence[str],
+              device_type: Optional[str] = None):
     """A ``DeviceMesh`` of ``shape`` named ``axes`` over the world's ranks
     (the default group must be up); raises unless the world has exactly
-    ``prod(shape)`` ranks."""
+    ``prod(shape)`` ranks.  ``device_type`` defaults to the backend's."""
     from torch.distributed.device_mesh import init_device_mesh
 
     if len(shape) != len(axes):
@@ -75,13 +78,14 @@ def make_mesh(shape: Sequence[int], axes: Sequence[str]):
     if n != world:
         raise ValueError(f"a {tuple(shape)} mesh needs {n} ranks; the world "
                          f"has {world}")
-    return init_device_mesh(_device_type(), tuple(shape),
+    return init_device_mesh(device_type or _device_type(), tuple(shape),
                             mesh_dim_names=tuple(axes))
 
 
-def make_production_mesh(*, multi_pod: bool = False):
+def make_production_mesh(*, multi_pod: bool = False,
+                         device_type: Optional[str] = None):
     """16 x 16 = 256 ranks a pod; multi-pod: 2 pods = 512 ranks."""
-    return make_mesh(*PRODUCTION_MESH[multi_pod])
+    return make_mesh(*PRODUCTION_MESH[multi_pod], device_type=device_type)
 
 
 def make_debug_mesh(shape=DEBUG_MESH[0], axes=DEBUG_MESH[1]):

@@ -35,8 +35,8 @@ from torch.utils.checkpoint import checkpoint
 from repro_torch.configs.base import ArchConfig
 from repro_torch.core.runtime import resolve_device
 from repro_torch.models import layers as L
-from repro_torch.models.spmd import (batch_sharded, is_dtensor, keep_shards,
-                                     replicating)
+from repro_torch.models.spmd import (batch_sharded, grad_placed_as_value,
+                                     is_dtensor, keep_shards, replicating)
 
 
 def param_dict(tree: Dict) -> nn.ParameterDict:
@@ -141,7 +141,7 @@ class ZooModel(nn.Module):
             table = table.redistribute(table.device_mesh,
                                        keep_shards(table.placements, (0,)))
         x = torch.nn.functional.embedding(tokens, table)
-        return batch_sharded(x.to(self.cfg.adtype))
+        return grad_placed_as_value(batch_sharded(x.to(self.cfg.adtype)))
 
     def _head(self, top, x: torch.Tensor) -> torch.Tensor:
         x = L.rms_norm(x, top["final_norm"], self.cfg.norm_eps)
@@ -189,6 +189,20 @@ class ZooModel(nn.Module):
             return self.init_cache(batch, max_len)
         finally:
             self.device = dev
+
+    def _prefill_cache(self, batch: int, max_len: int) -> Dict:
+        """A fresh cache for ``prefill``: on sharded weights its tensors
+        are DTensors placed by the rules (``cache_logical_axes``), each
+        rank allocating its own shard only."""
+        if self.mesh is None:
+            return self.init_cache(batch, max_len)
+        from torch.distributed.tensor import zeros
+
+        from repro_torch.distributed.sharding import tree_shardings
+        specs = self.cache_specs(batch, max_len)
+        places = tree_shardings(self.cache_logical_axes(), specs, self.mesh)
+        return {k: zeros(v.shape, dtype=v.dtype, device_mesh=self.mesh,
+                         placements=places[k]) for k, v in specs.items()}
 
     @property
     def mesh(self):

@@ -18,8 +18,14 @@ kernel 2 with it, and no model path calls it.
 axes.  On DTensors (a sharded model, ``models.base``) the blocked
 attention, the decode step's cache writes and kernel 2 run on each rank's
 own batch rows and heads (``local_map``; :func:`local_decode`): rows and
-heads are independent, so they need no communication; a cache sharded
-along its sequence raises.
+heads are independent, so they need no communication.  A cache sharded
+along its sequence (the rules give the model axis to ``cache_seq`` where
+the KV heads do not divide it) is decoded sequence-parallel, as the
+reference's GSPMD partitions it: each rank writes the new token only if
+its position falls in the rank's slice, runs kernel 2's partial pass over
+its slice, and the ranks' ``(m, l, acc)`` partials, gathered over the
+axis, are folded by kernel 2's combine pass (the fold of
+``hybrid.executor.merge_attention_partials``).
 """
 
 from __future__ import annotations
@@ -61,6 +67,15 @@ def dense_init(generator: torch.Generator, shape, scale_axis: int = 0,
 # --------------------------------------------------------------------------
 def rms_norm(x: torch.Tensor, weight: torch.Tensor,
              eps: float = 1e-5) -> torch.Tensor:
+    if is_dtensor(x) and any(p.is_partial() for p in x.placements):
+        # a row-parallel product's partial sums (the residual stream) are
+        # reduced here, as Megatron and GSPMD do: left to DTensor, the norm
+        # scatters them over the sequence, and the next product's flattened
+        # (B * S, D) operand then takes a strided sharding that DTensor
+        # cannot place on fake tensors
+        from torch.distributed.tensor import Replicate
+        x = x.redistribute(x.device_mesh, tuple(
+            Replicate() if p.is_partial() else p for p in x.placements))
     xf = x.float()
     xf = xf * torch.rsqrt((xf * xf).mean(-1, keepdim=True) + eps)
     return (xf * weight.float()).to(x.dtype)
@@ -231,34 +246,110 @@ def attention_decode_apply(p: Params, x: torch.Tensor,
     return o.reshape(B, n_heads * head_dim) @ p["wo"]
 
 
+# the launch-count path of kernel 2 on a sequence-sharded cache
+SEQ_DECODE_PATH = "seq_decode"
+
+
 def _decode_core(q, k, v, k_cache, v_cache, length):
     cache_update(k_cache, k.to(k_cache.dtype), length)
     cache_update(v_cache, v.to(v_cache.dtype), length)
     return kops.flash_decode_attention(q, k_cache, v_cache, length + 1)
 
 
+def _seq_gather(parts, mesh, dims):
+    """Each rank's (m, l, acc) partials (B, H, n) / (B, H, n, d), gathered
+    over the mesh dims ``dims`` (outer first) in one collective, in the
+    order of the sequence slices: (B, H, W n) / (B, H, W n, d)."""
+    import torch.distributed._functional_collectives as funcol
+    gather = getattr(funcol, "all_gather_single", None) \
+        or funcol.all_gather_tensor
+    m, l, acc = parts
+    B, H, n, d = acc.shape
+    flat = torch.cat([m.reshape(-1), l.reshape(-1), acc.reshape(-1)])[None]
+    for dim in reversed(dims):          # innermost first: outer-major order
+        flat = gather(flat, 0, (mesh, dim))
+    W, k = flat.shape[0], B * H * n
+    m, l, acc = flat[:, :k], flat[:, k:2 * k], flat[:, 2 * k:]
+    return (m.reshape(W, B, H, n).permute(1, 2, 0, 3).reshape(B, H, W * n)
+            .contiguous(),
+            l.reshape(W, B, H, n).permute(1, 2, 0, 3).reshape(B, H, W * n)
+            .contiguous(),
+            acc.reshape(W, B, H, n, d).permute(1, 2, 0, 3, 4)
+            .reshape(B, H, W * n, d).contiguous())
+
+
+def seq_slice_partials(q, k, v, k_cache, v_cache, length, index: int):
+    """One rank's part of a sequence-parallel decode: its caches (B,
+    S_local, Hkv, d) hold positions ``index * S_local`` on.  The new
+    token's k, v are written row by row where ``length`` falls in the
+    slice, and kernel 2's partial pass runs over the slice's
+    ``clamp(length + 1 - offset, 0, S_local)`` valid positions (an empty
+    slice gives exactly ``(NEG_INF, 0, 0)``, which folds to zero).
+    Returns the slice's ``(m, l, acc)``, counted under
+    :data:`SEQ_DECODE_PATH`."""
+    from repro_torch.kernels import flash_attention as kfa
+
+    S_local = k_cache.shape[1]
+    offset = index * S_local
+    cache_update(k_cache, k.to(k_cache.dtype), length, offset)
+    cache_update(v_cache, v.to(v_cache.dtype), length, offset)
+    lens = (length + 1 - offset).clamp(0, S_local)
+    return kfa.flash_partial(q, k_cache, v_cache, lens,
+                             path=SEQ_DECODE_PATH)
+
+
+def seq_combine(parts, dtype: torch.dtype) -> torch.Tensor:
+    """Every slice's partials, in slice order along the split axis (m, l
+    (B, H, W n), acc (B, H, W n, d)), folded by kernel 2's combine pass
+    into the (B, H, d) output in ``dtype``, counted under
+    :data:`SEQ_DECODE_PATH`."""
+    from repro_torch.kernels import flash_attention as kfa
+    return kfa.flash_combine(parts, normalise=True, out_dtype=dtype,
+                             path=SEQ_DECODE_PATH)
+
+
+def _seq_decode_core(mesh, dims, q, k, v, k_cache, v_cache, length):
+    index = 0
+    for dim in dims:
+        index = index * mesh.size(dim) + mesh.get_local_rank(dim)
+    parts = seq_slice_partials(q, k, v, k_cache, v_cache, length, index)
+    return seq_combine(_seq_gather(parts, mesh, dims), q.dtype)
+
+
 def local_decode(q, k, v, k_cache, v_cache, length):
     """Writes the new token's k, v (B, Hkv, d) into the caches (B, Smax,
     Hkv, d) at ``length`` and runs kernel 2 for q (B, H, d).  On DTensor
-    caches both run on each rank's shard of the caches as they are placed
-    (batch rows and KV heads sharded, or replicated); q, k, v and
+    caches both run on each rank's shard of the caches as they are placed:
+    batch rows and KV heads sharded or replicated, each rank on its own;
+    the sequence sharded, sequence-parallel (:func:`seq_slice_partials`
+    on each rank's slice, the partials gathered over the mesh dims that
+    shard it, :func:`seq_combine`).  q, k, v and
     ``length`` are redistributed to match."""
     if not is_dtensor(k_cache):
         return _decode_core(q, k, v, k_cache, v_cache, length)
+    import functools
+
     from torch.distributed.tensor import Replicate, Shard
     from torch.distributed.tensor.experimental import local_map
 
-    cp = k_cache.placements
-    if tuple(v_cache.placements) != tuple(cp) or any(
-            isinstance(pl, Shard) and pl.dim not in (0, 2) for pl in cp):
+    cp = tuple(k_cache.placements)
+    if tuple(v_cache.placements) != cp or any(
+            not isinstance(pl, (Shard, Replicate))
+            or isinstance(pl, Shard) and pl.dim not in (0, 1, 2)
+            for pl in cp):
         raise NotImplementedError(
-            f"decode on caches placed {cp}: only batch rows and KV heads "
-            "may be sharded")
-    head = tuple(Shard(1) if isinstance(pl, Shard) and pl.dim == 2 else pl
+            f"decode on caches placed {cp}: only batch rows, the sequence "
+            "and KV heads may be sharded")
+    shard = lambda pl, dim: isinstance(pl, Shard) and pl.dim == dim  # noqa
+    head = tuple(Shard(1) if shard(pl, 2) else
+                 pl if shard(pl, 0) else Replicate()
                  for pl in cp)                       # (B, H, d) placements
-    rows = tuple(pl if isinstance(pl, Shard) and pl.dim == 0 else Replicate()
+    rows = tuple(pl if shard(pl, 0) else Replicate()
                  for pl in cp)                       # (B,) placements
-    return local_map(_decode_core, out_placements=(head,),
+    seq = tuple(i for i, pl in enumerate(cp) if shard(pl, 1))
+    core = functools.partial(_seq_decode_core, k_cache.device_mesh, seq) \
+        if seq else _decode_core
+    return local_map(core, out_placements=(head,),
                      in_placements=(head, head, head, cp, cp, rows),
                      redistribute_inputs=True)(q, k, v, k_cache, v_cache,
                                                length)
@@ -304,18 +395,26 @@ def embedding_init(generator: torch.Generator, vocab: int, d_model: int,
 
 
 def cache_update(cache: torch.Tensor, new: torch.Tensor,
-                 length: torch.Tensor) -> torch.Tensor:
+                 length: torch.Tensor, offset: int = 0) -> torch.Tensor:
     """Write ``new`` (B, Hkv, d) into ``cache`` (B, Smax, Hkv, d) at per-row
-    position ``length`` (B,), in place; returns ``cache``.
+    position ``length`` (B,), in place; returns ``cache``.  With
+    ``offset``, ``cache`` holds positions ``offset`` to ``offset + Smax -
+    1`` (one slice of a sequence-sharded cache) and a row is written at
+    ``length - offset``.
 
     The reference's one-hot select gives the same values for a finite
-    cache, and writes nothing to a row whose ``length`` is at or past Smax:
-    here such a row gets its own last entry back, so no index leaves the
-    cache and ``length`` never leaves the device.
+    cache, and writes nothing to a row whose position lies outside the
+    cache: here such a row gets an entry of its own back, so no index
+    leaves the cache and ``length`` never leaves the device.
     """
     B, S = cache.shape[:2]
     rows = torch.arange(B, device=cache.device)
-    at = length.long().clamp(max=S - 1)
-    keep = (length < S).reshape(B, 1, 1)
+    if offset == 0:         # the plain decode step's: three ops, not six
+        at = length.long().clamp(max=S - 1)
+        keep = (length < S).reshape(B, 1, 1)
+    else:
+        at = length.long() - offset
+        keep = ((at >= 0) & (at < S)).reshape(B, 1, 1)
+        at = at.clamp(0, S - 1)
     cache[rows, at] = torch.where(keep, new.to(cache.dtype), cache[rows, at])
     return cache

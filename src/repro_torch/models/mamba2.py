@@ -30,8 +30,9 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models.base import ZooModel, remat
-from repro_torch.models.spmd import (batch_local, is_dtensor, keep_shards,
-                                     on_shards, split_heads, write_)
+from repro_torch.models.spmd import (batch_local, grad_placed_as_value,
+                                     is_dtensor, keep_shards, on_shards,
+                                     split_heads, write_)
 
 Params = Dict[str, torch.Tensor]
 Cache = Dict[str, torch.Tensor]
@@ -160,7 +161,8 @@ def mamba_axes(cfg: ArchConfig) -> Dict[str, tuple]:
 
 def _mamba_project(p: Params, x, cfg: ArchConfig):
     di, H, P, N = mamba_dims(cfg)
-    z, xbc, dt = torch.split(x @ p["in_proj"], [di, di + 2 * N, H], dim=-1)
+    z, xbc, dt = torch.split(grad_placed_as_value(x @ p["in_proj"]),
+                             [di, di + 2 * N, H], dim=-1)
     return z, xbc, dt
 
 
@@ -318,10 +320,12 @@ class Mamba2Model(ZooModel):
             top = self._top()
             x = self._embed(top, inputs)
             B, S = x.shape[:2]
-            cache = self.init_cache(B, S)
+            cache = self._prefill_cache(B, S)
             for i, lp in enumerate(self.layers):
-                x, cache["h"][i], cache["conv"][i] = mamba_layer_apply(
+                x, h, conv = mamba_layer_apply(
                     self._gather(lp, self.layer_axes()), x, self.cfg)
+                write_(cache["h"][i], h)
+                write_(cache["conv"][i], conv)
             cache["len"].fill_(S)
             return self._head(top, x[:, -1]), cache
 

@@ -35,8 +35,9 @@ import torch.nn.functional as F
 from repro_torch.configs.base import ArchConfig
 from repro_torch.models import layers as L
 from repro_torch.models.base import ZooModel, remat as remat_call
-from repro_torch.models.spmd import (batch_local, is_dtensor, keep_shards,
-                                     on_shards, split_heads, write_)
+from repro_torch.models.spmd import (batch_local, batch_sharded, is_dtensor,
+                                     keep_shards, on_shards, split_heads,
+                                     write_)
 
 Params = Dict[str, torch.Tensor]
 Cache = Dict[str, torch.Tensor]
@@ -266,10 +267,15 @@ class RWKV6Model(ZooModel):
         y, lt, M = timemix_apply(
             lp["time"], L.rms_norm(x, lp["ln1"], cfg.norm_eps), cfg,
             zeros_last, unroll=not cfg.scan_layers)
-        x = x + y
+        # each block's output is reduced to batch-sharded rows before the
+        # residual add: left to DTensor, the residual stream goes sharded
+        # over the model axis and the next block's products scatter it over
+        # the sequence, which their flattened operands cannot take on fake
+        # tensors
+        x = x + batch_sharded(y)
         y, lc = chanmix_apply(
             lp["chan"], L.rms_norm(x, lp["ln2"], cfg.norm_eps), zeros_last)
-        return x + y, (M, lt, lc)
+        return x + batch_sharded(y), (M, lt, lc)
 
     def _layer_out(self, lp, x):
         return self._layer_apply(lp, x)[0]
@@ -307,10 +313,11 @@ class RWKV6Model(ZooModel):
             top = self._top()
             x = self._embed(top, inputs)
             B, S = x.shape[:2]
-            cache = self.init_cache(B, S)
+            cache = self._prefill_cache(B, S)
             for i, lp in enumerate(self.layers):
-                x, (cache["M"][i], cache["last_t"][i],
-                    cache["last_c"][i]) = self._layer_apply(lp, x)
+                x, states = self._layer_apply(lp, x)
+                for key, st in zip(("M", "last_t", "last_c"), states):
+                    write_(cache[key][i], st)
             cache["len"].fill_(S)
             return self._head(top, x[:, -1]), cache
 

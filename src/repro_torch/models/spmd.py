@@ -73,14 +73,70 @@ def keep_shards(placements, dims) -> tuple:
                  else Replicate() for pl in placements)
 
 
+class _ContiguousGrad(torch.autograd.Function):
+    """Identity forward; the backward hands on a contiguous gradient."""
+
+    @staticmethod
+    def forward(ctx, x):
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        return g.contiguous()
+
+
+class _GradPlacedAsValue(torch.autograd.Function):
+    """Identity forward; the backward places a DTensor gradient as the
+    value was placed (partial sums as replicated)."""
+
+    @staticmethod
+    def forward(ctx, x):
+        from torch.distributed.tensor import Replicate
+        ctx.placements = tuple(Replicate() if p.is_partial() else p
+                               for p in x.placements)
+        return x.view_as(x)
+
+    @staticmethod
+    def backward(ctx, g):
+        if is_dtensor(g) and tuple(g.placements) != ctx.placements:
+            g = g.redistribute(g.device_mesh, ctx.placements)
+        return g
+
+
+def grad_placed_as_value(x: torch.Tensor) -> torch.Tensor:
+    """``x``, whose gradient arrives placed as ``x`` is, where DTensor's
+    own choice on a (pod, data, model) mesh goes wrong: a split's input
+    gradient sharded over the sequence (the weight gradient's product
+    then takes a strided sharding of the flattened (B * S) dim that
+    DTensor cannot place on fake tensors), a loss's gradient sharded
+    over "pod" alone (replicated over the data axis), or the partial sums
+    of a vocab-sharded embedding's gradient (the backward of the
+    redistribution from its masked partials cannot take a partial
+    gradient: DTensor's rule)."""
+    return _GradPlacedAsValue.apply(x) \
+        if is_dtensor(x) and x.requires_grad else x
+
+
 def on_shards(fn, in_placements, out_placements, in_grad_placements=None):
     """``fn`` run on each rank's shards (``local_map``): its DTensor
     arguments are redistributed to ``in_placements`` (``None`` for a
     non-tensor), its outputs come back as DTensors placed by
     ``out_placements`` (one per output); ``in_grad_placements`` places the
-    arguments' gradients (default: as the arguments)."""
+    arguments' gradients (default: as the arguments).
+
+    The gradients ``fn``'s backward gives its local arguments are made
+    contiguous before they become DTensors again: DTensor takes a shard's
+    strides to follow its global, contiguous layout, and decides a later
+    ``reshape`` (a view) by those; an einsum's gradient may come out
+    transposed (a rank's one head of q: (B, S, d) with S innermost), which
+    no view can flatten."""
     from torch.distributed.tensor.experimental import local_map
-    return local_map(fn, out_placements=out_placements,
+
+    def local(*args):
+        return fn(*(_ContiguousGrad.apply(a)
+                    if isinstance(a, torch.Tensor) and a.requires_grad
+                    else a for a in args))
+    return local_map(local, out_placements=out_placements,
                      in_placements=in_placements,
                      in_grad_placements=in_grad_placements,
                      redistribute_inputs=True)
@@ -129,6 +185,21 @@ def write_(dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
     if is_dtensor(dst) and is_dtensor(src):
         src = src.redistribute(dst.device_mesh, dst.placements)
     return dst.copy_(src)
+
+
+def write_prefix_(dst: torch.Tensor, src: torch.Tensor) -> torch.Tensor:
+    """``dst[:, :S] = src`` for a fresh (zero) cache ``dst`` (B, Smax,
+    ...) and ``src`` (B, S, ...).  A DTensor ``dst`` may be sharded along
+    its sequence, which no slice of it can take: ``src`` is zero-padded to
+    Smax and written whole (:func:`write_`)."""
+    if not is_dtensor(dst):
+        dst[:, :src.shape[1]] = src
+        return dst
+    pad = dst.shape[1] - src.shape[1]
+    if pad:
+        src = torch.nn.functional.pad(
+            src, (0, 0) * (src.dim() - 2) + (0, pad))
+    return write_(dst, src)
 
 
 def _axes_product(mesh, entry) -> int:

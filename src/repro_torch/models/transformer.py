@@ -42,6 +42,7 @@ import torch
 from repro_torch.models import layers as L
 from repro_torch.models import moe as M
 from repro_torch.models.base import ZooModel, remat
+from repro_torch.models.spmd import write_prefix_
 
 Cache = Dict[str, torch.Tensor]
 
@@ -162,11 +163,11 @@ class TransformerModel(ZooModel):
             x = self._embed(top, inputs)
             B, S = x.shape[:2]
             positions = torch.arange(S, device=self.device).expand(B, S)
-            cache = self.init_cache(B, max(max_len or S, S))
+            cache = self._prefill_cache(B, max(max_len or S, S))
             for i, lp in enumerate(self.layers):
                 x, (k, v) = self._layer_apply(lp, x, positions)
-                cache["k"][i, :, :S] = k
-                cache["v"][i, :, :S] = v
+                write_prefix_(cache["k"][i], k)
+                write_prefix_(cache["v"][i], v)
             cache["len"].fill_(S)
             return self._head(top, x[:, -1]), cache
 

@@ -32,6 +32,7 @@ from repro_torch.models import layers as L
 from repro_torch.models import mamba2 as MB
 from repro_torch.models.base import (ZooModel, param_dict, remat,
                                     stack_axes)
+from repro_torch.models.spmd import write_, write_prefix_
 
 Cache = Dict[str, torch.Tensor]
 
@@ -167,8 +168,9 @@ class Zamba2Model(ZooModel):
                 if cache is None:
                     x = remat(cfg.remat, self._layer_out, i, x)
                     continue
-                x, cache["h"][i], cache["conv"][i] = MB.mamba_layer_apply(
-                    self._layer(i), x, cfg)
+                x, h, conv = MB.mamba_layer_apply(self._layer(i), x, cfg)
+                write_(cache["h"][i], h)
+                write_(cache["conv"][i], conv)
             if site is None:
                 break
             if cache is None:
@@ -176,8 +178,8 @@ class Zamba2Model(ZooModel):
                 continue
             sp = self._site_params(site)
             x, (k, v) = self._shared_apply(sp, x, positions)
-            cache["k"][site, :, :S] = k
-            cache["v"][site, :, :S] = v
+            write_prefix_(cache["k"][site], k)
+            write_prefix_(cache["v"][site], v)
         return x
 
     # --------------------------------------------------------------- forward
@@ -206,7 +208,7 @@ class Zamba2Model(ZooModel):
             top = self._top()
             x = self._embed(top, inputs)
             B, S = x.shape[:2]
-            cache = self.init_cache(B, max(max_len or S, S))
+            cache = self._prefill_cache(B, max(max_len or S, S))
             x = self._run(x, cache)
             cache["len"].fill_(S)
             return self._head(top, x[:, -1]), cache

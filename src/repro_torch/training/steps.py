@@ -26,7 +26,7 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
     """Mean token cross-entropy, float32 logsumexp.  The label's logit is
     picked by index: the reference contracts a one-hot instead (for its
     vocab-sharded logits), which gives the same value."""
-    from repro_torch.models.spmd import is_dtensor
+    from repro_torch.models.spmd import grad_placed_as_value, is_dtensor
     logits = logits.float()
     lse = torch.logsumexp(logits, dim=-1)
     if is_dtensor(logits):
@@ -36,8 +36,12 @@ def cross_entropy(logits: torch.Tensor, labels: torch.Tensor) -> torch.Tensor:
         hit = torch.arange(logits.shape[-1], device=logits.device) \
             == labels.long().unsqueeze(-1)
         ll = torch.where(hit, logits, 0.0).sum(-1)
-    else:
-        ll = logits.gather(-1, labels.long().unsqueeze(-1)).squeeze(-1)
+        # the mean's gradient placed as the (B, S) losses are: left to
+        # DTensor on a (pod, data, model) mesh, it comes back sharded over
+        # "pod" only, and the masked sum's backward then holds a (B / 2,
+        # S, V) float32 gradient on every rank
+        return grad_placed_as_value(lse - ll).mean()
+    ll = logits.gather(-1, labels.long().unsqueeze(-1)).squeeze(-1)
     return (lse - ll).mean()
 
 
@@ -165,9 +169,20 @@ def build_forward_step(model) -> Callable:
     return build_loss_fn(model)
 
 
-def build_prefill_step(model, max_len: Optional[int] = None) -> Callable:
+def build_prefill_step(model, max_len: Optional[int] = None,
+                       cache_shardings: Optional[Dict] = None) -> Callable:
+    """``prefill_step(inputs) -> (logits, cache)``.  With
+    ``cache_shardings`` (the cache's placements on the model's mesh, e.g.
+    ``tree_shardings`` of ``cache_logical_axes``, as the reference's
+    ``out_shardings``) the cache comes out placed so: batch rows, KV heads
+    or, where the KV heads do not divide the model axis, the sequence."""
     def prefill_step(inputs):
-        return model.prefill(inputs, max_len=max_len)
+        logits, cache = model.prefill(inputs, max_len=max_len)
+        if cache_shardings is not None:
+            from repro_torch.distributed.sharding import distribute
+            cache = {k: distribute(v, model.mesh, cache_shardings[k])
+                     for k, v in cache.items()}
+        return logits, cache
     return prefill_step
 
 

@@ -204,6 +204,54 @@ def sharded_steps_rank(rank, world, archs, mesh_shape, device="cpu"):
     return out
 
 
+def seq_decode_rank(rank, world, cases, mesh_shape, max_len):
+    """Decode on a sequence-sharded cache: for each ``(arch, params,
+    prompt, tokens)`` (the smoke config, whose 2 KV heads do not divide a
+    model axis of 4, so the rules shard the caches' ``cache_seq`` over it),
+    the model on ``params`` (the reference's tree) is sharded on a (data,
+    model) mesh, ``build_prefill_step`` with ``cache_shardings`` fills
+    and places the cache, and one decode step runs per token.  Returns,
+    per arch, the caches' placements, the prefill's logits and cache and
+    each step's logits and cache, gathered, and the sequence-parallel
+    kernel-2 passes' counts (0 on the CPU: the plain versions run)."""
+    from repro_torch.configs import get_arch
+    from repro_torch.distributed import (batch_spec, distribute,
+                                         make_weight_gather, placements,
+                                         tree_shardings)
+    from repro_torch.kernels import flash_attention as kfa
+    from repro_torch.launch.mesh import make_mesh
+    from repro_torch.models import get_model
+    from repro_torch.models.convert import load_reference_params
+    from repro_torch.training import steps as tsteps
+
+    mesh = make_mesh(mesh_shape, ("data", "model"))
+    full = lambda c: {k: _full(v).numpy() for k, v in c.items()}  # noqa
+    out = {}
+    for arch, params, prompt, tokens in cases:
+        cfg = get_arch(arch).smoke()
+        model = get_model(cfg, device="cpu",
+                          weight_gather=make_weight_gather(mesh))
+        load_reference_params(model, params).shard(mesh)
+        specs = model.cache_specs(prompt.shape[0], max_len)
+        shardings = tree_shardings(model.cache_logical_axes(), specs, mesh)
+        put = lambda x: distribute(torch.from_numpy(x), mesh,  # noqa: E731
+                                   placements(batch_spec(mesh, x.ndim), mesh))
+        with torch.no_grad():
+            logits, cache = tsteps.build_prefill_step(
+                model, max_len, cache_shardings=shardings)(put(prompt))
+            res = {"placed": {k: str(v.placements) for k, v in cache.items()},
+                   "steps": [(_full(logits).numpy(), full(cache))]}
+            step = tsteps.build_decode_step(model)
+            for tok in tokens:
+                logits, cache = step(cache, put(tok))
+                res["steps"].append((_full(logits).numpy(), full(cache)))
+        res["launches"] = {
+            p.__name__: p.launches_by_path.get("seq_decode", 0)
+            for p in (kfa.flash_partial, kfa.flash_combine)}
+        out[arch] = res
+    return out
+
+
 def elastic_rank(rank, world, shape, mode, ckpt):
     """The reference's elastic script (``tests/test_elastic.py``) in the
     port: stablelm smoke (4 heads, 4 KV heads) on a ``shape`` (data,

@@ -1296,3 +1296,118 @@ def test_sharded_smoke_steps_on_one_rank_match_plain(card):
         assert abs(l0 - l1) <= 1e-5 * max(1.0, abs(l0)), (arch, r)
         for k in ("param_err", "opt_err", "decode_err", "cache_err"):
             assert r[k] <= 1e-5, (arch, k, r[k])
+
+
+@pytest.mark.parametrize("slices", [2, 4, 8])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sequence_split_kernel_2_matches_unsplit(card, dtype, slices):
+    """Sequence-parallel decode's kernel-2 path on the card: a decode cache
+    (B 4, 544 positions, rows at 528, 0 and 543) cut into slices, each
+    slice's write and partial pass (``layers.seq_slice_partials``), the
+    combine pass over their partials in slice order
+    (``layers.seq_combine``), against the same write and the unsplit
+    kernel 2: 1e-5 in f32, 2^-7 relative (two roundings of the output)
+    and 1e-4 absolute in bf16; each pass counted under the path
+    ``seq_decode``, once a slice and once."""
+    from repro_torch.models.layers import (SEQ_DECODE_PATH, cache_update,
+                                           seq_combine, seq_slice_partials)
+
+    rng = np.random.default_rng(7)
+    B, S, hkv, G, d = 4, 544, 8, 3, 128
+    t = lambda *s: torch.from_numpy(                         # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(card, dtype)
+    q, kn, vn = t(B, hkv * G, d), t(B, hkv, d), t(B, hkv, d)
+    k0, v0 = t(B, S, hkv, d), t(B, S, hkv, d)
+    length = torch.tensor([528, 0, 543, 300], dtype=torch.int32, device=card)
+    k_all, v_all = k0.clone(), v0.clone()
+    cache_update(k_all, kn, length)
+    cache_update(v_all, vn, length)
+    want = kfa.flash_decode_attention(q, k_all, v_all, length + 1)
+    before = [w.launches_by_path.get(SEQ_DECODE_PATH, 0)
+              for w in (kfa.flash_partial, kfa.flash_combine)]
+    n = S // slices
+    ks, vs = k0.clone(), v0.clone()
+    parts = [seq_slice_partials(q, kn, vn, ks[:, r * n:(r + 1) * n],
+                                vs[:, r * n:(r + 1) * n], length, r)
+             for r in range(slices)]
+    out = seq_combine((torch.cat([p[0] for p in parts], -1),
+                       torch.cat([p[1] for p in parts], -1),
+                       torch.cat([p[2] for p in parts], -2)), q.dtype)
+    torch.cuda.synchronize()
+    after = [w.launches_by_path.get(SEQ_DECODE_PATH, 0)
+             for w in (kfa.flash_partial, kfa.flash_combine)]
+    assert [a - b for a, b in zip(after, before)] == [slices, 1]
+    assert torch.equal(ks, k_all) and torch.equal(vs, v_all)
+    atol, rtol = (1e-5, 1e-5) if dtype == torch.float32 else (1e-4, 2**-7)
+    torch.testing.assert_close(out, want, rtol=rtol, atol=atol)
+    # row 1 (length 0) sees only slice 0: every later slice is exactly empty
+    m, l, acc = (torch.stack(x) for x in zip(*parts))
+    assert bool((m[1:, 1] == np.float32(kfa.NEG_INF)).all())
+    assert not bool(l[1:, 1].any()) and not bool(acc[1:, 1].any())
+
+
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_sequence_sharded_local_decode_on_one_rank_nccl(card, dtype):
+    """``layers.local_decode`` on caches placed (Shard(0), Shard(1)) on a
+    one-rank NCCL (data, model) mesh takes the sequence-parallel branch:
+    one partial and one combine pass under ``seq_decode`` (the partials
+    all-gathered over NCCL between them), the output and the caches
+    against the same write and the unsplit kernel 2, at the tolerances of
+    ``test_sequence_split_kernel_2_matches_unsplit``."""
+    from torch.distributed.tensor import DTensor, Replicate, Shard
+
+    from repro_torch.launch.mesh import init_distributed, make_mesh, shutdown
+    from repro_torch.models.layers import (SEQ_DECODE_PATH, cache_update,
+                                           local_decode)
+
+    rng = np.random.default_rng(11)
+    B, S, hkv, G, d = 4, 544, 8, 3, 128
+    t = lambda *s: torch.from_numpy(                         # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(card, dtype)
+    q, kn, vn = t(B, hkv * G, d), t(B, hkv, d), t(B, hkv, d)
+    k0, v0 = t(B, S, hkv, d), t(B, S, hkv, d)
+    length = torch.tensor([528, 0, 543, 300], dtype=torch.int32, device=card)
+    k_all, v_all = k0.clone(), v0.clone()
+    cache_update(k_all, kn, length)
+    cache_update(v_all, vn, length)
+    want = kfa.flash_decode_attention(q, k_all, v_all, length + 1)
+    init_distributed("cuda")
+    try:
+        mesh = make_mesh((1, 1), ("data", "model"))
+        rep = (Replicate(), Replicate())
+        kc, vc = (DTensor.from_local(x, mesh, (Shard(0), Shard(1)))
+                  for x in (k0, v0))
+        before = [w.launches_by_path.get(SEQ_DECODE_PATH, 0)
+                  for w in (kfa.flash_partial, kfa.flash_combine)]
+        out = local_decode(*(DTensor.from_local(x, mesh, rep)
+                             for x in (q, kn, vn)), kc, vc,
+                           DTensor.from_local(length, mesh, rep))
+        torch.cuda.synchronize()
+        after = [w.launches_by_path.get(SEQ_DECODE_PATH, 0)
+                 for w in (kfa.flash_partial, kfa.flash_combine)]
+        assert tuple(out.placements) == (Shard(0), Replicate())
+        out = out.to_local()
+    finally:
+        shutdown()
+    assert [a - b for a, b in zip(after, before)] == [1, 1]
+    assert torch.equal(k0, k_all) and torch.equal(v0, v_all)
+    atol, rtol = (1e-5, 1e-5) if dtype == torch.float32 else (1e-4, 2**-7)
+    torch.testing.assert_close(out, want, rtol=rtol, atol=atol)
+
+
+def test_dry_run_traces_kernel_2_on_fake_card_tensors(card):
+    """On fake ``cuda`` tensors (``FakeTensorMode``) kernel 2's wrappers
+    run the fake operators: nothing launches, the flop formulas count."""
+    from torch._subclasses.fake_tensor import FakeTensorMode
+    from torch.utils.flop_counter import FlopCounterMode
+
+    before = (kfa.flash_partial.launches, kfa.flash_combine.launches)
+    with FakeTensorMode():
+        q = torch.empty(4, 24, 128, device=card)
+        k = torch.empty(4, 544, 8, 128, device=card, dtype=torch.bfloat16)
+        lens = torch.empty(4, dtype=torch.int32, device=card)
+        with FlopCounterMode(display=False) as fc:
+            kfa.flash_decode_attention(q, k, k, lens)
+    assert fc.get_total_flops() == 4 * 4 * 24 * 544 * 128 \
+        + 2 * 4 * 24 * 2 * 128
+    assert (kfa.flash_partial.launches, kfa.flash_combine.launches) == before

@@ -53,7 +53,9 @@ assert {"repro_torch.configs", "repro_torch.configs.base",
         "repro_torch.checkpoint.manager", "repro_torch.launch.train",
         "repro_torch.examples.train_lm", "repro_torch.distributed",
         "repro_torch.distributed.sharding", "repro_torch.launch.mesh",
-        "repro_torch.models.spmd"} <= set(sys.modules)
+        "repro_torch.models.spmd", "repro_torch.launch.dryrun",
+        "repro_torch.distributed.cost_analysis",
+        "repro_torch.scripts.make_tables"} <= set(sys.modules)
 """
     res = subprocess.run([sys.executable, "-c", code], capture_output=True,
                          text=True, cwd=ROOT,
@@ -61,6 +63,28 @@ assert {"repro_torch.configs", "repro_torch.configs.base",
                          timeout=120)
     assert res.returncode == 0, res.stderr
     assert int(res.stdout.split()[-1]) >= 15
+
+
+def test_dry_run_touches_no_group_or_environment_at_import():
+    """Importing the dry-run and its cost analysis sets no environment
+    variable (the reference's first line sets ``XLA_FLAGS``) and brings up
+    no process group: ``run_cell`` makes its fake one itself."""
+    code = """
+import os
+before = dict(os.environ)
+import torch.distributed as dist
+import repro_torch.launch.dryrun, repro_torch.distributed.cost_analysis
+import repro_torch.scripts.make_tables
+assert dict(os.environ) == before
+assert not dist.is_initialized()
+print("CLEAN")
+"""
+    res = subprocess.run([sys.executable, "-c", code], capture_output=True,
+                         text=True, cwd=ROOT,
+                         env={**os.environ, "PYTHONPATH": str(ROOT / "src")},
+                         timeout=120)
+    assert res.returncode == 0 and res.stdout.split()[-1] == "CLEAN", \
+        res.stderr
 
 
 @pytest.mark.parametrize("path", PORT_FILES,
