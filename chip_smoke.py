@@ -256,7 +256,36 @@ printing any result.  Phases (each raises on failure; none is skipped):
      within 1e-5 in f32 and 2^-7 |want| + 1e-4 in bf16 (two roundings of
      the output at most); the fold of 2-8 slices, which phase 16 (f)'s one
      rank does not reach (its launches are kept in the part's row; the
-     kernels line counts (f)'s).
+     kernels line counts (f)'s);
+ 18. the paper's claims C2, C3 and C5 and its reuse claim (``[claims]``
+     lines; after phase 17, on phase 11's calibrated profile; each wall
+     the median of 3 timed calls after a warm one (the vendor side of
+     (b): its first 3), every result bit for bit one in-core launch of
+     kernel 1 on the same operands, which is held to a float32
+     ``torch.addmm`` on the card within two float32 summation bounds
+     (+ 2^-8 |ref| in bf16) at every size and dtype, every byte
+     count ``schedule_stats``', kernel 1's launches one per ``dgemm`` op,
+     peak device memory within the executor's working set or parity
+     buffers; beside each wall TFLOP/s, host staging fill and wait, the
+     device idle share and kernel 1's device seconds from the spans):
+     (a) C2, ``ooc_gemm`` at K = 8192 under 768 MiB f32, M = N from 8192
+     (in core: one launch, serial copies) to 12288, 16384 and 24576
+     (out of core, 2 streams, 2 buffers) in ``concurrent`` and
+     ``issue_order`` mode, then in bf16 under 384 MiB (the same plans):
+     (first out-of-core - last in-core TFLOP/s) / last in-core; (b) C3 at
+     M = N = 16384: ``ooc_gemm``'s plan (4 x 2) against
+     ``build_vendor_schedule(tile=512)`` (one stream, one buffer, B
+     re-sent for every C tile: 1024 launches) on ``HostOocRuntime``, f32
+     in both modes and bf16 in ``concurrent``: vendor / library walls and
+     kernel-1 device seconds, and the host time of kernel 1's wrapper a
+     launch; (c) C5, (b)'s f32 call at (nstreams, nbuf) (1,1), (1,2),
+     (2,2), (2,4) in ``concurrent`` mode beside the simulator's makespan
+     on the calibrated profile, the claim judged at equal buffers, (1,2)
+     against (2,2), then ``tune="auto"``'s pick (max_steps 256), run;
+     (d) the reuse claim: a scaled block copy written as a
+     ``PipelineSpec`` and one handler, 16384 x 8192 f32 under 256 MiB in
+     both modes, exactly 3 X.  A claim the card does not bear out is
+     printed as missed, not raised.
 
 With ``--baseline DIR`` (another checkout, e.g. ``git archive`` of the
 parent commit unpacked into a directory ``.gitignore`` lists), phase 5 is
@@ -592,11 +621,16 @@ def zero_counts(*wrappers):
         w.launches, w.launches_by_dtype = 0, {}
 
 
-def read_counts(wrapper, report, key):
+def read_counts(wrapper, report, key, add=False):
     """Keeps the launches of ``wrapper`` on one path (total and by dtype)
-    under ``key`` and returns the total."""
-    report["launches"][key] = wrapper.launches
-    report["launches_by_dtype"][key] = dict(wrapper.launches_by_dtype)
+    under ``key``, or with ``add`` adds them to what ``key`` holds, and
+    returns the wrapper's total."""
+    if not add or key not in report["launches"]:
+        report["launches"][key], report["launches_by_dtype"][key] = 0, {}
+    report["launches"][key] += wrapper.launches
+    by = report["launches_by_dtype"][key]
+    for dt, n in wrapper.launches_by_dtype.items():
+        by[dt] = by.get(dt, 0) + n
     return wrapper.launches
 
 
@@ -3382,6 +3416,10 @@ SERVE_PATHS = ("serve_llama3.2-3b_f32",) + tuple(
 DECODE_TOL = 2e-3          # tests/test_models.py's decode vs forward
 PROFILE_STEPS = 8          # decode steps under torch.profiler
 
+# phase 18's paths that launch kernel 1 (the in-core references of its
+# results, then (a), (b) on each side, (c))
+CLAIMS_K1 = ("claims_in_core", "claims_c2", "claims_c3_library",
+             "claims_c3_vendor", "claims_c5")
 # the paths that launch kernel 1, each driven with its counts set to 0
 BLOCK_MATMUL_PATHS = ("host", "in_core", "vmem", "syrk_host", "direct_host",
                       "host_bf16", "in_core_bf16", "cholesky", "lu",
@@ -3393,7 +3431,7 @@ BLOCK_MATMUL_PATHS = ("host", "in_core", "vmem", "syrk_host", "direct_host",
                       "hybrid_gemm_lost_phi0", "hybrid_syrk",
                       "hybrid_cholesky") + ANALYZE_K1 + (
                           "mesh", "mesh_direct", "mesh_bfloat16",
-                          "mesh_direct_bfloat16")
+                          "mesh_direct_bfloat16") + CLAIMS_K1
 # the paths that launch kernel 2
 ATTENTION_PATHS = ("attention", "attention_f32", "tune_attention",
                    "hybrid_attention") + ANALYZE_K2 + SERVE_PATHS + (
@@ -5227,6 +5265,548 @@ def phase_dryrun(report, card, gen):
                   f"{json.dumps(took)})")
 
 
+# ---------------------------------------------------------------------------
+# Phase 18: the paper's claims C2, C3 and C5, and its reuse claim, on the
+# card ([claims] lines)
+# ---------------------------------------------------------------------------
+CLAIMS_K = 8192
+CLAIMS_SIZES = (8192, 12288, 16384, 24576)     # M = N; 8192 is in core
+# 3 x 8192^2 elements of the dtype: the 8192 problem just fits, 12288 not
+CLAIMS_BUDGET = {torch.float32: 768 * 2**20, torch.bfloat16: 384 * 2**20}
+CLAIMS_C3 = 16384          # M = N of (b) and (c)
+CLAIMS_TILE = 512          # the vendor schedule's C tile
+CLAIMS_C5 = ((1, 1), (1, 2), (2, 2), (2, 4))   # (nstreams, nbuf)
+CLAIMS_REPS = 3            # timed calls after one warm call; medians kept
+# (b)'s executor modes by dtype; bf16 in one mode, so the phase stays short
+CLAIMS_C3_MODES = {torch.float32: ("concurrent", "issue_order"),
+                   torch.bfloat16: ("concurrent",)}
+CLAIMS_AB = (1.5, 0.5)     # alpha, beta
+CLAIMS_COPY = (16384, 8192, 2048, 256 * 2**20)  # (d): rows, cols, bm, budget
+CLAIMS_SLACK = 64 * 2**20  # allocator rounding, as phase 3
+CLAIMS_SEARCH = 256        # the tuner's max_steps (the hybrid tests' knob)
+
+
+def span_stats(sched, spans, wall):
+    """(device idle share of ``wall``, kernel-1 device seconds) from an
+    executor's recorded spans (every compute op of a GEMM schedule is one
+    kernel-1 launch)."""
+    from repro_torch.core import OpKind
+
+    k1 = sum(s[3] - s[2] for op, s in zip(sched.ops, spans)
+             if op.kind == OpKind.COMPUTE)
+    return member_busy(spans, wall)[1], k1
+
+
+def claims_calls(tag, fn, want, launches, limit, ex=None, sched=None,
+                 warm=True):
+    """One warm call of ``fn`` (none without ``warm``) and
+    ``CLAIMS_REPS`` timed ones.  Every call's result must equal ``want``
+    bit for bit, launch kernel 1
+    ``launches`` times, keep peak device memory within ``limit`` and, on
+    an executor ``ex`` running ``sched``, move ``schedule_stats``' bytes.
+    Returns the medians of the timed calls: the call's wall (host clock
+    around it), and on an executor its wall, host staging fill and wait,
+    the device idle share and kernel 1's device seconds from the spans."""
+    from repro_torch.core import schedule_stats
+    from repro_torch.kernels.block_matmul import block_matmul
+
+    stats = schedule_stats(sched) if sched is not None else None
+    rows = []
+    peak_max = 0
+    for rep in range(int(warm) + CLAIMS_REPS):
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+        before = block_matmul.launches
+        t0 = time.perf_counter()
+        out = fn()
+        wall = time.perf_counter() - t0
+        got = block_matmul.launches - before
+        peak = torch.cuda.max_memory_allocated() - base
+        peak_max = max(peak_max, peak)
+        require(got == launches, f"claims {tag}: {got} kernel-1 launches, "
+                                 f"expected {launches}")
+        require(torch.equal(out, want), f"claims {tag}: the result differs "
+                                        f"from one in-core launch")
+        require(peak <= limit, f"claims {tag}: peak device memory {peak} B "
+                               f"above {limit} B")
+        del out
+        if ex is not None:
+            require((ex.last_h2d_bytes, ex.last_d2h_bytes)
+                    == (stats["h2d_bytes"], stats["d2h_bytes"]),
+                    f"claims {tag}: moved {ex.last_h2d_bytes}/"
+                    f"{ex.last_d2h_bytes} B, schedule_stats says "
+                    f"{stats['h2d_bytes']}/{stats['d2h_bytes']}")
+        if warm and rep == 0:
+            continue
+        row = {"call_s": wall}
+        if ex is not None:
+            idle, k1 = span_stats(sched, ex.last_spans, ex.last_wall_seconds)
+            row.update(exec_s=ex.last_wall_seconds,
+                       stage_s=ex.last_stage_seconds,
+                       stage_wait_s=ex.last_stage_wait_seconds,
+                       idle_share=idle, k1_device_s=k1)
+        rows.append(row)
+    med = {k: statistics.median(r[k] for r in rows) for k in rows[0]}
+    med["call_s_min"] = min(r["call_s"] for r in rows)
+    med["call_s_max"] = max(r["call_s"] for r in rows)
+    med["peak_bytes"] = peak_max
+    med["launches"] = launches
+    if stats is not None:
+        med["h2d_bytes"], med["d2h_bytes"] = (stats["h2d_bytes"],
+                                              stats["d2h_bytes"])
+    return med
+
+
+def claims_text(m, flops):
+    """One measured call's line: walls, TFLOP/s, staging, idle share,
+    kernel 1's launches and device time, bytes and peak memory."""
+    text = (f"call {m['call_s']:.4f} s (min-max {m['call_s_min']:.4f}-"
+            f"{m['call_s_max']:.4f}), {flops / m['call_s'] / 1e12:.2f} "
+            f"TFLOP/s; ")
+    if "exec_s" in m:
+        text += (f"executor {m['exec_s']:.4f} s, staging fill "
+                 f"{m['stage_s']:.4f} s and wait {m['stage_wait_s']:.4f} s, "
+                 f"device idle {100 * m['idle_share']:.1f} %, kernel 1 "
+                 f"{m['launches']} launches, {m['k1_device_s']:.4f} s on the "
+                 f"device; H2D {m['h2d_bytes']} B, D2H {m['d2h_bytes']} B = "
+                 f"schedule_stats; ")
+    else:
+        text += f"kernel 1 {m['launches']} launch; "
+    return text + f"peak {m['peak_bytes'] / 2**20:.1f} MiB"
+
+
+def claims_operands(full, n, dt):
+    """Host operands of the n x n x CLAIMS_K problem in ``dt``: the leading
+    rows and columns of the largest problem's."""
+    A, B, C = full
+    return (A[:n].to(dt), B[:, :n].contiguous().to(dt),
+            C[:n, :n].contiguous().to(dt))
+
+
+def claims_in_core(tag, A, B, C, report, key):
+    """One in-core launch of kernel 1 on the whole problem through
+    ``ooc_gemm`` (counted under ``key``): the bit-for-bit reference of
+    every out-of-core result of the same operands.  It is first held to
+    a float32 ``torch.addmm`` on the card within two float32 summation
+    bounds (kernel 1's sum and addmm's), plus the rounding of a 16-bit
+    output."""
+    from repro_torch.core import ooc_gemm
+    from repro_torch.kernels.block_matmul import block_matmul
+
+    zero_counts(block_matmul)
+    want = ooc_gemm(A, B, C, *CLAIMS_AB, budget_bytes=1 << 40)
+    require(read_counts(block_matmul, report, key, add=True) == 1,
+            f"claims {tag}: the in-core call is not one launch")
+    alpha, beta = CLAIMS_AB
+    Ad, Bd, Cd = (t.cuda().float() for t in (A, B, C))
+    ref = torch.addmm(Cd, Ad, Bd, beta=beta, alpha=alpha)
+    bound = 2 * sum_tol(Ad, Bd, Cd, alpha, beta)
+    del Ad, Bd, Cd
+    u_out = 0.0 if want.dtype == torch.float32 else 2.0 ** -8
+    tol = bound + u_out * (ref.abs().double() + bound)
+    err = (want.cuda().double() - ref.double()).abs()
+    worst = (err / tol).max().item()
+    require(worst <= 1.0, f"claims {tag}: the in-core launch is "
+                          f"{err.max().item():.4g} from float32 addmm, "
+                          f"{worst:.3g}x its bound")
+    report["claims"].append({"part": "oracle", "tag": tag,
+                             "max_abs_err": err.max().item(),
+                             "err_over_bound": worst})
+    say("claims", f"{tag}: one in-core launch vs float32 torch.addmm on the "
+                  f"card: max abs err {err.max().item():.4g} beside max "
+                  f"|ref| {ref.abs().max().item():.4g}, max err/bound "
+                  f"{worst:.3g} (bound 2 sqrt(K) u32 sum|terms|"
+                  + (" + 2^-8 |ref|)" if u_out else ")"))
+    del ref, bound, tol, err
+    return want
+
+
+def claims_c2(report, full, dt):
+    """(a) The in-core to out-of-core transition: ``ooc_gemm`` at K 8192
+    under the budget, M = N from in core (8192) to 3x out (24576), in
+    ``concurrent`` and ``issue_order`` mode.  Returns the in-core result
+    at M = N = ``CLAIMS_C3``."""
+    from repro_torch.core import (HostOocRuntime, ScheduleExecutor,
+                                  build_gemm_schedule, is_in_core, ooc_gemm,
+                                  plan_gemm_partition)
+    from repro_torch.kernels.block_matmul import block_matmul
+
+    name = str(dt)[6:]
+    budget = CLAIMS_BUDGET[dt]
+    K = CLAIMS_K
+    tf = {}
+    keep = None
+    for n in CLAIMS_SIZES:
+        A, B, C = claims_operands(full, n, dt)
+        bpe = A.element_size()
+        flops = 2 * n * n * K
+        want = claims_in_core(f"c2 {n} {name}", A, B, C, report,
+                              "claims_in_core")
+        if n == CLAIMS_C3:
+            keep = want
+        zero_counts(block_matmul)
+        if is_in_core(n, n, K, budget, bpe):
+            nbytes = (2 * n * K + n * n) * bpe
+            m = claims_calls(f"c2 {n} {name} in core",
+                             lambda: ooc_gemm(A, B, C, *CLAIMS_AB,
+                                              budget_bytes=budget),
+                             want, 1, nbytes + n * n * bpe + CLAIMS_SLACK)
+            tf[(n, "in core")] = flops / m["call_s"]
+            report["claims"].append({"part": "c2", "dtype": name, "n": n,
+                                     "mode": "in core", "budget": budget,
+                                     **m})
+            say("claims", f"(a) {name} {n}x{n}x{K} in core ({nbytes} B of "
+                          f"operands within the {budget} B budget; one "
+                          f"launch, serial pageable copies in its wall): "
+                          f"{claims_text(m, flops)} (A, B, C and the "
+                          f"output: the output is beyond the budget)")
+        else:
+            part = plan_gemm_partition(n, n, K, budget, bpe)
+            sched = build_gemm_schedule(part, nstreams=2, nbuf=2)
+            ws = part.working_set_bytes(nbuf=2, nstreams=2)
+            for mode in ("concurrent", "issue_order"):
+                ex = ScheduleExecutor(mode=mode, record_spans=True)
+                rt = HostOocRuntime(executor=ex)
+                m = claims_calls(
+                    f"c2 {n} {name} {mode}",
+                    lambda: ooc_gemm(A, B, C, *CLAIMS_AB,
+                                     budget_bytes=budget, runtime=rt),
+                    want, dgemm_ops(sched), ws + CLAIMS_SLACK, ex, sched)
+                tf[(n, mode)] = flops / m["call_s"]
+                report["claims"].append({
+                    "part": "c2", "dtype": name, "n": n, "mode": mode,
+                    "plan": [part.h, part.w], "working_set": ws,
+                    "budget": budget, **m})
+                say("claims", f"(a) {name} {n}x{n}x{K} {mode}, plan "
+                              f"{part.h}x{part.w} of {part.bm}x{part.bn}, "
+                              f"2 streams 2 buffers: {claims_text(m, flops)}"
+                              f" <= working set {ws / 2**20:.1f} MiB + 64 "
+                              f"MiB (budget {budget / 2**20:.0f} MiB); == "
+                              f"one in-core launch, bitwise")
+        read_counts(block_matmul, report, "claims_c2", add=True)
+        del A, B, C, want
+    last_in = tf[(CLAIMS_SIZES[0], "in core")]
+    for mode in ("concurrent", "issue_order"):
+        curve = [last_in] + [tf[(n, mode)] for n in CLAIMS_SIZES[1:]]
+        change = (curve[1] - last_in) / last_in
+        report["claims"].append({"part": "c2 claim", "dtype": name,
+                                 "mode": mode, "change": change,
+                                 "tflops": [t / 1e12 for t in curve]})
+        say("claims", f"(a) C2 {name} {mode}: first out-of-core "
+                      f"({CLAIMS_SIZES[1]}) {curve[1] / 1e12:.2f} TFLOP/s "
+                      f"against the last in-core ({CLAIMS_SIZES[0]}) "
+                      f"{last_in / 1e12:.2f}: {100 * change:+.1f} % (the "
+                      f"paper: 0 %; no loss at -10 %: "
+                      f"{'held' if change >= -0.10 else 'missed'}; the "
+                      f"in-core side's wall is its serial pageable copies, "
+                      f"so a gain measures that path, not the transition); "
+                      f"TFLOP/s by M = N "
+                      + ", ".join(f"{n} {t / 1e12:.2f}"
+                                  for n, t in zip(CLAIMS_SIZES, curve)))
+    return keep
+
+
+def wrapper_host_us(A, B, C, n=200):
+    """Host microseconds of kernel 1's library lookup
+    (``_build.load``) and of one whole wrapper call on a vendor tile,
+    enqueued behind a spin kernel so the card never holds the host.  The
+    callers set kernel 1's counts to 0 after it, so these launches count
+    on no path."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels.block_matmul import block_matmul
+
+    t0 = time.perf_counter()
+    for _ in range(5 * n):
+        _build.load("block_matmul")
+    load_us = (time.perf_counter() - t0) / (5 * n) * 1e6
+    a, b = A[:CLAIMS_TILE].cuda(), B[:, :CLAIMS_TILE].contiguous().cuda()
+    c = C[:CLAIMS_TILE, :CLAIMS_TILE].cuda()
+    block_matmul(a, b, c, alpha=1.0, beta=1.0, out=c)
+    torch.cuda.synchronize()
+    torch.cuda._sleep(SPIN_CYCLES)
+    t0 = time.perf_counter()
+    for _ in range(n):
+        block_matmul(a, b, c, alpha=1.0, beta=1.0, out=c)
+    call_us = (time.perf_counter() - t0) / n * 1e6
+    torch.cuda.synchronize()
+    return load_us, call_us
+
+
+def claims_c3(report, full, dt, want):
+    """(b) ``ooc_gemm``'s own plan against the CUBLAS-XT-style vendor
+    schedule (tile 512: one stream, one buffer, B re-sent for every C
+    tile) on the same executor class and ``dgemm`` handler."""
+    from repro_torch.core import (HostOocRuntime, ScheduleExecutor,
+                                  build_gemm_schedule, build_vendor_schedule,
+                                  ooc_gemm, plan_gemm_partition,
+                                  schedule_stats)
+    from repro_torch.kernels.block_matmul import block_matmul
+
+    name = str(dt)[6:]
+    budget = CLAIMS_BUDGET[dt]
+    n, K = CLAIMS_C3, CLAIMS_K
+    A, B, C = claims_operands(full, n, dt)
+    part = plan_gemm_partition(n, n, K, budget, A.element_size())
+    lib = build_gemm_schedule(part, nstreams=2, nbuf=2)
+    vend = build_vendor_schedule(part, tile=CLAIMS_TILE)
+    flops = 2 * n * n * K
+    load_us, call_us = wrapper_host_us(A, B, C)
+    say("claims", f"(b) {name} kernel 1's wrapper: {load_us:.1f} us of "
+                  f"library lookup (_build.load) and {call_us:.1f} us of "
+                  f"host a call on a {CLAIMS_TILE}x{CLAIMS_TILE}x{K} tile: "
+                  f"{dgemm_ops(vend)} vendor launches carry "
+                  f"{dgemm_ops(vend) * call_us / 1e6:.3f} s of host, "
+                  f"{dgemm_ops(lib)} library launches "
+                  f"{dgemm_ops(lib) * call_us / 1e6:.4f} s")
+    # the vendor side takes no warm call: kernel 1 is warm from the
+    # phases before, and its executor's set-up is small beside a 3-5 s call
+    sides = (("library", "claims_c3_library", lib,
+              part.working_set_bytes(nbuf=2, nstreams=2), True,
+              lambda rt: ooc_gemm(A, B, C, *CLAIMS_AB, budget_bytes=budget,
+                                  runtime=rt)),
+             ("vendor", "claims_c3_vendor", vend, parity_bytes(vend), False,
+              lambda rt: rt.gemm(A, B, C, *CLAIMS_AB, part, schedule=vend)))
+    got = {}
+    for mode in CLAIMS_C3_MODES[dt]:
+        for side, key, sched, ws, warm, call in sides:
+            ex = ScheduleExecutor(mode=mode, record_spans=True)
+            rt = HostOocRuntime(executor=ex)
+            zero_counts(block_matmul)
+            m = claims_calls(f"c3 {name} {side} {mode}", lambda: call(rt),
+                             want, dgemm_ops(sched), ws + CLAIMS_SLACK, ex,
+                             sched, warm)
+            read_counts(block_matmul, report, key, add=True)
+            got[(side, mode)] = m
+            report["claims"].append({
+                "part": "c3", "dtype": name, "side": side, "mode": mode,
+                "n_ops": schedule_stats(sched)["n_ops"], "parity": ws,
+                "wrapper_us": call_us, "lookup_us": load_us, **m})
+            say("claims", f"(b) {name} {n}x{n}x{K} {side} {mode} "
+                          f"({schedule_stats(sched)['n_ops']} ops): "
+                          f"{claims_text(m, flops)} <= parity "
+                          f"{ws / 2**20:.1f} MiB + 64 MiB; == one in-core "
+                          f"launch, bitwise")
+        lib_m, ven_m = got[("library", mode)], got[("vendor", mode)]
+        ratio = ven_m["call_s"] / lib_m["call_s"]
+        k1 = ven_m["k1_device_s"] / lib_m["k1_device_s"]
+        report["claims"].append({"part": "c3 claim", "dtype": name,
+                                 "mode": mode, "ratio": ratio,
+                                 "k1_ratio": k1})
+        say("claims", f"(b) C3 {name} {mode}: vendor / library "
+                      f"{ratio:.2f}x (the paper: >= 2.3x on the K40c; "
+                      f"{'held' if ratio >= 2.3 else 'missed'}); kernel 1's "
+                      f"device seconds {ven_m['k1_device_s']:.4f} / "
+                      f"{lib_m['k1_device_s']:.4f} = {k1:.2f}x; the vendor "
+                      f"call net of its staging fill "
+                      f"{ven_m['call_s'] - ven_m['stage_s']:.4f} s")
+    del A, B, C
+
+
+def claims_c5(report, full, want, profile):
+    """(c) Streams and buffers: (b)'s f32 call through ``ooc_gemm(nstreams=,
+    nbuf=)`` in ``concurrent`` mode, each beside the simulator's makespan
+    of its schedule on the card's calibrated profile; then the stream
+    count and buffer depth the tuner picks for the call."""
+    from repro_torch.core import (HostOocRuntime, ScheduleExecutor,
+                                  build_gemm_schedule, ooc_gemm,
+                                  plan_gemm_partition, simulate)
+    from repro_torch.kernels.block_matmul import block_matmul
+    from repro_torch.tune import AutoTuner, PlanCache
+
+    dt = torch.float32
+    budget = CLAIMS_BUDGET[dt]
+    n, K = CLAIMS_C3, CLAIMS_K
+    A, B, C = claims_operands(full, n, dt)
+    part = plan_gemm_partition(n, n, K, budget, 4)
+    flops = 2 * n * n * K
+    walls = {}
+    for ns, nb in CLAIMS_C5:
+        sched = build_gemm_schedule(part, nstreams=ns, nbuf=nb)
+        sim = simulate(sched, profile.model_for(ns)).makespan
+        ws = part.working_set_bytes(nbuf=nb, nstreams=ns)
+        ex = ScheduleExecutor(mode="concurrent", record_spans=True)
+        rt = HostOocRuntime(executor=ex)
+        zero_counts(block_matmul)
+        m = claims_calls(f"c5 ({ns},{nb})",
+                         lambda: ooc_gemm(A, B, C, *CLAIMS_AB,
+                                          budget_bytes=budget, nstreams=ns,
+                                          nbuf=nb, runtime=rt),
+                         want, dgemm_ops(sched), ws + CLAIMS_SLACK, ex, sched)
+        read_counts(block_matmul, report, "claims_c5", add=True)
+        walls[(ns, nb)] = m
+        report["claims"].append({"part": "c5", "nstreams": ns, "nbuf": nb,
+                                 "simulated_s": sim, "working_set": ws,
+                                 "budget": budget, **m})
+        say("claims", f"(c) f32 {n}x{n}x{K} nstreams {ns} nbuf {nb} "
+                      f"concurrent: {claims_text(m, flops)} <= working set "
+                      f"{ws / 2**20:.1f} MiB + 64 MiB (budget "
+                      f"{budget / 2**20:.0f} MiB: "
+                      f"{'within' if m['peak_bytes'] <= budget else 'above'}"
+                      f"); simulated {sim:.4f} s on the calibrated profile "
+                      f"(executor / simulated "
+                      f"{m['exec_s'] / sim:.2f}); == one in-core launch, "
+                      f"bitwise")
+    best = min(walls, key=lambda k: walls[k]["call_s"])
+    # the claim at equal buffers and bytes: two streams win only if their
+    # slowest call beats one stream's fastest
+    one, two = walls[(1, 2)], walls[(2, 2)]
+    held = two["call_s_max"] < one["call_s_min"]
+    tmp = tempfile.TemporaryDirectory()
+    try:
+        tuner = AutoTuner(profile=profile, max_steps=CLAIMS_SEARCH,
+                          cache=PlanCache(os.path.join(tmp.name, "p.json")))
+        t0 = time.perf_counter()
+        plan = tuner.gemm_plan(n, n, K, budget, "float32")
+        secs = time.perf_counter() - t0
+        tpart = plan.gemm_partition()
+        sched = build_gemm_schedule(tpart, nstreams=plan.nstreams,
+                                    nbuf=plan.nbuf, traversal=plan.traversal,
+                                    evict=plan.evict)
+        ws = tpart.working_set_bytes(nbuf=plan.nbuf, nstreams=plan.nstreams)
+        ex = ScheduleExecutor(mode="concurrent", record_spans=True)
+        rt = HostOocRuntime(executor=ex)
+        zero_counts(block_matmul)
+        m = claims_calls("c5 tuned",
+                         lambda: ooc_gemm(A, B, C, *CLAIMS_AB,
+                                          budget_bytes=budget, tune="auto",
+                                          tuner=tuner, runtime=rt),
+                         want, dgemm_ops(sched), ws + CLAIMS_SLACK, ex, sched)
+        read_counts(block_matmul, report, "claims_c5", add=True)
+    finally:
+        tmp.cleanup()
+    report["claims"].append({"part": "c5 claim", "best": list(best),
+                             "one_stream_s": one["call_s"],
+                             "two_streams_s": two["call_s"], "held": held,
+                             "tuned": [plan.nstreams, plan.nbuf],
+                             "tuned_plan": [tpart.h, tpart.w],
+                             "tuned_makespan": plan.makespan,
+                             "search_s": secs, "tuned_run": m})
+    say("claims", f"(c) C5 at equal buffers and bytes: one stream (1, 2) "
+                  f"{one['call_s']:.4f} s ({one['call_s_min']:.4f}-"
+                  f"{one['call_s_max']:.4f}) against two (2, 2) "
+                  f"{two['call_s']:.4f} s ({two['call_s_min']:.4f}-"
+                  f"{two['call_s_max']:.4f}) (the paper: a GPU prefers two; "
+                  f"{'held' if held else 'missed'}: held only if every call "
+                  f"of two beats every call of one); fastest of the four "
+                  f"{best} at {walls[best]['call_s']:.4f} s, "
+                  f"{walls[best]['h2d_bytes']} B H2D against (2, 2)'s "
+                  f"{two['h2d_bytes']}; tune='auto' (calibrated profile, max_steps "
+                  f"{CLAIMS_SEARCH}, {secs:.1f} s of search) picks "
+                  f"{plan_text(plan)}, predicted {plan.makespan:.4f} s; run: "
+                  f"{claims_text(m, flops)} <= working set "
+                  f"{ws / 2**20:.1f} MiB + 64 MiB (executor / predicted "
+                  f"{m['exec_s'] / plan.makespan:.2f}); == one in-core "
+                  f"launch, bitwise")
+    del A, B, C
+
+
+def claims_reuse(report, gen):
+    """(d) The reuse claim: a scaled block copy written as a
+    ``PipelineSpec`` and one registered handler (a PyTorch multiply on
+    the card, into its output buffer), on a card-sized operand in both
+    modes: exactly ``3.0 * X``, bytes equal to ``schedule_stats``, no
+    kernel-1 launch."""
+    from repro_torch.core import (ComputeStage, PipelineSpec,
+                                  ScheduleExecutor, SliceRef, StreamedOperand,
+                                  WriteBack, compile_pipeline,
+                                  register_op_handler, schedule_stats,
+                                  validate_schedule)
+    from repro_torch.kernels.block_matmul import block_matmul
+
+    M, N, bm, budget = CLAIMS_COPY
+    h = M // bm
+
+    @register_op_handler("scale_copy")
+    def _scale_copy(st, op, ref):
+        torch.mul(st.bufs[op.buffers_read[0]], st.ctx["gamma"],
+                  out=st.bufs[op.buffers_written[0]])
+
+    def operand(name, inout=False):
+        return StreamedOperand(
+            name=name, nblocks=h, block_of=lambda s: s,
+            slice_of=lambda b: SliceRef(name, b, rows=(b * bm, bm)),
+            bytes_of=lambda b: bm * N * 4, inout=inout)
+
+    spec = PipelineSpec(
+        name="scale_copy", nsteps=h, operands=(operand("X"),
+                                               operand("Y", True)),
+        compute=ComputeStage(kernel="scale_copy", reads=("X",),
+                             flops_of=lambda s: bm * N),
+        writeback=WriteBack(mode="each", operand="Y"), budget=budget)
+    sched = compile_pipeline(spec, nstreams=2, nbuf=2)
+    validate_schedule(sched)
+    stats = schedule_stats(sched)
+    parity = parity_bytes(sched)
+    require(parity <= budget, f"claims (d): parity {parity} B above the "
+                              f"budget {budget} B")
+    X = rand((M, N), gen, device="cpu")
+    want = X * 3.0
+    for mode in ("issue_order", "concurrent"):
+        ex = ScheduleExecutor(mode=mode, record_spans=True)
+        zero_counts(block_matmul)
+
+        def call():
+            out = torch.zeros_like(X)
+            ex.run(sched, {"X": X}, {"Y": out}, {"gamma": 3.0})
+            return out
+
+        m = claims_calls(f"(d) {mode}", call, want, 0,
+                         parity + CLAIMS_SLACK, ex, sched)
+        report["claims"].append({"part": "reuse", "mode": mode,
+                                 "n_ops": stats["n_ops"], "parity": parity,
+                                 **m})
+        say("claims", f"(d) scale_copy spec {M}x{N} f32 under "
+                      f"{budget / 2**20:.0f} MiB ({h} blocks of {bm} rows, "
+                      f"2 streams 2 buffers, {stats['n_ops']} ops) {mode}: "
+                      f"call {m['call_s']:.4f} s (min-max "
+                      f"{m['call_s_min']:.4f}-{m['call_s_max']:.4f}), "
+                      f"executor {m['exec_s']:.4f} s, staging fill "
+                      f"{m['stage_s']:.4f} s, device idle "
+                      f"{100 * m['idle_share']:.1f} %, H2D "
+                      f"{m['h2d_bytes']} B, D2H {m['d2h_bytes']} B = "
+                      f"schedule_stats, peak {m['peak_bytes'] / 2**20:.1f} "
+                      f"MiB <= parity {parity / 2**20:.1f} MiB + 64 MiB; "
+                      f"== 3.0 * X exactly, no kernel-1 launch")
+    del X, want
+
+
+def phase_claims(report, card, gen, profile):
+    """Phase 18: the paper's claims on the card, (a)-(d); ``profile`` is
+    phase 11's calibrated one.  A claim that the card does not bear out
+    is printed as missed; a wrong result, byte count or launch count
+    raises."""
+    t0 = time.perf_counter()
+    M, K = CLAIMS_SIZES[-1], CLAIMS_K
+    full = tuple(rand(s, gen, device="cpu")
+                 for s in ((M, K), (K, M), (M, M)))
+    say("claims", f"host operands {M}x{K}, {K}x{M}, {M}x{M} f32 made on "
+                  f"the card from seed {SEED} in "
+                  f"{time.perf_counter() - t0:.1f} s; each size takes their "
+                  f"leading rows and columns; card {card}")
+    took = {}
+    for dt in (torch.float32, torch.bfloat16):
+        name = str(dt)[6:]
+        t1 = time.perf_counter()
+        want = claims_c2(report, full, dt)
+        took[f"a {name}"] = round(time.perf_counter() - t1, 1)
+        t1 = time.perf_counter()
+        claims_c3(report, full, dt, want)
+        took[f"b {name}"] = round(time.perf_counter() - t1, 1)
+        if dt == torch.float32:
+            t1 = time.perf_counter()
+            claims_c5(report, full, want, profile)
+            took["c"] = round(time.perf_counter() - t1, 1)
+        del want
+    del full
+    t1 = time.perf_counter()
+    claims_reuse(report, gen)
+    took["d"] = round(time.perf_counter() - t1, 1)
+    free_card()
+    say("claims", f"phase 18 took {time.perf_counter() - t0:.1f} s (by "
+                  f"part {json.dumps(took)})")
+
+
 SERVE_TURN = ("llama3.2-3b", 4, 512, 32)     # phase 14 (c)'s serving cell
 # the base tree's and this tree's serving processes: ten pairs in ABBA
 # blocks, so each side runs first in half of them; each process times
@@ -5412,7 +5992,7 @@ def main(argv=None) -> int:
     report = {"main_path": [], "attention": [], "c1": [], "factor": [],
               "fault": [], "tune": [], "hybrid": [], "hybrid_plans": {},
               "analyze": [], "serve": [], "train": [], "mesh": [],
-              "dryrun": [],
+              "dryrun": [], "claims": [],
               "factor_panel_ms": {}, "factor_dgemm_check": {},
               "launches": {}, "launches_by_dtype": {}}
     A, B, C, host_out, params = phase_main(gen, report)
@@ -5435,6 +6015,7 @@ def main(argv=None) -> int:
     phase_mesh(report, card, main_io, bf16_io)
     del main_io, bf16_io
     phase_dryrun(report, card, gen)
+    phase_claims(report, card, gen, tuned[0])
     if args.baseline:
         phase_baseline_serve(report, card, args.baseline)
     entries = [*phase_timing(gen, report, card),
@@ -5456,6 +6037,7 @@ def main(argv=None) -> int:
                       "train": report["train"],
                       "mesh": report["mesh"],
                       "dryrun": report["dryrun"],
+                      "claims": report["claims"],
                       "baseline_serve": report.get("baseline_serve"),
                       "tune_calibration": report.get("tune_calibration"),
                       "tune_searches": report.get("tune_searches"),

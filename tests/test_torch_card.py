@@ -1411,3 +1411,155 @@ def test_dry_run_traces_kernel_2_on_fake_card_tensors(card):
     assert fc.get_total_flops() == 4 * 4 * 24 * 544 * 128 \
         + 2 * 4 * 24 * 2 * 128
     assert (kfa.flash_partial.launches, kfa.flash_combine.launches) == before
+
+
+# ------------------------------------------------------------------------
+# The executor paths of the paper's claims (chip_smoke.py phase 18) at
+# test sizes: the vendor schedule, one stream with one buffer, the
+# completion order, the reuse claim and a seeded stress loop
+# ------------------------------------------------------------------------
+def _dgemm_ops(sched):
+    return sum(1 for op in sched.ops if isinstance(op.payload, T.BlockRef)
+               and op.payload.kernel == "dgemm")
+
+
+@pytest.mark.parametrize("mode", ["issue_order", "concurrent"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_vendor_schedule_equals_in_core_bitwise(card, dtype, mode):
+    """The CUBLAS-XT-style schedule (one stream, one buffer, B re-sent for
+    every C tile) on the executor and kernel 1 equals one in-core launch
+    bit for bit, moving ``schedule_stats``' bytes."""
+    M, N, K = 1280, 1536, 640
+    A, B, C = (torch.from_numpy(x).to(dtype) for x in _inputs(41, M, N, K))
+    full = sum(t.numel() * t.element_size() for t in (A, B, C))
+    part = T.plan_gemm_partition(M, N, K, full // 4, A.element_size())
+    sched = T.build_vendor_schedule(part, tile=256)
+    stats = T.schedule_stats(sched)
+    incore = T.ooc_gemm(A, B, C, 1.5, 0.5, budget_bytes=full)
+    ex = T.ScheduleExecutor(mode=mode)
+    before = block_matmul.launches
+    out = T.HostOocRuntime(executor=ex).gemm(A, B, C, 1.5, 0.5, part,
+                                             schedule=sched)
+    assert block_matmul.launches - before == _dgemm_ops(sched) == 5 * 6
+    assert (ex.last_h2d_bytes, ex.last_d2h_bytes) \
+        == (stats["h2d_bytes"], stats["d2h_bytes"])
+    assert torch.equal(out, incore)
+
+
+@pytest.mark.parametrize("traversal", ["col", "row"])
+def test_one_stream_one_buffer_concurrent_equals_in_core(card, traversal):
+    """nstreams=1, nbuf=1 in concurrent mode: each landing into a parity
+    buffer must wait on the device for the kernel that last read it (the
+    eviction wiring ``test_release_waits_single_stream_single_buffer``
+    pins); a missing wait shows here as a result that is not the
+    in-core launch's."""
+    M, N, K = 1024, 1280, 768
+    A, B, C = _inputs(43, M, N, K)
+    full = A.nbytes + B.nbytes + C.nbytes
+    part = T.plan_gemm_partition(M, N, K, full // 6, 4, nbuf=1, nstreams=1)
+    assert part.h >= 2 and part.w >= 2
+    sched = T.build_gemm_schedule(part, nstreams=1, nbuf=1,
+                                  traversal=traversal)
+    incore = T.ooc_gemm(A, B, C, 1.25, -0.5, budget_bytes=full)
+    ex = T.ScheduleExecutor(mode="concurrent")
+    for _ in range(3):
+        out = T.HostOocRuntime(executor=ex).gemm(A, B, C, 1.25, -0.5, part,
+                                                 schedule=sched)
+        assert torch.equal(out, incore)
+
+
+def test_concurrent_completion_order_is_linear_extension_on_card(card):
+    from repro_torch.core.streams import dependency_edges
+
+    M, N, K = 1024, 896, 512
+    A, B, C = _inputs(45, M, N, K)
+    part = T.plan_gemm_partition(M, N, K, (A.nbytes + B.nbytes
+                                           + C.nbytes) // 4, 4)
+    sched = T.build_gemm_schedule(part, nstreams=2, nbuf=3,
+                                  traversal="serpentine")
+    ex = T.ScheduleExecutor(mode="concurrent", record_spans=True)
+    out = torch.from_numpy(C.copy())
+    ex.run(sched, {"A": A, "B": B}, {"C": out}, {"alpha": 1.0, "beta": 1.0})
+    order = ex.last_completion_order
+    assert sorted(order) == list(range(len(sched.ops)))
+    pos = {i: k for k, i in enumerate(order)}
+    _, preds = dependency_edges(sched)
+    for succ, ps in enumerate(preds):
+        assert all(pos[p] < pos[succ] for p in ps)
+    assert [s[0] for s in ex.last_spans] == [op.tag for op in sched.ops]
+    assert torch.equal(out, T.ooc_gemm(A, B, C, 1.0, 1.0,
+                                       budget_bytes=1 << 40))
+
+
+@pytest.mark.parametrize("mode", ["issue_order", "concurrent"])
+def test_new_kernel_via_spec_on_card(card, mode):
+    """The reuse claim on the card: a scaled block copy as a PipelineSpec
+    and one registered handler (a PyTorch multiply into the output
+    buffer), exactly 3.0 * X, with ``schedule_stats``' bytes."""
+    M, N, bm = 4096, 1024, 512
+    h = M // bm
+
+    @T.register_op_handler("scale_copy")
+    def _scale_copy(st, op, ref):
+        torch.mul(st.bufs[op.buffers_read[0]], st.ctx["gamma"],
+                  out=st.bufs[op.buffers_written[0]])
+
+    def operand(name, inout=False):
+        return T.StreamedOperand(
+            name=name, nblocks=h, block_of=lambda s: s,
+            slice_of=lambda b: T.SliceRef(name, b, rows=(b * bm, bm)),
+            bytes_of=lambda b: bm * N * 4, inout=inout)
+
+    spec = T.PipelineSpec(
+        name="scale_copy", nsteps=h,
+        operands=(operand("X"), operand("Y", inout=True)),
+        compute=T.ComputeStage(kernel="scale_copy", reads=("X",),
+                               flops_of=lambda s: bm * N),
+        writeback=T.WriteBack(mode="each", operand="Y"), budget=8 * 2**20)
+    sched = T.compile_pipeline(spec, nstreams=2, nbuf=2)
+    T.validate_schedule(sched)
+    stats = T.schedule_stats(sched)
+    X = torch.from_numpy(np.random.default_rng(47).standard_normal(
+        (M, N)).astype(np.float32))
+    ex = T.ScheduleExecutor(mode=mode)
+    for _ in range(2):
+        out = torch.zeros(M, N)
+        ex.run(sched, {"X": X}, {"Y": out}, {"gamma": 3.0})
+        assert torch.equal(out, 3.0 * X)
+        assert (ex.last_h2d_bytes, ex.last_d2h_bytes) \
+            == (stats["h2d_bytes"], stats["d2h_bytes"])
+
+
+def test_concurrent_stress_seeded_with_watchdog_on_card(card):
+    """Seeded schedule shapes x repeated runs on one concurrent executor:
+    every run equals the in-core launch bit for bit, bytes equal
+    ``schedule_stats``; a deadlock dumps every thread's stack and exits
+    instead of hanging."""
+    import faulthandler
+
+    faulthandler.dump_traceback_later(300.0, exit=True)
+    try:
+        rng = np.random.default_rng(20260808)
+        ex = T.ScheduleExecutor(mode="concurrent")
+        for _ in range(8):
+            M, N, K = (int(v) * 128 for v in rng.integers(3, 9, size=3))
+            nstreams, nbuf = (int(v) for v in rng.integers(1, 4, size=2))
+            traversal = ["col", "row", "serpentine"][int(rng.integers(3))]
+            A, B, C = _inputs(int(rng.integers(1 << 30)), M, N, K)
+            part = T.plan_gemm_partition(
+                M, N, K, (A.nbytes + B.nbytes + C.nbytes) // 3, 4,
+                nbuf=nbuf, nstreams=nstreams)
+            sched = T.build_gemm_schedule(part, nstreams=nstreams,
+                                          nbuf=nbuf, traversal=traversal)
+            stats = T.schedule_stats(sched)
+            incore = T.ooc_gemm(A, B, C, 1.0, 0.5, budget_bytes=1 << 40)
+            for _rep in range(3):
+                out = torch.from_numpy(C.copy())
+                ex.run(sched, {"A": A, "B": B}, {"C": out},
+                       {"alpha": 1.0, "beta": 0.5})
+                assert (ex.last_h2d_bytes, ex.last_d2h_bytes) \
+                    == (stats["h2d_bytes"], stats["d2h_bytes"])
+                assert torch.equal(out, incore), (
+                    f"{M}x{N}x{K} ns={nstreams} nbuf={nbuf} {traversal}")
+    finally:
+        faulthandler.cancel_dump_traceback_later()

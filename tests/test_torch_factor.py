@@ -432,3 +432,20 @@ def test_default_device_needs_a_card(rng):
     for fn in (T.ooc_cholesky, T.ooc_lu):
         with pytest.raises(RuntimeError, match="no CUDA device"):
             fn(A, budget_bytes=1 << 20)
+
+
+def test_factor_schedule_accounts_full_flops():
+    """The compiled schedule's flop total covers the n^3/3 factorization,
+    both lookahead modes move identical bytes, and every count is the
+    reference's."""
+    stats = {}
+    for la in (0, 1):
+        args = (1024, 128, 1 << 30, 4)
+        kw = dict(kind="cholesky", lookahead=la)
+        stats[la] = T.schedule_stats(T.compile_factor_pipeline(
+            T.factor_pipeline_spec(*args, **kw)))
+        assert stats[la] == R.schedule_stats(R.compile_factor_pipeline(
+            R.factor_pipeline_spec(*args, **kw)))
+    assert stats[0]["flops"] >= 1024 ** 3 // 3
+    assert stats[0]["h2d_bytes"] == stats[1]["h2d_bytes"]
+    assert stats[0]["d2h_bytes"] == stats[1]["d2h_bytes"]

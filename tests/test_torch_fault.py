@@ -1209,3 +1209,23 @@ def test_oom_ladder_frees_the_failed_runs_buffers(monkeypatch, entry):
                        torch_device=CPU, faults=_oom_at_first_compute(TF),
                        fault_policy=pol)
     assert len(allocate.alive_at) == 2 and allocate.alive_at[1] == 0
+
+
+def test_simulate_faulted_makespan_monotone_in_rate():
+    """The expected-cost simulation under a fault rate: the reference's
+    makespan at every rate, rising with the rate."""
+    from repro.core.simulator import FaultModel as R_FaultModel
+    from repro_torch.core.simulator import FaultModel
+
+    *_, sched, _, rsched = _gemm_case()
+    hw, rhw = T.gpu_like(), R.gpu_like()
+    base = T.simulate(sched, hw).makespan
+    assert base == R.simulate(rsched, rhw).makespan
+    prev = base
+    for rate in (0.01, 0.05, 0.2):
+        span = T.simulate(sched, hw, faults=FaultModel(rate=rate)).makespan
+        assert span == R.simulate(rsched, rhw,
+                                  faults=R_FaultModel(rate=rate)).makespan
+        assert span > prev * (1 - 1e-12)
+        prev = span
+    assert prev > base
