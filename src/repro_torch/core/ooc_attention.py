@@ -224,5 +224,5 @@ def ooc_attention(
         outputs={"out": out},
         ctx={"q": q.to(device=executor.torch_device, dtype=torch.float32)},
     )
-    _record_host_drift(plan, executor, sched)
+    _record_host_drift(plan, executor, sched, "attention")
     return out.to(compute_dtype(q.dtype))

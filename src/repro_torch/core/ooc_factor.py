@@ -60,6 +60,12 @@ the panel ops' workspace charged), and re-executes clean.
 reference: the panel ops run on ``torch_device`` and each trailing update
 is a hybrid ``ooc_syrk``/``ooc_gemm`` across the device set
 (``repro_torch.hybrid``), fed from the host matrix.
+
+Each call is one ``obs.call`` (``cholesky``, ``lu``), recorded as in
+:mod:`~repro_torch.core.oocgemm` when the executor records spans or a
+tracer is active: ``cholesky.intake``, ``cholesky.plan``,
+``cholesky.clone_a``, ``cholesky.execute``, ``cholesky.tril`` (``lu.*``
+likewise, without the ``tril``).
 """
 
 from __future__ import annotations
@@ -69,8 +75,9 @@ from typing import List, Optional, Sequence, Tuple
 import torch
 
 from repro_torch.core import pipeline as plib
-from repro_torch.core.oocgemm import (_check_slice, _record_host_drift,
-                                      _torch_device, ooc_gemm, ooc_syrk)
+from repro_torch.core.oocgemm import (_check_slice, _entry_call,
+                                      _record_host_drift, _torch_device,
+                                      ooc_gemm, ooc_syrk)
 from repro_torch.core.pipeline import FactorPipelineSpec, factor_pipeline_spec
 from repro_torch.core.runtime import (ScheduleExecutor, apply_panel_pivots,
                                       chol_panel_solve, device_tensor,
@@ -167,33 +174,28 @@ def _run_factor(A: torch.Tensor, spec: FactorPipelineSpec, nstreams: int,
     (factored matrix, executor state) — LU's permutation rides in scratch.
 
     When a trace is active the executor records its pipeline as the
-    ``factor:<kind>`` lane group, and the ``repro_factor_*`` gauges expose
-    the lookahead/panel shape; a tuned ``plan`` also yields a drift record
-    (whole-factorization predicted vs measured)."""
+    ``factor:<kind>`` lane group; a tuned ``plan`` also yields a drift
+    record (whole-factorization predicted vs measured)."""
     obs = get_observability()
-    sched = plib.compile_factor_pipeline(spec, nstreams=nstreams, nbuf=nbuf,
-                                         evict=evict)
-    if validate:
-        validate_schedule(sched)
-    out = A.clone()
+    kind = spec.kind
+    with obs.span(f"{kind}.plan"):
+        sched = plib.compile_factor_pipeline(spec, nstreams=nstreams,
+                                             nbuf=nbuf, evict=evict)
+        if validate:
+            validate_schedule(sched)
+    with obs.span(f"{kind}.clone_a",
+                  copy_bytes=A.numel() * A.element_size()):
+        out = A.clone()
     ex = executor or ScheduleExecutor(
         record_spans=obs.tracer is not None,
-        trace_group=f"factor:{spec.kind}", torch_device=torch_device)
-    state = ex.run(
-        sched, operands={}, outputs={"A": out},
-        ctx={"alpha": -1.0, "beta": 1.0, "panel": spec.panel, "n": spec.n},
-        faults=faults, policy=policy)
-    if obs.metrics.enabled:
-        kernel = f"{spec.kind}-factor"
-        obs.metrics.gauge(
-            "repro_factor_lookahead_depth",
-            "panels factored ahead of the streaming trailing update").set(
-                spec.lookahead, kernel=kernel)
-        obs.metrics.gauge(
-            "repro_factor_panel_width",
-            "resident panel width of the last factorization").set(
-                spec.panel, kernel=kernel)
-    _record_host_drift(plan, ex, sched)
+        trace_group=f"factor:{kind}", torch_device=torch_device)
+    with obs.span(f"{kind}.execute"):
+        state = ex.run(
+            sched, operands={}, outputs={"A": out},
+            ctx={"alpha": -1.0, "beta": 1.0, "panel": spec.panel,
+                 "n": spec.n},
+            faults=faults, policy=policy)
+    _record_host_drift(plan, ex, sched, kind)
     return out, state
 
 
@@ -281,6 +283,7 @@ def _factor_spec(kind: str, A: torch.Tensor, n: int, panel: int,
             nstreams, nbuf, evict, None)
 
 
+@_entry_call("cholesky")
 def ooc_cholesky(A, panel: int = 256, *, budget_bytes: int,
                  backend: str = "host", tune=None, tuner=None,
                  lookahead: int = 1, nstreams: int = 2, nbuf: int = 2,
@@ -314,23 +317,29 @@ def ooc_cholesky(A, panel: int = 256, *, budget_bytes: int,
     float64 with f32-accurate residuals (~1e-6 relative, not LAPACK's
     ~1e-15), as in the reference.
     """
-    A, n, dev = _prepare(A, backend, tune, devices, faults, executor,
-                         torch_device)
+    obs = get_observability()
+    with obs.span("cholesky.intake"):
+        A, n, dev = _prepare(A, backend, tune, devices, faults, executor,
+                             torch_device)
     if devices is not None or backend != "host":
         with prefer_cusolver(dev):
             return _loop_cholesky(A, panel, budget_bytes, backend, dev,
                                   tune, tuner, devices, tolerance)
-    spec, nstreams, nbuf, evict, plan = _factor_spec(
-        "cholesky", A, n, panel, budget_bytes, lookahead, nstreams, nbuf,
-        evict, tune, tuner, dev)
+    with obs.span("cholesky.plan"):
+        spec, nstreams, nbuf, evict, plan = _factor_spec(
+            "cholesky", A, n, panel, budget_bytes, lookahead, nstreams,
+            nbuf, evict, tune, tuner, dev)
     out, _ = _run_factor_resilient(
         A, "cholesky", spec, nstreams, nbuf, validate, evict, plan,
         faults=faults, policy=fault_policy, panel=panel,
         budget_bytes=budget_bytes, executor=executor, torch_device=dev,
         tune=tune, tuner=tuner)
-    return torch.tril(out)
+    with obs.span("cholesky.tril",
+                  copy_bytes=out.numel() * out.element_size()):
+        return torch.tril(out)
 
 
+@_entry_call("lu")
 def ooc_lu(A, panel: int = 256, *, budget_bytes: int,
            backend: str = "host", tune=None, tuner=None,
            lookahead: int = 1, nstreams: int = 2, nbuf: int = 2,
@@ -358,15 +367,18 @@ def ooc_lu(A, panel: int = 256, *, budget_bytes: int,
     as the loop's trailing update.  As there, float64 input is computed
     in float32.
     """
-    A, n, dev = _prepare(A, backend, tune, devices, faults, executor,
-                         torch_device)
+    obs = get_observability()
+    with obs.span("lu.intake"):
+        A, n, dev = _prepare(A, backend, tune, devices, faults, executor,
+                             torch_device)
     if devices is not None or backend != "host":
         with prefer_cusolver(dev):
             return _loop_lu(A, panel, budget_bytes, backend, dev, tune,
                             tuner, devices, tolerance)
-    spec, nstreams, nbuf, evict, plan = _factor_spec(
-        "lu", A, n, panel, budget_bytes, lookahead, nstreams, nbuf, evict,
-        tune, tuner, dev)
+    with obs.span("lu.plan"):
+        spec, nstreams, nbuf, evict, plan = _factor_spec(
+            "lu", A, n, panel, budget_bytes, lookahead, nstreams, nbuf,
+            evict, tune, tuner, dev)
     out, state = _run_factor_resilient(
         A, "lu", spec, nstreams, nbuf, validate, evict, plan,
         faults=faults, policy=fault_policy, panel=panel,

@@ -43,10 +43,17 @@ each band runs on its member's executor, and every member computes on
 ``backend="mesh"`` runs the SUMMA ring of :class:`MeshOocRuntime` over
 ``mesh`` (a ``torch.distributed`` DeviceMesh with a ``"model"`` axis) or
 a prepared ``runtime``; it returns C as a row-sharded DTensor.
+
+Each call is one ``obs.call`` (``gemm``, ``syrk``): when the runtime's
+executor records spans, or a tracer is active, its host work is recorded
+by span (``gemm.intake``, ``gemm.zero_c``, ``gemm.plan``,
+``gemm.clone_c``, ``gemm.execute``, ``gemm.drift``; ``syrk.*`` likewise)
+on ``get_observability().calls``.
 """
 
 from __future__ import annotations
 
+import functools
 from typing import Optional, Sequence
 
 import torch
@@ -119,20 +126,39 @@ def _tuned_gemm_plan(tuner, kernel: str, M: int, N: int, K: int,
     return plan
 
 
-def _record_host_drift(plan, ex, sched) -> None:
+def _entry_call(entry: str):
+    """Run the decorated entry point as ``obs.call(entry, record)``, where
+    ``record`` is whether the caller's executor (``executor=``, or
+    ``runtime=``'s) records spans."""
+    def deco(fn):
+        @functools.wraps(fn)
+        def call(*args, **kw):
+            ex = kw.get("executor") \
+                or getattr(kw.get("runtime"), "executor", None)
+            with get_observability().call(
+                    entry, getattr(ex, "record_spans", False)):
+                return fn(*args, **kw)
+        return call
+    return deco
+
+
+def _record_host_drift(plan, ex, sched, entry: str) -> None:
     """After a tuned run of ``sched`` on executor ``ex``: log measured
     wall/bytes against the plan's simulated makespan and the schedule's
-    modeled byte totals (every tuned entry point's drift record)."""
+    modeled byte totals (every tuned entry point's drift record), inside
+    the span ``<entry>.drift``."""
     if plan is None:
         return
-    get_observability().record_drift(
-        plan.kernel, plan.tier, plan.fingerprint,
-        predicted_makespan=plan.makespan,
-        measured_seconds=ex.last_wall_seconds,
-        predicted_h2d_bytes=sched.total_bytes(OpKind.H2D),
-        measured_h2d_bytes=ex.last_h2d_bytes,
-        predicted_d2h_bytes=sched.total_bytes(OpKind.D2H),
-        measured_d2h_bytes=ex.last_d2h_bytes)
+    obs = get_observability()
+    with obs.span(f"{entry}.drift"):
+        obs.record_drift(
+            plan.kernel, plan.tier, plan.fingerprint,
+            predicted_makespan=plan.makespan,
+            measured_seconds=ex.last_wall_seconds,
+            predicted_h2d_bytes=sched.total_bytes(OpKind.H2D),
+            measured_h2d_bytes=ex.last_h2d_bytes,
+            predicted_d2h_bytes=sched.total_bytes(OpKind.D2H),
+            measured_d2h_bytes=ex.last_d2h_bytes)
 
 
 def _operand(x, backend: str, dev: torch.device) -> torch.Tensor:
@@ -165,7 +191,7 @@ def _host_gemm_resilient(rt, A, B, C, alpha, beta, part, sched, *, faults,
     try:
         out = rt.gemm(A, B, C, alpha, beta, part, schedule=sched,
                       faults=faults, policy=policy)
-        _record_host_drift(tuned, rt.executor, sched)
+        _record_host_drift(tuned, rt.executor, sched, "gemm")
         return out
     except OomError as e:
         # without its traceback, whose frames hold the failed run's device
@@ -215,6 +241,7 @@ def _mesh_gemm(A, B, C, alpha, beta, mesh, runtime, budget_bytes):
     return runtime.gemm(A, B, C, alpha, beta)
 
 
+@_entry_call("gemm")
 def ooc_gemm(
     A,
     B,
@@ -294,15 +321,18 @@ def ooc_gemm(
         out, _ = run_hybrid_gemm(A, B, C, alpha, beta, hplan,
                                  validate=validate, torch_device=dev)
         return out
-    A = _operand(A, backend, dev)
-    B = _operand(B, backend, dev)
+    obs = get_observability()
+    with obs.span("gemm.intake"):
+        A = _operand(A, backend, dev)
+        B = _operand(B, backend, dev)
     M, K = A.shape
     K2, N = B.shape
     if K != K2:
         raise ValueError(f"inner dims mismatch: {tuple(A.shape)} @ "
                          f"{tuple(B.shape)}")
     if C is None:
-        C = torch.zeros((M, N), dtype=A.dtype, device=A.device)
+        with obs.span("gemm.zero_c", copy_bytes=M * N * A.element_size()):
+            C = torch.zeros((M, N), dtype=A.dtype, device=A.device)
         beta = 0.0
     bpe = A.element_size()
 
@@ -310,24 +340,27 @@ def ooc_gemm(
         return _in_core(A, B, C, alpha, beta, backend, dev)
 
     tuned = None
-    if tune == "auto" and backend == "host":
-        tuned = _tuned_gemm_plan(tuner, "gemm", M, N, K, budget_bytes,
-                                 A.dtype)
-        part, nstreams, nbuf = (tuned.gemm_partition(), tuned.nstreams,
-                                tuned.nbuf)
-        traversal, evict = tuned.traversal, tuned.evict
-    else:
-        part = plan_gemm_partition(M, N, K, budget_bytes, bpe)
+    with obs.span("gemm.plan"):
+        if tune == "auto" and backend == "host":
+            tuned = _tuned_gemm_plan(tuner, "gemm", M, N, K, budget_bytes,
+                                     A.dtype)
+            part, nstreams, nbuf = (tuned.gemm_partition(), tuned.nstreams,
+                                    tuned.nbuf)
+            traversal, evict = tuned.traversal, tuned.evict
+        else:
+            part = plan_gemm_partition(M, N, K, budget_bytes, bpe)
+        if backend == "host":
+            sched = plib.build_gemm_schedule(
+                part, nstreams=nstreams, nbuf=nbuf, traversal=traversal,
+                evict=evict)
+            if validate:
+                validate_schedule(sched)
     if backend == "host":
-        sched = plib.build_gemm_schedule(part, nstreams=nstreams, nbuf=nbuf,
-                                         traversal=traversal, evict=evict)
-        if validate:
-            validate_schedule(sched)
         rt = runtime or HostOocRuntime(Device("HBM", 0, budget_bytes),
                                        torch_device=dev)
         if faults is None:
             out = rt.gemm(A, B, C, alpha, beta, part, schedule=sched)
-            _record_host_drift(tuned, rt.executor, sched)
+            _record_host_drift(tuned, rt.executor, sched, "gemm")
             return out
         return _host_gemm_resilient(
             rt, A, B, C, alpha, beta, part, sched, faults=faults,
@@ -339,6 +372,7 @@ def ooc_gemm(
     return rt.gemm(A, B, C, alpha, beta, part)
 
 
+@_entry_call("syrk")
 def ooc_syrk(
     P,
     C=None,
@@ -391,10 +425,13 @@ def ooc_syrk(
         out, _ = run_hybrid_syrk(P, C, alpha, beta, hplan,
                                  validate=validate, torch_device=dev)
         return out
-    P = _operand(P, backend, dev)
+    obs = get_observability()
+    with obs.span("syrk.intake"):
+        P = _operand(P, backend, dev)
     n, K = P.shape
     if C is None:
-        C = torch.zeros((n, n), dtype=P.dtype, device=P.device)
+        with obs.span("syrk.zero_c", copy_bytes=n * n * P.element_size()):
+            C = torch.zeros((n, n), dtype=P.dtype, device=P.device)
         beta = 0.0
     bpe = P.element_size()
 
@@ -403,24 +440,27 @@ def ooc_syrk(
         return _in_core(Pd, Pd.T.contiguous(), C, alpha, beta, backend, dev)
 
     tuned = None
-    if tune == "auto" and backend == "host":
-        tuned = _tuned_gemm_plan(tuner, "syrk", n, n, K, budget_bytes,
-                                 P.dtype)
-        part, nstreams, nbuf = (tuned.gemm_partition(), tuned.nstreams,
-                                tuned.nbuf)
-        traversal, evict = tuned.traversal, tuned.evict
-    else:
-        part = plan_gemm_partition(n, n, K, budget_bytes, bpe)
+    with obs.span("syrk.plan"):
+        if tune == "auto" and backend == "host":
+            tuned = _tuned_gemm_plan(tuner, "syrk", n, n, K, budget_bytes,
+                                     P.dtype)
+            part, nstreams, nbuf = (tuned.gemm_partition(), tuned.nstreams,
+                                    tuned.nbuf)
+            traversal, evict = tuned.traversal, tuned.evict
+        else:
+            part = plan_gemm_partition(n, n, K, budget_bytes, bpe)
+        if backend == "host":
+            sched = plib.build_syrk_schedule(
+                part, nstreams=nstreams, nbuf=nbuf, traversal=traversal,
+                evict=evict)
+            if validate:
+                validate_schedule(sched)
     if backend == "host":
-        sched = plib.build_syrk_schedule(part, nstreams=nstreams, nbuf=nbuf,
-                                         traversal=traversal, evict=evict)
-        if validate:
-            validate_schedule(sched)
         rt = runtime or HostOocRuntime(Device("HBM", 0, budget_bytes),
                                        torch_device=dev)
         out = rt.syrk(P, C, alpha, beta, part, schedule=sched,
                       faults=faults, policy=fault_policy)
-        _record_host_drift(tuned, rt.executor, sched)
+        _record_host_drift(tuned, rt.executor, sched, "syrk")
         return out
     rt = runtime or VmemOocRuntime(Device("VMEM", 0, budget_bytes),
                                    torch_device=dev)

@@ -59,7 +59,7 @@ from repro_torch.core.partitioner import GemmPartition
 from repro_torch.core.streams import (BlockRef, Device, Op, OpKind, Schedule,
                                       ScheduleError, SliceRef)
 from repro_torch.kernels import ops as kops
-from repro_torch.obs import get_observability
+from repro_torch.obs import get_observability, profiled
 
 def resolve_device(torch_device=None, arg: str = "torch_device"
                    ) -> torch.device:
@@ -504,6 +504,9 @@ class ScheduleExecutor:
     staging from the host operands, and
     ``last_stage_wait_seconds`` the host time spent waiting for a staging
     buffer's previous copy to finish before refilling it.
+    ``last_land_seconds`` is the host time spent landing write-backs (the
+    wait for each D2H copy's event and the store of its staging into the
+    host output).
     ``last_buffer_bytes`` is the size of the run's device parity buffers,
     and ``last_handler_seconds`` the host seconds that handlers reported
     by name in ``state.seconds`` (the LU write-back's row-swap replay).
@@ -538,7 +541,11 @@ class ScheduleExecutor:
     around each op's device work (H2D spans exclude the host staging
     copy), on the CPU from the host clock.  When observability is enabled,
     every run publishes its aggregates as ``repro_executor_*`` metrics and
-    recorded spans join the active tracer.
+    recorded spans join the active tracer.  While a profiler records, each
+    staging fill and each landing is a ``record_function`` range
+    (``executor.stage``, ``executor.land``); a run's wall and landing
+    seconds join the calling thread's open call record
+    (:meth:`~repro_torch.obs.Observability.add_exec_run`).
     """
 
     MODES = ("issue_order", "concurrent")
@@ -567,6 +574,7 @@ class ScheduleExecutor:
         self.last_wall_seconds = 0.0
         self.last_stage_seconds = 0.0
         self.last_stage_wait_seconds = 0.0
+        self.last_land_seconds = 0.0
         self.last_buffer_bytes = 0
         self.last_handler_seconds: Dict[str, float] = {}
         # fault-injection accounting of the most recent run (None when it
@@ -689,6 +697,7 @@ class ScheduleExecutor:
         self.last_d2h_bytes = 0
         self.last_stage_seconds = 0.0
         self.last_stage_wait_seconds = 0.0
+        self.last_land_seconds = 0.0
         self.last_fault_stats = None
         self.last_snapshot_bytes = 0
         obs = get_observability()
@@ -732,9 +741,12 @@ class ScheduleExecutor:
 
         def flush(key) -> None:
             stage, ev, ref = pending[key]
-            if ev is not None:
-                ev.synchronize()
-            _land(st.outputs[ref.operand], stage, ref)
+            with profiled("executor.land"):
+                t0 = time.perf_counter()
+                if ev is not None:
+                    ev.synchronize()
+                _land(st.outputs[ref.operand], stage, ref)
+                self.last_land_seconds += time.perf_counter() - t0
             del pending[key]
 
         def back_off(attempt: int) -> None:
@@ -792,7 +804,8 @@ class ScheduleExecutor:
                 prev.synchronize()
             t1 = time.perf_counter()
             stage = self._stage("h2d", key, view)
-            _fill(stage, src, ref)
+            with profiled("executor.stage"):
+                _fill(stage, src, ref)
             self.last_stage_wait_seconds += t1 - t0
             self.last_stage_seconds += time.perf_counter() - t1
             device_work()
@@ -965,6 +978,7 @@ class ScheduleExecutor:
                      base.elapsed_time(t1) / 1e3) for op, t0, t1 in marks]
         self.last_wall_seconds = time.perf_counter() - t_run0
         self.last_handler_seconds = dict(st.seconds)
+        obs.add_exec_run(self.last_wall_seconds, self.last_land_seconds)
         raise_on_info(st.statuses)
         if obs.metrics.enabled:
             obs.record_executor_run(
@@ -1265,14 +1279,19 @@ class HostOocRuntime(OocRuntime):
         sched = schedule or plib.build_gemm_schedule(
             part, nstreams=nstreams, nbuf=nbuf
         )
-        out = host_tensor(C).clone()
-        self.executor.run(
-            sched,
-            operands={"A": host_tensor(A), "B": host_tensor(B)},
-            outputs={"C": out},
-            ctx={"alpha": alpha, "beta": beta},
-            faults=faults, policy=policy,
-        )
+        obs = get_observability()
+        C = host_tensor(C)
+        with obs.span("gemm.clone_c",
+                      copy_bytes=C.numel() * C.element_size()):
+            out = C.clone()
+        with obs.span("gemm.execute"):
+            self.executor.run(
+                sched,
+                operands={"A": host_tensor(A), "B": host_tensor(B)},
+                outputs={"C": out},
+                ctx={"alpha": alpha, "beta": beta},
+                faults=faults, policy=policy,
+            )
         return out
 
     def syrk(self, P, C, alpha, beta, part: GemmPartition,
@@ -1283,14 +1302,19 @@ class HostOocRuntime(OocRuntime):
         sched = schedule or plib.build_syrk_schedule(
             part, nstreams=nstreams, nbuf=nbuf
         )
-        out = host_tensor(C).clone()
-        self.executor.run(
-            sched,
-            operands={"P": host_tensor(P)},
-            outputs={"C": out},
-            ctx={"alpha": alpha, "beta": beta},
-            faults=faults, policy=policy,
-        )
+        obs = get_observability()
+        C = host_tensor(C)
+        with obs.span("syrk.clone_c",
+                      copy_bytes=C.numel() * C.element_size()):
+            out = C.clone()
+        with obs.span("syrk.execute"):
+            self.executor.run(
+                sched,
+                operands={"P": host_tensor(P)},
+                outputs={"C": out},
+                ctx={"alpha": alpha, "beta": beta},
+                faults=faults, policy=policy,
+            )
         return out
 
 

@@ -9,6 +9,12 @@ the per-run publication helpers the executor and entry points call:
 instrumented paths guard on ``obs.metrics.enabled`` / ``obs.tracer is
 None`` and publish per-run aggregates only.
 
+Beyond the reference: :meth:`Observability.span` also enters
+``torch.profiler.record_function`` while a profiler records, so the port's
+spans lie on the device trace's clock, and adds its host seconds to the
+thread's open :class:`CallRecord`; :meth:`Observability.call` opens one
+per entry-point call (``Observability.calls`` keeps the last few hundred).
+
 ``TraceAnalysis``, ``WhatIfReport`` and ``whatif`` resolve lazily from
 :mod:`repro_torch.obs.analyze` and :mod:`repro_torch.obs.whatif`, which
 import the simulator: this package imports nothing of ``repro_torch.core``
@@ -17,8 +23,12 @@ at load (the core runtime imports it first).
 
 from __future__ import annotations
 
+import collections
 import threading
-from typing import Dict, List, Optional
+import time
+from typing import Deque, Dict, List, Optional
+
+import torch.autograd.profiler as _autograd_profiler
 
 from repro_torch.obs.drift import DriftMonitor, DriftRecord, key_str
 from repro_torch.obs.metrics import (BACKOFF_BUCKETS, Counter, Gauge,
@@ -26,10 +36,10 @@ from repro_torch.obs.metrics import (BACKOFF_BUCKETS, Counter, Gauge,
 from repro_torch.obs.spans import FlatSpan, Tracer, TraceSpan
 
 __all__ = [
-    "Counter", "DriftMonitor", "DriftRecord", "FlatSpan", "Gauge",
-    "Histogram", "Metric", "MetricRegistry", "Observability", "TraceAnalysis",
-    "TraceSpan", "Tracer", "WhatIfReport", "get_observability", "key_str",
-    "whatif",
+    "CallRecord", "Counter", "DriftMonitor", "DriftRecord", "FlatSpan",
+    "Gauge", "Histogram", "Metric", "MetricRegistry", "Observability",
+    "TraceAnalysis", "TraceSpan", "Tracer", "WhatIfReport",
+    "get_observability", "key_str", "whatif",
 ]
 
 # Attribution lives in submodules that import repro_torch.core (the
@@ -67,6 +77,98 @@ class _NullSpan:
 
 _NULL_SPAN = _NullSpan()
 
+# completed and failed entry-point calls kept on ``Observability.calls``
+CALLS_KEPT = 256
+
+
+def profiled(name: str):
+    """``torch.profiler.record_function(name)`` while a profiler records,
+    else the shared no-op span: the profiler's timeline then names the host
+    work by the program's own span names."""
+    if _autograd_profiler._is_profiler_enabled:
+        return _autograd_profiler.record_function(name)
+    return _NULL_SPAN
+
+
+class CallRecord:
+    """One entry-point call's host accounting: seconds by span name (the
+    call span's own under ``entry``), ``copy_bytes`` that the entry point's
+    own host copies wrote, ``exec_walls`` (each executor run's
+    ``last_wall_seconds``, appended as the run ends) and ``ok`` (False when
+    the call raised)."""
+
+    __slots__ = ("entry", "seconds", "copy_bytes", "exec_walls", "ok")
+
+    def __init__(self, entry: str):
+        self.entry = entry
+        self.seconds: Dict[str, float] = {}
+        self.copy_bytes = 0
+        self.exec_walls: List[float] = []
+        self.ok = False
+
+    def add(self, name: str, seconds: float, copy_bytes: int = 0) -> None:
+        self.seconds[name] = self.seconds.get(name, 0.0) + seconds
+        self.copy_bytes += copy_bytes
+
+
+class _Span:
+    """A span seen by a tracer (``handle``), a recording profiler (``rf``)
+    and an open call record (``rec``); an absent one is the no-op span, or
+    None for the record."""
+
+    __slots__ = ("_name", "_handle", "_rf", "_rec", "_copy_bytes", "_t0")
+
+    def __init__(self, name, handle, rf, rec, copy_bytes):
+        self._name = name
+        self._handle = handle
+        self._rf = rf
+        self._rec = rec
+        self._copy_bytes = copy_bytes
+        self._t0 = 0.0
+
+    def __enter__(self):
+        self._rf.__enter__()
+        self._t0 = time.perf_counter()
+        return self
+
+    def __exit__(self, *exc):
+        if self._rec is not None:
+            self._rec.add(self._name, time.perf_counter() - self._t0,
+                          self._copy_bytes)
+        self._rf.__exit__(*exc)
+        self._handle.__exit__(*exc)
+        return None
+
+    def annotate(self, **kw) -> None:
+        self._handle.annotate(**kw)
+
+
+class _Call(_Span):
+    """The outermost span of an entry-point call: it owns the thread's
+    :class:`CallRecord` while it is open, and adds its own seconds to it
+    under the entry's name."""
+
+    __slots__ = ("_obs",)
+
+    def __init__(self, obs: "Observability", entry: str):
+        tr = obs.tracer
+        super().__init__(entry, _NULL_SPAN if tr is None
+                         else tr.span(entry, cat="call"),
+                         profiled(entry), CallRecord(entry), 0)
+        self._obs = obs
+
+    def __enter__(self) -> CallRecord:
+        super().__enter__()
+        self._obs._local.call = self._rec
+        return self._rec
+
+    def __exit__(self, exc_type, *exc):
+        self._obs._local.call = None
+        self._rec.ok = exc_type is None
+        super().__exit__(exc_type, *exc)
+        self._obs.calls.append(self._rec)
+        return None
+
 
 class Observability:
     """Metrics + tracing + drift, with one enable/disable switch.
@@ -79,6 +181,8 @@ class Observability:
         self.metrics = MetricRegistry(enabled=False)
         self.drift = DriftMonitor()
         self.tracer: Optional[Tracer] = None
+        self.calls: Deque[CallRecord] = collections.deque(maxlen=CALLS_KEPT)
+        self._local = threading.local()
         self._lock = threading.Lock()
 
     # -- switches ------------------------------------------------------------
@@ -99,10 +203,12 @@ class Observability:
         return self
 
     def reset(self) -> "Observability":
-        """Drop all collected state (metrics families, drift, trace)."""
+        """Drop all collected state (metrics families, drift, trace, call
+        records)."""
         self.metrics.reset()
         self.drift.reset()
         self.tracer = None
+        self.calls.clear()
         return self
 
     # -- tracing -------------------------------------------------------------
@@ -117,11 +223,44 @@ class Observability:
             tr, self.tracer = self.tracer, None
             return tr
 
-    def span(self, name: str, cat: str = "phase", **args):
-        """A tracer span when tracing is active, else a free no-op."""
+    def span(self, name: str, cat: str = "phase", copy_bytes: int = 0,
+             **args):
+        """A span seen by whatever records: the active tracer (a
+        hierarchical span), a recording ``torch.profiler`` session
+        (``record_function``) and this thread's open call record (its host
+        seconds under ``name``, and ``copy_bytes``, the bytes a host copy
+        inside it writes).  With none of them, the shared free no-op."""
         tr = self.tracer
-        return tr.span(name, cat=cat, **args) if tr is not None \
-            else _NULL_SPAN
+        rec = getattr(self._local, "call", None)
+        if copy_bytes:
+            args["copy_bytes"] = copy_bytes
+        handle = _NULL_SPAN if tr is None \
+            else tr.span(name, cat=cat, **args)
+        if rec is None and not _autograd_profiler._is_profiler_enabled:
+            return handle
+        return _Span(name, handle, profiled(name), rec, copy_bytes)
+
+    def call(self, entry: str, record: bool):
+        """The outermost span of one entry-point call (``gemm``,
+        ``cholesky``, ...).  It opens this thread's :class:`CallRecord`
+        when ``record`` (the caller's executor records spans) or a tracer
+        is active; the record joins :attr:`calls` when the call ends, as
+        failed if it raised.  A call inside an open one (an entry point's
+        nested trailing update) is a plain span of the outer record."""
+        if getattr(self._local, "call", None) is not None \
+                or not (record or self.tracer is not None):
+            return self.span(entry, cat="call")
+        return _Call(self, entry)
+
+    def add_exec_run(self, wall_seconds: float,
+                     land_seconds: float) -> None:
+        """An executor run that ended on this thread: its wall joins the
+        open call record's ``exec_walls``, its write-back landing joins its
+        seconds as ``executor.land``.  Without an open record, nothing."""
+        rec = getattr(self._local, "call", None)
+        if rec is not None:
+            rec.exec_walls.append(wall_seconds)
+            rec.add("executor.land", land_seconds)
 
     def instant(self, name: str, cat: str = "fault", **args) -> None:
         """A zero-duration trace marker when tracing is active, else a free

@@ -16,6 +16,7 @@ import os
 import pathlib
 import subprocess
 import sys
+import time
 
 import numpy as np
 import pytest
@@ -387,3 +388,181 @@ def test_observed_gemm_example_runs_on_cpu():
     assert "byte ratios: all exactly 1.0" in res.stdout
     assert any(line.startswith("  what-if ") for line in lines)
     assert any("critical path" in line for line in lines)
+
+
+# ------------------------------------------------- entry-point call records
+def _spd(n=192, seed=3):
+    g = np.random.default_rng(seed).standard_normal((n, n))
+    return (g @ g.T / n + np.eye(n)).astype(np.float32)
+
+
+def _call(entry, ex, tmp_path=None):
+    """One out-of-core call of ``entry`` on executor ``ex`` (CPU); the
+    tuned GEMM plans through a fresh tuner under ``tmp_path``."""
+    from repro_torch.core import Device, HostOocRuntime, ooc_cholesky, \
+        ooc_gemm
+
+    if entry == "cholesky":
+        A = _spd()
+        return ooc_cholesky(A, panel=64, budget_bytes=A.nbytes // 2,
+                            executor=ex)
+    A, B, _, _ = _seeded_gemm()
+    budget = (A.nbytes + B.nbytes + A.shape[0] * B.shape[1] * 4) // 3
+    kw = {}
+    if entry == "gemm-tuned":
+        from repro_torch.tune import AutoTuner, PlanCache, gpu_profile
+        kw = dict(tune="auto", tuner=AutoTuner(
+            profile=gpu_profile(), cache=PlanCache(str(tmp_path / "p.json")),
+            torch_device="cpu", nbuf_options=(1, 2), max_steps=128))
+    return ooc_gemm(A, B, budget_bytes=budget,
+                    runtime=HostOocRuntime(Device("HBM", 0, budget),
+                                           executor=ex), **kw)
+
+
+CALL_SPANS = {
+    "gemm": ({"gemm.intake", "gemm.zero_c", "gemm.plan", "gemm.clone_c",
+              "gemm.execute"}, 2 * 256 * 256 * 4),
+    "gemm-tuned": ({"gemm.intake", "gemm.zero_c", "gemm.plan",
+                    "gemm.clone_c", "gemm.execute", "gemm.drift"},
+                   2 * 256 * 256 * 4),
+    "cholesky": ({"cholesky.intake", "cholesky.plan", "cholesky.clone_a",
+                  "cholesky.execute", "cholesky.tril"}, 2 * 192 * 192 * 4),
+}
+
+
+@pytest.mark.parametrize("entry", sorted(CALL_SPANS))
+def test_entry_point_call_appends_one_record(entry, tmp_path):
+    """An executor that records spans makes each call append one completed
+    record: the table's spans, the executor's wall, the copies' bytes, and
+    the entry point's own spans within the call's own seconds."""
+    obs = get_observability()
+    ex = ScheduleExecutor(record_spans=True, torch_device="cpu")
+    _call(entry, ex, tmp_path)
+    (rec,) = obs.calls
+    names, copied = CALL_SPANS[entry]
+    assert rec.ok and rec.entry == entry.split("-")[0]
+    assert {k for k in rec.seconds
+            if k.startswith(rec.entry + ".")} == names
+    assert rec.exec_walls == [ex.last_wall_seconds]
+    assert rec.seconds["executor.land"] == ex.last_land_seconds > 0
+    assert rec.copy_bytes == copied
+    assert 0 < sum(rec.seconds[k] for k in names) <= rec.seconds[rec.entry]
+    assert "calls" not in json.dumps(obs.snapshot())
+
+
+def test_nothing_recorded_when_tracing_is_off(monkeypatch):
+    """No record, no ``record_function``, and the shared no-op span, when
+    neither the executor records spans nor a tracer nor a profiler is
+    on."""
+    import torch.autograd.profiler as ap
+
+    from repro_torch.obs import _NULL_SPAN
+
+    def refuse(name):
+        raise AssertionError(f"record_function({name!r}) entered")
+
+    monkeypatch.setattr(ap, "record_function", refuse)
+    obs = get_observability()
+    ex = ScheduleExecutor(torch_device="cpu")
+    for entry in ("gemm", "cholesky"):
+        _call(entry, ex)
+    assert len(obs.calls) == 0
+    assert ex.last_land_seconds > 0
+    assert obs.span("gemm.plan") is _NULL_SPAN
+    assert obs.call("gemm", False) is _NULL_SPAN
+
+
+def test_profiler_sees_spans_around_their_operators():
+    """Under ``torch.profiler`` the spans are ``record_function`` ranges:
+    ``gemm.zero_c`` encloses the zero-fill's ``aten::zeros`` and
+    ``aten::fill_``, and each landing is an ``executor.land``."""
+    import torch
+
+    ex = ScheduleExecutor(torch_device="cpu")
+    with torch.profiler.profile(
+            activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+        _call("gemm", ex)
+    events = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
+              for e in prof.profiler.kineto_results.events()]
+    (zero,) = [e for e in events if e[0] == "gemm.zero_c"]
+    inside = {n for n, s, t in events if zero[1] <= s and t <= zero[2]}
+    assert {"aten::zeros", "aten::fill_"} <= inside
+    names = [n for n, _, _ in events]
+    assert names.count("gemm") == 1
+    assert names.count("executor.land") > 0
+    assert len(get_observability().calls) == 0
+
+
+def test_tracer_nests_entry_spans_under_the_call():
+    obs = get_observability()
+    tr = obs.start_trace("calls")
+    _call("gemm", ScheduleExecutor(torch_device="cpu"))
+    spans = tr.spans()
+    (call,) = [s for s in spans if s.name == "gemm"]
+    inner = [s for s in spans if s.name.startswith("gemm.")]
+    assert {s.name for s in inner} == CALL_SPANS["gemm"][0]
+    assert all(s.parent_id == call.span_id for s in inner)
+    assert dict(next(s for s in inner if s.name == "gemm.zero_c").args)[
+        "copy_bytes"] == str(256 * 256 * 4)
+    (rec,) = obs.calls
+    assert rec.ok and rec.entry == "gemm"
+
+
+def test_land_seconds_reset_between_runs(monkeypatch):
+    from repro_torch.core import runtime
+
+    A, B, C, sched = _seeded_gemm()
+    ex = ScheduleExecutor(torch_device="cpu")
+    ctx = {"alpha": 1.0, "beta": 0.0}
+    land = runtime._land
+    n_d2h = sum(op.kind.name == "D2H" for op in sched.ops)
+
+    def slow_land(*a):
+        time.sleep(0.02)
+        land(*a)
+
+    monkeypatch.setattr(runtime, "_land", slow_land)
+    ex.run(sched, {"A": A, "B": B}, {"C": C.copy()}, ctx)
+    assert ex.last_land_seconds >= 0.02 * n_d2h > 0
+    monkeypatch.setattr(runtime, "_land", land)
+    ex.run(sched, {"A": A, "B": B}, {"C": C.copy()}, ctx)
+    assert 0 < ex.last_land_seconds < 0.02 * n_d2h
+
+
+@pytest.mark.parametrize("case", ["cholesky-loop", "gemm-oom-rerun",
+                                  "gemm-raises"])
+def test_one_record_per_outer_call(case):
+    """A nested entry call (the Cholesky loop's ``ooc_syrk``) is a span of
+    the outer record, a degraded re-run joins the call's record, and a
+    call that raises leaves a failed record."""
+    from repro_torch.core import Device, HostOocRuntime, ooc_cholesky, \
+        ooc_gemm
+    from repro_torch.fault import FaultPlan, FaultPolicy, FaultSpec
+
+    obs = get_observability()
+    ex = ScheduleExecutor(record_spans=True, torch_device="cpu")
+    if case == "cholesky-loop":
+        obs.start_trace("loop")
+        A = _spd()
+        ooc_cholesky(A, panel=64, budget_bytes=A.nbytes // 2,
+                     backend="vmem", torch_device="cpu")
+        (rec,) = obs.calls
+        assert rec.ok and rec.entry == "cholesky" and "syrk" in rec.seconds
+        return
+    A, B, _, sched = _seeded_gemm()
+    rt = HostOocRuntime(Device("HBM", 0, 1 << 30), executor=ex)
+    budget = (A.nbytes + B.nbytes + A.shape[0] * B.shape[1] * 4) // 3
+    if case == "gemm-raises":
+        with pytest.raises(ValueError):
+            ooc_gemm(A, B.T, budget_bytes=budget, runtime=rt)
+        (rec,) = obs.calls
+        assert not rec.ok and rec.exec_walls == []
+        return
+    first = next(i for i, op in enumerate(sched.ops)
+                 if op.kind.name == "COMPUTE")
+    pol = FaultPolicy(sleep=lambda s: None)
+    ooc_gemm(A, B, budget_bytes=budget, runtime=rt, fault_policy=pol,
+             faults=FaultPlan(specs=(FaultSpec(op=first, cls="oom"),)))
+    assert pol.degrades
+    (rec,) = obs.calls
+    assert rec.ok and rec.exec_walls == [ex.last_wall_seconds]
