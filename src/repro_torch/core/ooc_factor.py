@@ -334,9 +334,10 @@ def ooc_cholesky(A, panel: int = 256, *, budget_bytes: int,
         faults=faults, policy=fault_policy, panel=panel,
         budget_bytes=budget_bytes, executor=executor, torch_device=dev,
         tune=tune, tuner=tuner)
+    # ``out`` is the run's own copy of A: masked where it lies
     with obs.span("cholesky.tril",
-                  copy_bytes=out.numel() * out.element_size()):
-        return torch.tril(out)
+                  copy_bytes=n * (n - 1) // 2 * out.element_size()):
+        return out.tril_()
 
 
 @_entry_call("lu")
@@ -425,7 +426,7 @@ def _loop_cholesky(A: torch.Tensor, panel: int, budget_bytes: int,
         A[k1:, k1:] = ooc_syrk(P, A[k1:, k1:], alpha=-1.0, beta=1.0,
                                **kw).cpu()
     raise_on_info(infos)
-    return torch.tril(A)
+    return A.tril_()
 
 
 def _loop_lu(A: torch.Tensor, panel: int, budget_bytes: int, backend: str,

@@ -17,7 +17,9 @@ zeros of A's dtype); 64-bit operands land on the device in 32 bits.
 no card the caller must pass ``torch_device="cpu"`` (the kernels' plain
 versions).  The host backend takes and returns host data (numpy arrays or
 CPU tensors in, a CPU tensor out); the vmem backend moves its operands to
-the device and returns a device tensor.
+the device and returns a device tensor.  With no C the host backend
+returns the zeros the call made and wrote into; a caller's C is copied
+first and never written.
 
 ``faults=``/``fault_policy=`` (host backend) arm fault injection on the
 executor (``repro_torch.fault``): transfer faults retry, compute faults
@@ -46,9 +48,9 @@ a prepared ``runtime``; it returns C as a row-sharded DTensor.
 
 Each call is one ``obs.call`` (``gemm``, ``syrk``): when the runtime's
 executor records spans, or a tracer is active, its host work is recorded
-by span (``gemm.intake``, ``gemm.zero_c``, ``gemm.plan``,
-``gemm.clone_c``, ``gemm.execute``, ``gemm.drift``; ``syrk.*`` likewise)
-on ``get_observability().calls``.
+by span (``gemm.intake``, ``gemm.plan``, ``gemm.zero_c`` with no C or
+``gemm.clone_c`` with a caller's, ``gemm.execute``, ``gemm.drift``;
+``syrk.*`` likewise) on ``get_observability().calls``.
 """
 
 from __future__ import annotations
@@ -64,7 +66,7 @@ from repro_torch.core.runtime import (HostOocRuntime, MeshOocRuntime,
                                       OocRuntime, VmemOocRuntime, as_tensor,
                                       block_gemm, compute_dtype,
                                       device_tensor, host_tensor,
-                                      resolve_device)
+                                      resolve_device, zeros_c)
 from repro_torch.core.streams import Device, OpKind, validate_schedule
 from repro_torch.obs import get_observability
 
@@ -330,13 +332,15 @@ def ooc_gemm(
     if K != K2:
         raise ValueError(f"inner dims mismatch: {tuple(A.shape)} @ "
                          f"{tuple(B.shape)}")
-    if C is None:
-        with obs.span("gemm.zero_c", copy_bytes=M * N * A.element_size()):
-            C = torch.zeros((M, N), dtype=A.dtype, device=A.device)
-        beta = 0.0
     bpe = A.element_size()
+    in_core = is_in_core(M, N, K, budget_bytes, bpe)
+    if C is None:
+        beta = 0.0
+        if in_core or backend != "host":
+            # else HostOocRuntime makes them and runs into them, uncopied
+            C = zeros_c("gemm", (M, N), A)
 
-    if is_in_core(M, N, K, budget_bytes, bpe):
+    if in_core:
         return _in_core(A, B, C, alpha, beta, backend, dev)
 
     tuned = None
@@ -429,13 +433,14 @@ def ooc_syrk(
     with obs.span("syrk.intake"):
         P = _operand(P, backend, dev)
     n, K = P.shape
-    if C is None:
-        with obs.span("syrk.zero_c", copy_bytes=n * n * P.element_size()):
-            C = torch.zeros((n, n), dtype=P.dtype, device=P.device)
-        beta = 0.0
     bpe = P.element_size()
+    in_core = is_in_core(n, n, K, budget_bytes, bpe)
+    if C is None:
+        beta = 0.0
+        if in_core or backend != "host":
+            C = zeros_c("syrk", (n, n), P)
 
-    if is_in_core(n, n, K, budget_bytes, bpe):
+    if in_core:
         Pd = device_tensor(P, dev)
         return _in_core(Pd, Pd.T.contiguous(), C, alpha, beta, backend, dev)
 

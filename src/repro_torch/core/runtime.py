@@ -162,6 +162,29 @@ def host_tensor(x) -> torch.Tensor:
     return t
 
 
+def zeros_c(entry: str, shape: Tuple[int, int], like: torch.Tensor
+            ) -> torch.Tensor:
+    """A fresh β = 0 output of ``entry`` (zeros in ``like``'s dtype, on its
+    device), made inside the span ``<entry>.zero_c``."""
+    with get_observability().span(
+            f"{entry}.zero_c",
+            copy_bytes=shape[0] * shape[1] * like.element_size()):
+        return torch.zeros(shape, dtype=like.dtype, device=like.device)
+
+
+def _host_output(entry: str, C, shape: Tuple[int, int],
+                 like: torch.Tensor) -> torch.Tensor:
+    """The host buffer a run of ``entry`` writes: its own zeros when no C
+    was given, else a copy of the caller's C (span ``<entry>.clone_c``),
+    which the run never writes."""
+    if C is None:
+        return zeros_c(entry, shape, like)
+    C = host_tensor(C)
+    with get_observability().span(f"{entry}.clone_c",
+                                  copy_bytes=C.numel() * C.element_size()):
+        return C.clone()
+
+
 def device_tensor(x, torch_device: torch.device) -> torch.Tensor:
     """An operand as a contiguous tensor on ``torch_device`` in its
     compute dtype."""
@@ -1254,7 +1277,9 @@ class HostOocRuntime(OocRuntime):
     ``device`` is the hcl tier tuple; by default its memory is the card's
     (``tier_bytes("HBM")``).  ``torch_device`` is the torch device; an
     ``executor`` brings its own.  Host operands stay on the host: numpy
-    arrays or CPU tensors in, a CPU tensor out.
+    arrays or CPU tensors in, a CPU tensor out.  ``gemm``/``syrk`` with
+    ``C=None`` (β = 0) run into zeros of their own and return them; a
+    caller's C is copied and never written.
     """
 
     def __init__(self, device: Optional[Device] = None,
@@ -1279,15 +1304,12 @@ class HostOocRuntime(OocRuntime):
         sched = schedule or plib.build_gemm_schedule(
             part, nstreams=nstreams, nbuf=nbuf
         )
-        obs = get_observability()
-        C = host_tensor(C)
-        with obs.span("gemm.clone_c",
-                      copy_bytes=C.numel() * C.element_size()):
-            out = C.clone()
-        with obs.span("gemm.execute"):
+        A, B = host_tensor(A), host_tensor(B)
+        out = _host_output("gemm", C, (A.shape[0], B.shape[1]), A)
+        with get_observability().span("gemm.execute"):
             self.executor.run(
                 sched,
-                operands={"A": host_tensor(A), "B": host_tensor(B)},
+                operands={"A": A, "B": B},
                 outputs={"C": out},
                 ctx={"alpha": alpha, "beta": beta},
                 faults=faults, policy=policy,
@@ -1302,15 +1324,12 @@ class HostOocRuntime(OocRuntime):
         sched = schedule or plib.build_syrk_schedule(
             part, nstreams=nstreams, nbuf=nbuf
         )
-        obs = get_observability()
-        C = host_tensor(C)
-        with obs.span("syrk.clone_c",
-                      copy_bytes=C.numel() * C.element_size()):
-            out = C.clone()
-        with obs.span("syrk.execute"):
+        P = host_tensor(P)
+        out = _host_output("syrk", C, (P.shape[0], P.shape[0]), P)
+        with get_observability().span("syrk.execute"):
             self.executor.run(
                 sched,
-                operands={"P": host_tensor(P)},
+                operands={"P": P},
                 outputs={"C": out},
                 ctx={"alpha": alpha, "beta": beta},
                 faults=faults, policy=policy,

@@ -449,3 +449,36 @@ def test_factor_schedule_accounts_full_flops():
     assert stats[0]["flops"] >= 1024 ** 3 // 3
     assert stats[0]["h2d_bytes"] == stats[1]["h2d_bytes"]
     assert stats[0]["d2h_bytes"] == stats[1]["d2h_bytes"]
+
+
+@pytest.mark.parametrize("A_type", ["numpy", "tensor"])
+@pytest.mark.parametrize("backend", ["host", "vmem"])
+def test_cholesky_masks_its_own_copy_in_place(rng, monkeypatch, backend,
+                                              A_type):
+    """Both paths (host pipeline, vmem loop) mask the call's own copy of A
+    in place: the caller's A reads the same afterwards, the result shares
+    no storage with it, and it is ``torch.tril`` of the unmasked factor
+    bit for bit, with exact zeros above the diagonal."""
+    A = _spd(rng, 192)
+    if A_type == "tensor":
+        A = torch.from_numpy(A)
+    before = np.array(A, copy=True)
+    unmasked = []
+    tril_ = torch.Tensor.tril_
+
+    def spy(self, *a, **kw):
+        unmasked.append(self.clone())
+        return tril_(self, *a, **kw)
+
+    monkeypatch.setattr(torch.Tensor, "tril_", spy)
+    L = T.ooc_cholesky(A, panel=64, budget_bytes=before.nbytes // 2,
+                       backend=backend, torch_device=CPU)
+    np.testing.assert_array_equal(np.asarray(A), before)
+    assert (L.untyped_storage().data_ptr()
+            != torch.as_tensor(A).untyped_storage().data_ptr())
+    (full,) = unmasked
+    assert torch.equal(L, torch.tril(full))
+    assert not torch.equal(full, L)
+    assert torch.count_nonzero(torch.triu(L, 1)) == 0
+    np.testing.assert_allclose(L.numpy() @ L.numpy().T, before, rtol=0,
+                               atol=1e-5 * np.abs(before).max())

@@ -398,7 +398,8 @@ def _spd(n=192, seed=3):
 
 def _call(entry, ex, tmp_path=None):
     """One out-of-core call of ``entry`` on executor ``ex`` (CPU); the
-    tuned GEMM plans through a fresh tuner under ``tmp_path``."""
+    tuned GEMM plans through a fresh tuner under ``tmp_path``, and
+    ``gemm-with-c`` adds the caller's C at β = 1."""
     from repro_torch.core import Device, HostOocRuntime, ooc_cholesky, \
         ooc_gemm
 
@@ -406,9 +407,11 @@ def _call(entry, ex, tmp_path=None):
         A = _spd()
         return ooc_cholesky(A, panel=64, budget_bytes=A.nbytes // 2,
                             executor=ex)
-    A, B, _, _ = _seeded_gemm()
+    A, B, C, _ = _seeded_gemm()
     budget = (A.nbytes + B.nbytes + A.shape[0] * B.shape[1] * 4) // 3
     kw = {}
+    if entry == "gemm-with-c":
+        kw = dict(C=C, beta=1.0)
     if entry == "gemm-tuned":
         from repro_torch.tune import AutoTuner, PlanCache, gpu_profile
         kw = dict(tune="auto", tuner=AutoTuner(
@@ -420,13 +423,15 @@ def _call(entry, ex, tmp_path=None):
 
 
 CALL_SPANS = {
-    "gemm": ({"gemm.intake", "gemm.zero_c", "gemm.plan", "gemm.clone_c",
-              "gemm.execute"}, 2 * 256 * 256 * 4),
+    "gemm": ({"gemm.intake", "gemm.zero_c", "gemm.plan", "gemm.execute"},
+             256 * 256 * 4),
     "gemm-tuned": ({"gemm.intake", "gemm.zero_c", "gemm.plan",
-                    "gemm.clone_c", "gemm.execute", "gemm.drift"},
-                   2 * 256 * 256 * 4),
+                    "gemm.execute", "gemm.drift"}, 256 * 256 * 4),
+    "gemm-with-c": ({"gemm.intake", "gemm.plan", "gemm.clone_c",
+                     "gemm.execute"}, 256 * 256 * 4),
     "cholesky": ({"cholesky.intake", "cholesky.plan", "cholesky.clone_a",
-                  "cholesky.execute", "cholesky.tril"}, 2 * 192 * 192 * 4),
+                  "cholesky.execute", "cholesky.tril"},
+                 192 * 192 * 4 + 192 * 191 // 2 * 4),
 }
 
 

@@ -362,3 +362,77 @@ def test_half_times_float_returns_half(path):
     exact = A.astype(np.float64) @ B
     np.testing.assert_allclose(out.float().numpy(), exact, rtol=HALF_TOL,
                                atol=HALF_TOL)
+
+
+# ----------------------------------------- the host backend's output buffer
+def _host_call(entry, C=None, alpha=1.0, beta=0.0, ex=None, **kw):
+    """``ooc_gemm``/``ooc_syrk`` out of core on the host backend (CPU), on
+    ``ex`` when given."""
+    A, B, _ = _problem(21, 256, 256, 128)
+    budget = (A.nbytes + B.nbytes + 256 * 256 * 4) // 4
+    if ex is not None:
+        kw["runtime"] = T.HostOocRuntime(T.Device("HBM", 0, budget),
+                                         executor=ex)
+    else:
+        kw["torch_device"] = CPU
+    if entry == "gemm":
+        return T.ooc_gemm(A, B, C, alpha, beta, budget_bytes=budget, **kw)
+    return T.ooc_syrk(A, C, alpha, beta, budget_bytes=budget, **kw)
+
+
+@pytest.mark.parametrize("entry", ["gemm", "syrk"])
+def test_host_call_without_c_runs_into_its_own_zeros(entry):
+    """With no C the call returns the zeros it made, written by the run and
+    never copied (a ``.zero_c`` span and no ``.clone_c``), bit for bit the
+    call with explicit zeros at β = 0."""
+    want = _host_call(entry, np.zeros((256, 256), np.float32))
+    ex = T.ScheduleExecutor(record_spans=True, torch_device=CPU)
+    got = _host_call(entry, ex=ex)
+    assert torch.equal(got, want)
+    rec = get_observability().calls[-1]
+    spans = set(rec.seconds)
+    assert {f"{entry}.zero_c", f"{entry}.execute"} <= spans
+    assert f"{entry}.clone_c" not in spans
+    assert rec.copy_bytes == got.numel() * 4
+
+
+@pytest.mark.parametrize("C_type", ["numpy", "tensor"])
+@pytest.mark.parametrize("entry", ["gemm", "syrk"])
+def test_host_call_never_writes_the_callers_c(entry, C_type):
+    """A caller's C at β ≠ 0 is copied (``.clone_c``): it reads the same
+    after the call, and the result shares no storage with it."""
+    C = np.random.default_rng(22).standard_normal(
+        (256, 256)).astype(np.float32)
+    if C_type == "tensor":
+        C = torch.from_numpy(C)
+    before = np.array(C, copy=True)
+    ex = T.ScheduleExecutor(record_spans=True, torch_device=CPU)
+    out = _host_call(entry, C, 1.5, 0.5, ex=ex)
+    np.testing.assert_array_equal(np.asarray(C), before)
+    assert (out.untyped_storage().data_ptr()
+            != torch.as_tensor(C).untyped_storage().data_ptr())
+    rec = get_observability().calls[-1]
+    assert f"{entry}.clone_c" in rec.seconds
+    assert f"{entry}.zero_c" not in rec.seconds
+    A, B, _ = _problem(21, 256, 256, 128)
+    A = A.astype(np.float64)
+    B = B if entry == "gemm" else A.T
+    np.testing.assert_allclose(out.numpy(), 1.5 * (A @ B) + 0.5 * before,
+                               rtol=1e-4, atol=1e-4)
+
+
+def test_oom_ladder_without_c_returns_the_clean_bits():
+    """An injected oom with no C walks the degrade ladder; the re-run starts
+    from zeros of its own and returns the clean run's bits."""
+    from repro_torch.fault import FaultPlan, FaultPolicy, FaultSpec
+
+    def oom_at_first_compute(sched):
+        i = next(i for i, op in enumerate(sched.ops)
+                 if op.kind.name == "COMPUTE")
+        return FaultPlan(specs=(FaultSpec(op=i, cls="oom"),))
+
+    clean = _host_call("gemm")
+    pol = FaultPolicy(sleep=lambda s: None)
+    out = _host_call("gemm", faults=oom_at_first_compute, fault_policy=pol)
+    assert [d.action for d in pol.degrades] == ["halve_nbuf"]
+    assert torch.equal(out, clean)
