@@ -13,6 +13,7 @@ from typing import Iterator, List, Optional, Tuple
 
 from oocbench.harness.record import ExecRun
 
+
 def slice_shape(ref, shapes) -> Tuple[int, int]:
     """The shape of a transfer's slice of its host operand."""
     rows, cols = shapes[ref.operand]
@@ -26,16 +27,17 @@ def _kernel(op) -> Optional[str]:
 
 
 def block_products(er: ExecRun) -> Iterator[Tuple[int, int, int, int]]:
-    """``(op index, m, n, k)`` of every ``dgemm`` op of the run."""
+    """``(op index, m, n, k)`` of every ``dgemm`` op of the run; nothing
+    for a schedule without one.  Only the slices that a ``dgemm`` op reads
+    are shaped, so operands of other ranks (attention's K and V) pass."""
     landed = {}
     for i, op in enumerate(er.sched.ops):
         kind = op.kind.name
         if kind == "H2D" and _kernel(op) is None:
-            landed[op.buffers_written[0]] = slice_shape(op.payload,
-                                                        er.shapes)
+            landed[op.buffers_written[0]] = op.payload
         elif kind == "COMPUTE" and _kernel(op) == "dgemm":
-            m, k = landed[op.buffers_read[0]]
-            k2, n = landed[op.buffers_read[1]]
+            m, k = slice_shape(landed[op.buffers_read[0]], er.shapes)
+            k2, n = slice_shape(landed[op.buffers_read[1]], er.shapes)
             if k != k2:
                 raise ValueError(f"op {i} ({op.tag}): inner dims {k} and "
                                  f"{k2} differ")

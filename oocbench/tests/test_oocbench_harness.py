@@ -18,7 +18,7 @@ from oocbench.harness import bench, ops, traffic as tgen
 from oocbench.harness.manifest import Manifest
 from oocbench.harness.record import recording_executor
 from oocbench.reference.precision import tf32
-from oocbench_tiny import tiny  # noqa: F401  (the fixture)
+from oocbench_tiny import cut_of, tiny  # noqa: F401  (the fixture)
 
 ROOT = pathlib.Path(__file__).resolve().parents[2]
 MANIFEST = json.loads((ROOT / "BENCHMARK.json").read_text())
@@ -39,39 +39,46 @@ def _executed(root, cell, seed=7):
     return man, cfg, mix, ex.runs
 
 
-@pytest.mark.parametrize("cell", CELLS)
-def test_counts_match_schedule_stats(tiny, cell):
-    """The harness's own counts (block products from the transfers' slices,
-    transfer bytes) against the program's ``schedule_stats``: bytes equal,
-    and the program's flops are the products' ``2 m n k`` and their
-    epilogues (``alpha``, ``beta``: at most 3 per output element)."""
+def check_counts(root, cell):
+    """The harness's own counts against the program's ``schedule_stats``:
+    every run's transfer bytes equal; where a schedule has ``dgemm`` ops,
+    its block products from the transfers' slices, whose ``2 m n k`` the
+    program's flops hold with their epilogues (``alpha``, ``beta``: at most
+    3 per output element); and the reference's useful work against the
+    work the schedules count, as the entry point's cut says."""
     from repro_torch.core import schedule_stats
 
-    man, cfg, mix, runs = _executed(tiny, cell)
+    man, cfg, mix, runs = _executed(root, cell)
     assert runs
+    counted = 0
     for er in runs:
         st = schedule_stats(er.sched)
-        prods = list(ops.block_products(er))
-        assert prods
-        for i, m, n, k in prods:
-            mine = ops.product_flops(m, n, k)
-            assert mine <= er.sched.ops[i].flops <= mine + 3 * m * n
-        dgemm = ops.ops_where(er, "COMPUTE", ("dgemm",))
-        assert sorted(i for i, *_ in prods) == dgemm
-        assert sum(ops.product_flops(m, n, k) for _, m, n, k in prods) \
-            <= st["flops"]
         for kind in ("H2D", "D2H"):
             moved = sum(er.sched.ops[i].bytes for i in ops.ops_where(er, kind))
             assert moved == st[f"{kind.lower()}_bytes"] \
                 == getattr(er, f"{kind.lower()}_bytes")
-    ref = man.module("reference", cfg["entry"])
-    useful = ref.useful_flops(tgen.shapes(mix, cfg))
-    total = sum(ops.product_flops(m, n, k) for er in runs
-                for _, m, n, k in ops.block_products(er))
-    if cfg["entry"] == "gemm":
-        assert useful == total == 2 * cfg["m"] * cfg["n"] * cfg["k"]
-    else:   # the schedule also updates what lies above the diagonal
-        assert useful == cfg["n"] ** 3 / 3 < total
+        prods = list(ops.block_products(er))
+        dgemm = ops.ops_where(er, "COMPUTE", ("dgemm",))
+        assert sorted(i for i, *_ in prods) == dgemm
+        if not prods:
+            counted += st["flops"]
+            continue
+        for i, m, n, k in prods:
+            mine = ops.product_flops(m, n, k)
+            assert mine <= er.sched.ops[i].flops <= mine + 3 * m * n
+        total = sum(ops.product_flops(m, n, k) for _, m, n, k in prods)
+        assert total <= st["flops"]
+        counted += total
+    useful = man.module("reference", cfg["entry"]).useful_flops(
+        tgen.shapes(mix, cfg))
+    relation = cut_of(root, cfg["entry"])["useful_flops"]
+    assert relation in ("equal", "below"), relation
+    assert useful == counted if relation == "equal" else useful < counted
+
+
+@pytest.mark.parametrize("cell", CELLS)
+def test_counts_match_schedule_stats(tiny, cell):
+    check_counts(tiny, cell)
 
 
 def test_product_bytes_and_slices():
@@ -117,6 +124,18 @@ def test_tf32_rounding():
     assert torch.equal(tf32(r), r)
 
 
+def test_gemm_control_rounds_to_tf32():
+    """The control of float32 operands multiplies them in TF32, and reads
+    far from the reference."""
+    ref = _load("reference", "gemm")
+    g = torch.Generator().manual_seed(5)
+    a, b = torch.randn(64, 96, generator=g), torch.randn(96, 48, generator=g)
+    ctl = ref.solve({"A": a, "B": b}, {}, control=True)
+    assert torch.equal(ctl, ref.solve({"A": tf32(a), "B": tf32(b)}, {}))
+    want = ref.solve({"A": a, "B": b}, {})
+    assert float((ctl - want).abs().max() / want.abs().max()) > 1e-5
+
+
 @pytest.mark.parametrize("seed", [1, 2**31 + 9])
 def test_cholesky_reference_against_numpy(seed):
     ref = _load("reference", "cholesky")
@@ -160,16 +179,8 @@ def test_manifest_names_units_and_files():
         assert cfg["name"] == c["name"] and cfg["reduced"] == c["reduced"]
         assert all(NAME.match(k) and k in cfg for k in c["reduced"])
         assert set(cfg["departures"]) == set(c["reduced"])
-        assert (man.bench / "drivers" / f"{cfg['entry']}.py").is_file()
-        assert (man.bench / "reference" / f"{cfg['entry']}.py").is_file()
-    names = {c["name"] for c in m["configs"]}
-    for w in m["workloads"]:
-        assert set(w) == {"name", "config", "traffic", "chips", "why"}
-        assert NAME.match(w["name"]) and NAME.match(w["traffic"])
-        assert w["config"] in names and w["chips"] in (1, 4)
-        assert len(w["why"]) <= 200
-        man.traffic(w["traffic"])
-        assert man.limits(w["name"])["max_err"]["limit"] > 0
+    for w in CELLS:
+        check_cell_files(ROOT, w)
     e2e = {e["name"] for e in m["end_to_end"]}
     assert "setup_s" in e2e
     perf = (ROOT / "PERF.md").read_text()
@@ -189,8 +200,33 @@ def test_manifest_names_units_and_files():
                                           "layer", "moves"}
         assert e["moves"] in e2e and f"| {e['layer']} |" in perf
         assert set(e.get("workloads", CELLS)) <= set(CELLS)
-    for w in CELLS:   # each cell: setup_s, another end-to-end, a per-layer
-        assert len(man.metrics(w, False)) >= 2 and man.metrics(w, True)
+
+
+def check_cell_files(root, cell):
+    """A cell's entry and the files it names: its configuration's driver,
+    reference and cut; a mix whose operand sizes are configuration keys
+    that the cut reaches; its limits; its metrics' readers, setup_s,
+    another end-to-end metric and a per-layer one."""
+    man = Manifest(root)
+    w = man.cell(cell)
+    assert set(w) == {"name", "config", "traffic", "chips", "why"}
+    assert NAME.match(w["name"]) and NAME.match(w["traffic"])
+    assert w["chips"] in (1, 4) and len(w["why"]) <= 200
+    cfg = man.config(w["config"])
+    for kind in ("drivers", "reference"):
+        assert (man.bench / kind / f"{cfg['entry']}.py").is_file()
+    cut = cut_of(root, cfg["entry"])
+    assert set(cut) >= {"config", "useful_flops", "fault"}
+    assert set(cut["config"]) <= set(cfg)
+    for name, spec in man.traffic(w["traffic"])["operands"].items():
+        for d in spec["shape"]:
+            assert isinstance(d, str) and d in cut["config"], (name, d)
+    assert man.limits(cell)["max_err"]["limit"] > 0
+    e2e = man.metrics(cell, False)
+    assert "setup_s" in {e["name"] for e in e2e} and len(e2e) >= 2
+    assert man.metrics(cell, True)
+    for e in e2e + man.metrics(cell, True):
+        assert (man.bench / "metrics" / f"{e['name']}.py").is_file()
 
 
 def test_new_cell_mix_and_metric_from_files_alone(tiny):
@@ -198,12 +234,12 @@ def test_new_cell_mix_and_metric_from_files_alone(tiny):
     files (and entries of ``BENCHMARK.json``) run with no edit of code."""
     bench_dir = tiny / "oocbench"
     cfg = json.loads((bench_dir / "configs" / "mmooc-f32.json").read_text())
-    cfg.update(name="mmooc-f32-b", budget_bytes=96 << 10)
+    cfg.update(name="mmooc-f32-b", budget_bytes=96 << 10, k=64)
     (bench_dir / "configs" / "mmooc-f32-b.json").write_text(json.dumps(cfg))
     (bench_dir / "traffic" / "update.json").write_text(json.dumps({
         "loop": "closed", "operand_sets": 3,
-        "operands": {"A": {"shape": ["m", 64], "dist": "normal"},
-                     "B": {"shape": [64, "n"], "dist": "normal"},
+        "operands": {"A": {"shape": ["m", "k"], "dist": "normal"},
+                     "B": {"shape": ["k", "n"], "dist": "normal"},
                      "C": {"shape": ["m", "n"], "dist": "normal"}},
         "scalars": {"alpha": -1.0, "beta": 1.0},
         "check": {"rows_per_call": 16, "full_per_set": 1}}))
@@ -223,6 +259,7 @@ def test_new_cell_mix_and_metric_from_files_alone(tiny):
                            "layer": "entry points", "moves": "tflops",
                            "workloads": ["mmooc-f32-b.update"]})
     (tiny / "BENCHMARK.json").write_text(json.dumps(m))
+    check_cell_files(tiny, "mmooc-f32-b.update")
     res = bench.run_cell(tiny, "mmooc-f32-b.update", 5, 0.3, True, "cpu")
     assert res["correct"] and res["attempted"] >= 3
     assert res["metrics"]["calls.per_set"]["value"] > 0
@@ -231,23 +268,30 @@ def test_new_cell_mix_and_metric_from_files_alone(tiny):
     assert "calls.per_set" not in other["metrics"]
 
 
-@pytest.mark.parametrize("cell", CELLS)
-@pytest.mark.parametrize("trace", [0, 1])
-def test_cpu_run_result_line(tiny, cell, trace):
-    res = bench.run_cell(tiny, cell, 2**31 + 1, 0.3, bool(trace), "cpu")
+def check_result_line(root, cell, trace, monkeypatch):
+    """A run of ``cell`` on the CPU prints a correct result line with the
+    metrics that the manifest lists for the cell: with the card's peaks
+    given, every one but those read from the device's trace."""
+    man = Manifest(root)
+    card = json.loads((man.bench / "peaks.json").read_text())["cards"][0]
+    monkeypatch.setattr(Manifest, "peaks", lambda self, kind: card)
+    res = bench.run_cell(root, cell, 2**31 + 1, 0.3, bool(trace), "cpu")
     assert list(res)[:5] == ["correct", "attempted", "failed", "metrics",
                              "device"] and list(res)[-1] == "checks"
     assert res["correct"] and res["failed"] == 0 and res["attempted"] >= 1
-    man = Manifest(tiny)
-    want = {e["name"] for e in man.metrics(cell, bool(trace))}
-    # on the CPU no reader of the card's peaks or trace finds anything
-    assert set(res["metrics"]) <= want
-    assert ("setup_s" in res["metrics"]) == (not trace)
+    want = {e["name"] for e in man.metrics(cell, bool(trace))
+            if e["source"] != "device_trace"}
+    assert set(res["metrics"]) == want
     if trace:
         assert res["device"]["window_s"] > 0
-        assert "moved_gb" in res["metrics"]
     for c in res["checks"].values():
         assert c["value"] <= c["limit"]
+
+
+@pytest.mark.parametrize("cell", CELLS)
+@pytest.mark.parametrize("trace", [0, 1])
+def test_cpu_run_result_line(tiny, monkeypatch, cell, trace):
+    check_result_line(tiny, cell, trace, monkeypatch)
 
 
 def test_forbidden_modules_compare_whole_names():
@@ -264,10 +308,10 @@ def _python(code, cwd, **env):
                           capture_output=True, text=True, timeout=300)
 
 
-def test_a_run_loads_neither_jax_nor_the_reference(tiny):
-    """Everything a run loads, the harness, drivers, references and readers
-    and the program, in a fresh interpreter: no ``jax``, ``jaxlib``,
-    ``flax`` or ``repro`` among the modules."""
+def check_loads_no_jax(root, cells):
+    """Everything a run of ``cells`` loads, the harness, drivers,
+    references and readers and the program, in a fresh interpreter: no
+    ``jax``, ``jaxlib``, ``flax`` or ``repro`` among the modules."""
     code = ("import sys, json; sys.path[:0] = [%r, %r]\n"
             "from oocbench.harness import bench\n"
             "for c in %r:\n"
@@ -275,12 +319,16 @@ def test_a_run_loads_neither_jax_nor_the_reference(tiny):
             "        r = bench.run_cell(%r, c, 3, 0.2, t, 'cpu')\n"
             "        assert r['correct'], r\n"
             "print(json.dumps(sorted(sys.modules)))\n"
-            % (str(ROOT / "src"), str(ROOT), CELLS, str(tiny)))
-    out = _python(["-c", code], tiny)
+            % (str(ROOT / "src"), str(ROOT), list(cells), str(root)))
+    out = _python(["-c", code], root)
     assert out.returncode == 0, out.stderr[-3000:]
     mods = json.loads(out.stdout.strip().splitlines()[-1])
     assert "repro_torch" in mods and "oocbench.harness.bench" in mods
     assert bench.forbidden_modules(mods) == []
+
+
+def test_a_run_loads_neither_jax_nor_the_reference(tiny):
+    check_loads_no_jax(tiny, CELLS)
 
 
 def test_no_result_without_a_card_or_outside_a_checkout(tmp_path):
