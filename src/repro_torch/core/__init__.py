@@ -13,6 +13,8 @@ Port of ``src/repro/core/__init__.py`` for this slice's modules:
     factorizations: panel ops on the device, trailing updates through
     the block GEMM)
   * ScheduleExecutor / register_op_handler           (the one interpreter)
+  * page_lock / PageLock                             (a caller's host tensor
+    page-locked in place, which the executor copies from directly)
   * HostOocRuntime / VmemOocRuntime                  (hclRuntime hierarchy)
   * from_reference                                   (state carried across)
   * api: hcl-prefixed facade for paper-parity code
@@ -62,9 +64,11 @@ from repro_torch.core.runtime import (
     HostOocRuntime,
     MeshOocRuntime,
     OocRuntime,
+    PageLock,
     RuntimeFactory,
     ScheduleExecutor,
     VmemOocRuntime,
+    page_lock,
     register_op_handler,
     register_runtime,
     resolve_device,
@@ -103,7 +107,7 @@ __all__ = [
     "Device", "EVICT_POLICIES", "Event",
     "ExecState", "ExecutablePlan", "FactorPipelineSpec", "GemmPartition",
     "HardwareModel", "HostOocRuntime", "MeshOocRuntime", "Op", "OpKind",
-    "OocRuntime",
+    "OocRuntime", "PageLock",
     "PipelineSpec", "RuntimeFactory", "Schedule", "ScheduleError",
     "ScheduleExecutor", "SimResult", "SliceRef", "Stream", "StreamFactory",
     "StreamedOperand", "TRAVERSALS", "VmemOocRuntime", "WriteBack",
@@ -113,7 +117,7 @@ __all__ = [
     "compile_factor_pipeline", "compile_pipeline", "factor_pipeline_spec",
     "from_reference", "gemm_pipeline_spec", "gpu_like", "is_in_core",
     "ooc_attention", "ooc_cholesky", "ooc_gemm", "ooc_lu", "ooc_syrk",
-    "phi_like",
+    "page_lock", "phi_like",
     "plan_attention_partition", "plan_cache_stats", "plan_for_device",
     "plan_gemm_partition",
     "register_op_handler", "register_runtime", "resolve_device",

@@ -28,6 +28,20 @@ measured wall and bytes against the plan's prediction
 (``repro_torch.hybrid``): the KV cache is split into contiguous position
 chunks, each member folds its chunk into an online-softmax partial on its
 own executor, and the partials merge exactly on the host.
+
+A page-locked cache.  A server that keeps a long KV cache in host RAM
+keeps it page-locked; :func:`~repro_torch.core.runtime.page_lock` locks a
+caller's tensor in place.  The executor then copies every (contiguous)
+block of K and V straight from the cache by DMA, with no pinned staging
+and no host copy (``last_direct_h2d_bytes``); a pageable cache is staged
+as before.  The results are the same either way.
+
+Each call is one ``obs.call("attention")``: when the executor records
+spans, or a tracer is active, its host work is recorded by span
+(``attention.intake``: the operands as host tensors and q's move to the
+device; ``attention.plan``: the partition and the schedule;
+``attention.execute``: the executor's run; ``attention.out``: the final
+cast; ``attention.drift`` when tuned) on ``get_observability().calls``.
 """
 
 from __future__ import annotations
@@ -37,7 +51,8 @@ from typing import Optional
 
 import torch
 
-from repro_torch.core.oocgemm import _hybrid_kwargs, _record_host_drift
+from repro_torch.core.oocgemm import (_entry_call, _hybrid_kwargs,
+                                      _record_host_drift)
 from repro_torch.core.partitioner import plan_attention_partition
 from repro_torch.core.pipeline import build_attention_schedule
 from repro_torch.core.runtime import (ExecState, ScheduleExecutor,
@@ -123,6 +138,7 @@ def _attn_out_handler(st: ExecState, op: Op, ref: BlockRef) -> None:
     out.copy_(res[0].reshape(out.shape))
 
 
+@_entry_call("attention")
 def ooc_attention(
     q,
     k_cache,
@@ -192,37 +208,43 @@ def ooc_attention(
             and resolve_device(torch_device) != executor.torch_device:
         raise ValueError(f"torch_device {torch_device} differs from the "
                          f"executor's {executor.torch_device}")
-    q = as_tensor(q)
-    k_cache = host_tensor(k_cache)
-    v_cache = host_tensor(v_cache)
+    obs = get_observability()
+    with obs.span("attention.intake"):
+        q = as_tensor(q)
+        k_cache = host_tensor(k_cache)
+        v_cache = host_tensor(v_cache)
+        q_dev = q.to(device=executor.torch_device, dtype=torch.float32)
     S, hkv, d = k_cache.shape
     H = q.shape[0]
 
     plan = None
-    if tune == "auto":
-        from repro_torch.tune import get_default_tuner
-        from repro_torch.tune.search import dtype_name
+    with obs.span("attention.plan"):
+        if tune == "auto":
+            from repro_torch.tune import get_default_tuner
+            from repro_torch.tune.search import dtype_name
 
-        if tuner is None:
-            tuner = get_default_tuner()
-        plan = tuner.attention_plan(S, hkv, d, H, budget_bytes,
-                                    dtype=dtype_name(k_cache.dtype))
-        part = plan.attention_partition()
-        nstreams, nbuf = plan.nstreams, plan.nbuf
-    else:
-        part = plan_attention_partition(S, hkv, d, budget_bytes,
-                                        bytes_per_el=k_cache.element_size())
-    sched = build_attention_schedule(part, hkv, d, H,
-                                     nstreams=nstreams, nbuf=nbuf)
-    if validate:
-        validate_schedule(sched)
+            if tuner is None:
+                tuner = get_default_tuner()
+            plan = tuner.attention_plan(S, hkv, d, H, budget_bytes,
+                                        dtype=dtype_name(k_cache.dtype))
+            part = plan.attention_partition()
+            nstreams, nbuf = plan.nstreams, plan.nbuf
+        else:
+            part = plan_attention_partition(
+                S, hkv, d, budget_bytes, bytes_per_el=k_cache.element_size())
+        sched = build_attention_schedule(part, hkv, d, H,
+                                         nstreams=nstreams, nbuf=nbuf)
+        if validate:
+            validate_schedule(sched)
 
     out = torch.zeros((H, d), dtype=torch.float32)
-    executor.run(
-        sched,
-        operands={"K": k_cache, "V": v_cache},
-        outputs={"out": out},
-        ctx={"q": q.to(device=executor.torch_device, dtype=torch.float32)},
-    )
+    with obs.span("attention.execute"):
+        executor.run(
+            sched,
+            operands={"K": k_cache, "V": v_cache},
+            outputs={"out": out},
+            ctx={"q": q_dev},
+        )
     _record_host_drift(plan, executor, sched, "attention")
-    return out.to(compute_dtype(q.dtype))
+    with obs.span("attention.out"):
+        return out.to(compute_dtype(q.dtype))

@@ -48,6 +48,7 @@ import dataclasses
 import importlib
 import threading
 import time
+import weakref
 from typing import Any, Callable, Dict, Hashable, List, Optional, Tuple, Type
 
 import numpy as np
@@ -191,6 +192,76 @@ def device_tensor(x, torch_device: torch.device) -> torch.Tensor:
     t = as_tensor(x)
     return t.to(device=torch_device,
                 dtype=compute_dtype(t.dtype)).contiguous()
+
+
+# cudaHostRegisterPortable: page-locked for every CUDA context
+_REGISTER_PORTABLE = 1
+
+
+def _unregister(ptr: int, storage) -> None:
+    """``cudaHostUnregister(ptr)``; ``storage`` is held until then so the
+    memory cannot be freed while it is registered."""
+    err = int(torch.cuda.cudart().cudaHostUnregister(ptr))
+    if err != 0:
+        raise RuntimeError(f"cudaHostUnregister failed with cudaError {err}")
+
+
+class PageLock:
+    """A CPU tensor's memory page-locked in place (:func:`page_lock`).
+
+    ``release()``, leaving its ``with`` block, or its finaliser (when the
+    handle is collected, or at interpreter exit) unregisters the memory,
+    once; a second release does nothing.  ``locked`` says whether this
+    handle registered the memory (False on a machine with no card, and for
+    memory that was page-locked already)."""
+
+    def __init__(self, tensor: torch.Tensor):
+        if tensor.device.type != "cpu":
+            raise ValueError(f"page_lock takes a CPU tensor, got "
+                             f"{tensor.device}")
+        self._finalizer = None
+        storage = tensor.untyped_storage()
+        if not torch.cuda.is_available() or storage.nbytes() == 0 \
+                or tensor.is_pinned():
+            return
+        ptr = storage.data_ptr()
+        err = int(torch.cuda.cudart().cudaHostRegister(
+            ptr, storage.nbytes(), _REGISTER_PORTABLE))
+        if err != 0:
+            raise RuntimeError(
+                f"cudaHostRegister of {storage.nbytes()} bytes failed with "
+                f"cudaError {err}")
+        self._finalizer = weakref.finalize(self, _unregister, ptr, storage)
+
+    @property
+    def locked(self) -> bool:
+        return self._finalizer is not None and self._finalizer.alive
+
+    def release(self) -> None:
+        if self._finalizer is not None:
+            self._finalizer()
+
+    def __enter__(self) -> "PageLock":
+        return self
+
+    def __exit__(self, *exc) -> None:
+        self.release()
+
+
+def page_lock(tensor: torch.Tensor) -> PageLock:
+    """Page-lock ``tensor``'s memory (its whole storage) in place with
+    ``cudaHostRegister``, copying nothing: the tensor itself, and every view
+    of its storage, then reads ``is_pinned()`` True, so the executor's H2D
+    copies read it by DMA with no pinned staging.  Returns the
+    :class:`PageLock` whose release unregisters it.  Raises when the
+    registration fails; never falls back to a pinned copy, which would
+    double the host memory.  On a machine with no card it does nothing."""
+    return PageLock(tensor)
+
+
+def _page_locked(t: torch.Tensor) -> bool:
+    """Whether host tensor ``t`` lies in page-locked memory."""
+    return t.is_pinned()
 
 
 class OocRuntime:
@@ -484,7 +555,14 @@ class ScheduleExecutor:
     Transfers on a card.  H2D first makes the (strided or transposed) host
     slice contiguous in a pinned staging buffer, then copies it with
     ``non_blocking=True``; a staging buffer is refilled only after its
-    previous copy's event has completed.  D2H copies the device block into
+    previous copy's event has completed.  A slice of an input operand that
+    lies in page-locked memory (:func:`page_lock`, decided once per operand
+    per run), is contiguous, is not transposed and is already in its compute
+    dtype takes the direct path instead: the device copies it by DMA
+    straight from the operand, with no staging, fill or wait.  Operands the
+    run also writes (``outputs``) always stage, so that no later write-back
+    lands under a copy still reading the host.
+    D2H copies the device block into
     pinned staging, records an event, and the host stores staging into the
     destination slice only after that event, at the reference's flush
     points: the parity buffer is about to be reused, a finalize handler
@@ -518,8 +596,9 @@ class ScheduleExecutor:
 
     ``last_h2d_bytes``/``last_d2h_bytes`` count the bytes of the transfer
     ops performed in the most recent :meth:`run` (they equal
-    ``schedule_stats``); ``last_wall_seconds`` brackets the run, ending
-    when the run's streams have drained (the calling thread's current
+    ``schedule_stats``), and ``last_direct_h2d_bytes`` those of its H2D
+    ops that took the direct path; ``last_wall_seconds`` brackets the run,
+    ending when the run's streams have drained (the calling thread's current
     stream and the engine streams, not the whole device: another thread
     may run another executor on the same card).  A run that raises drains
     them too before the error propagates.  On a card,
@@ -593,6 +672,7 @@ class ScheduleExecutor:
         self.last_spans: List[Tuple[str, int, float, float]] = []
         self.last_completion_order: List[int] = []
         self.last_h2d_bytes = 0
+        self.last_direct_h2d_bytes = 0
         self.last_d2h_bytes = 0
         self.last_wall_seconds = 0.0
         self.last_stage_seconds = 0.0
@@ -717,6 +797,7 @@ class ScheduleExecutor:
         self.last_spans = []
         self.last_completion_order = []
         self.last_h2d_bytes = 0
+        self.last_direct_h2d_bytes = 0
         self.last_d2h_bytes = 0
         self.last_stage_seconds = 0.0
         self.last_stage_wait_seconds = 0.0
@@ -735,6 +816,14 @@ class ScheduleExecutor:
         # parity key -> (staging view, its copy's event, destination slice)
         pending: Dict[Hashable, Tuple[torch.Tensor, Any, SliceRef]] = {}
         h2d_copied: Dict[Hashable, torch.cuda.Event] = {}
+        # input operand -> whether it lies in page-locked memory
+        page_locked: Dict[str, bool] = {}
+
+        def locked(name: str) -> bool:
+            hit = page_locked.get(name)
+            if hit is None:
+                hit = page_locked[name] = _page_locked(st.operands[name])
+            return hit
 
         if cuda:
             main = torch.cuda.current_stream(dev)
@@ -818,8 +907,17 @@ class ScheduleExecutor:
             st.bufs[key] = view
             if log is not None:
                 log.mark_clean(key)
+            direct = (ref.operand not in st.outputs and not ref.transpose
+                      and src.is_contiguous() and src.dtype == view.dtype
+                      and locked(ref.operand))
+            if direct:
+                self.last_direct_h2d_bytes += op.bytes
             if not cuda:
                 _fill(view, src, ref)
+                return
+            if direct:
+                device_work()
+                view.copy_(src, non_blocking=True)
                 return
             t0 = time.perf_counter()
             prev = h2d_copied.get(key)
@@ -1001,13 +1099,15 @@ class ScheduleExecutor:
                      base.elapsed_time(t1) / 1e3) for op, t0, t1 in marks]
         self.last_wall_seconds = time.perf_counter() - t_run0
         self.last_handler_seconds = dict(st.seconds)
-        obs.add_exec_run(self.last_wall_seconds, self.last_land_seconds)
+        obs.add_exec_run(self.last_wall_seconds, self.last_land_seconds,
+                         self.last_direct_h2d_bytes)
         raise_on_info(st.statuses)
         if obs.metrics.enabled:
             obs.record_executor_run(
                 sched, self.last_wall_seconds,
                 self.last_h2d_bytes, self.last_d2h_bytes,
-                spans=self.last_spans if trace else None)
+                spans=self.last_spans if trace else None,
+                direct_h2d_bytes=self.last_direct_h2d_bytes)
         if tracer is not None and trace and self.last_spans:
             tracer.add_flat_spans(
                 self.trace_group

@@ -94,16 +94,20 @@ class CallRecord:
     """One entry-point call's host accounting: seconds by span name (the
     call span's own under ``entry``), ``copy_bytes`` that the entry point's
     own host copies wrote, ``exec_walls`` (each executor run's
-    ``last_wall_seconds``, appended as the run ends) and ``ok`` (False when
-    the call raised)."""
+    ``last_wall_seconds``, appended as the run ends),
+    ``direct_h2d_bytes`` (its executor runs' H2D bytes copied straight
+    from page-locked operands, ``last_direct_h2d_bytes``) and ``ok``
+    (False when the call raised)."""
 
-    __slots__ = ("entry", "seconds", "copy_bytes", "exec_walls", "ok")
+    __slots__ = ("entry", "seconds", "copy_bytes", "exec_walls",
+                 "direct_h2d_bytes", "ok")
 
     def __init__(self, entry: str):
         self.entry = entry
         self.seconds: Dict[str, float] = {}
         self.copy_bytes = 0
         self.exec_walls: List[float] = []
+        self.direct_h2d_bytes = 0
         self.ok = False
 
     def add(self, name: str, seconds: float, copy_bytes: int = 0) -> None:
@@ -252,15 +256,17 @@ class Observability:
             return self.span(entry, cat="call")
         return _Call(self, entry)
 
-    def add_exec_run(self, wall_seconds: float,
-                     land_seconds: float) -> None:
+    def add_exec_run(self, wall_seconds: float, land_seconds: float,
+                     direct_h2d_bytes: int = 0) -> None:
         """An executor run that ended on this thread: its wall joins the
         open call record's ``exec_walls``, its write-back landing joins its
-        seconds as ``executor.land``.  Without an open record, nothing."""
+        seconds as ``executor.land``, its direct H2D bytes its
+        ``direct_h2d_bytes``.  Without an open record, nothing."""
         rec = getattr(self._local, "call", None)
         if rec is not None:
             rec.exec_walls.append(wall_seconds)
             rec.add("executor.land", land_seconds)
+            rec.direct_h2d_bytes += direct_h2d_bytes
 
     def instant(self, name: str, cat: str = "fault", **args) -> None:
         """A zero-duration trace marker when tracing is active, else a free
@@ -272,8 +278,12 @@ class Observability:
     # -- per-run publication helpers ----------------------------------------
     def record_executor_run(self, sched, wall_seconds: float,
                             h2d_bytes: int, d2h_bytes: int,
-                            spans: Optional[List[FlatSpan]] = None) -> None:
-        """Publish one :meth:`ScheduleExecutor.run`'s aggregates."""
+                            spans: Optional[List[FlatSpan]] = None,
+                            direct_h2d_bytes: int = 0) -> None:
+        """Publish one :meth:`ScheduleExecutor.run`'s aggregates; its H2D
+        bytes copied straight from page-locked operands, where there are
+        any, as ``repro_executor_direct_h2d_bytes`` (a run that staged
+        every copy publishes what the reference's run does)."""
         if not self.metrics.enabled:
             return
         kernel = sched.meta.get("kernel", "unknown")
@@ -284,6 +294,10 @@ class Observability:
                   "bytes moved host->device").inc(h2d_bytes, kernel=kernel)
         m.counter("repro_executor_d2h_bytes",
                   "bytes moved device->host").inc(d2h_bytes, kernel=kernel)
+        if direct_h2d_bytes:
+            m.counter("repro_executor_direct_h2d_bytes",
+                      "bytes moved host->device straight from page-locked "
+                      "operands").inc(direct_h2d_bytes, kernel=kernel)
         m.counter("repro_executor_flops_total",
                   "modeled flops of executed compute ops").inc(
                       sched.total_flops(), kernel=kernel)

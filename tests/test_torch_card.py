@@ -454,6 +454,62 @@ def test_ooc_attention_modes_agree_on_card(card, kv_dtype):
     torch.testing.assert_close(outs[0], expect, rtol=1e-5, atol=1e-5)
 
 
+@pytest.mark.parametrize("mode", ["issue_order", "concurrent"])
+def test_page_locked_cache_equals_pageable_bitwise(card, mode):
+    """MiniMax-Text-01's group (8 query heads on 1 KV head, d 128) over a
+    bf16 cache: the call from the cache page-locked in place, every block
+    copied straight from it, gives the pageable (staged) call's output bit
+    for bit, with the same byte counts; the lock is released after."""
+    g = torch.Generator().manual_seed(33)
+    S, H, hkv, d = 300_000, 8, 1, 128
+    q = torch.randn(H, d, generator=g).to(torch.bfloat16)
+    k, v = (torch.randn(S, hkv, d, generator=g).to(torch.bfloat16)
+            for _ in range(2))
+    budget = 32 << 20
+    part = T.plan_attention_partition(S, hkv, d, budget, 2)
+    stats = T.schedule_stats(T.build_attention_schedule(part, hkv, d, H))
+    assert part.nblocks >= 3 and S % part.bs
+    ex = T.ScheduleExecutor(mode=mode, record_spans=True)
+    staged = T.ooc_attention(q, k, v, budget_bytes=budget, executor=ex)
+    assert ex.last_direct_h2d_bytes == 0
+    assert ex.last_stage_seconds > 0
+    with T.page_lock(k) as lk, T.page_lock(v) as lv:
+        assert lk.locked and lv.locked and k.is_pinned() and v.is_pinned()
+        assert k[5:].is_pinned()
+        assert not T.page_lock(k).locked      # already page-locked
+        direct = T.ooc_attention(q, k, v, budget_bytes=budget, executor=ex)
+        assert ex.last_direct_h2d_bytes == ex.last_h2d_bytes \
+            == stats["h2d_bytes"]
+        assert ex.last_stage_seconds == 0
+        assert ex.last_d2h_bytes == stats["d2h_bytes"]
+    assert not k.is_pinned() and not v.is_pinned()
+    lk.release()
+    assert torch.equal(staged, direct)
+    expect = kfa.flash_decode_attention_plain(
+        q[None].float(), k[None].float(), v[None].float(), S)[0]
+    torch.testing.assert_close(direct.float(), expect, rtol=2e-2,
+                               atol=2e-2)
+
+
+def test_page_locked_gemm_equals_staged_bitwise(card):
+    """A GEMM whose A and B are page-locked (A's row blocks go direct, B's
+    column blocks and C stage) equals the all-staged call bit for bit."""
+    M, N, K = 2048, 1536, 1024
+    A, B, C = (torch.from_numpy(x) for x in _inputs(7, M, N, K))
+    budget = (A.nbytes + B.nbytes + C.nbytes) // 4
+    staged = T.ooc_gemm(A, B, C, beta=0.5, budget_bytes=budget)
+    ex = T.ScheduleExecutor()
+    rt = T.HostOocRuntime(T.Device("HBM", 0, budget), executor=ex)
+    with T.page_lock(A), T.page_lock(B):
+        direct = T.ooc_gemm(A, B, C, beta=0.5, budget_bytes=budget,
+                            runtime=rt)
+        assert 0 < ex.last_direct_h2d_bytes < ex.last_h2d_bytes
+    assert torch.equal(staged, direct)
+    np.testing.assert_allclose(
+        direct.numpy(), A.numpy().astype(np.float64) @ B.numpy()
+        + 0.5 * C.numpy(), rtol=1e-4, atol=1e-4)
+
+
 # the shapes of tests/test_kernels.py's block GEMM tests, a ragged one and
 # one of 256-multiples
 DIRECT_SHAPES = [(128, 128, 128), (256, 384, 512), (300, 200, 150),

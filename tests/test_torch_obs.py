@@ -455,6 +455,41 @@ def test_entry_point_call_appends_one_record(entry, tmp_path):
     assert "calls" not in json.dumps(obs.snapshot())
 
 
+@pytest.mark.parametrize("locked", [False, True])
+def test_attention_call_appends_one_record(monkeypatch, locked):
+    """Each ``ooc_attention`` call on an executor that records spans
+    appends one completed ``attention`` record: its four spans within the
+    call's own seconds, its executor's wall, and the run's direct H2D bytes
+    (all of them for operands taken as page-locked, none for pageable
+    ones)."""
+    from repro_torch.core import ooc_attention, runtime
+
+    monkeypatch.setattr(runtime, "_page_locked", lambda t: locked)
+    g = np.random.default_rng(5)
+    q = g.standard_normal((8, 64)).astype(np.float32)
+    K, V = (g.standard_normal((1000, 2, 64)).astype(np.float32)
+            for _ in range(2))
+    obs = get_observability()
+    ex = ScheduleExecutor(record_spans=True, torch_device="cpu")
+    walls = []
+    for _ in range(2):
+        ooc_attention(q, K, V, budget_bytes=K.nbytes, executor=ex)
+        walls.append(ex.last_wall_seconds)
+    assert len(obs.calls) == 2
+    names = {"attention.intake", "attention.plan", "attention.execute",
+             "attention.out"}
+    for rec, wall in zip(obs.calls, walls):
+        assert rec.ok and rec.entry == "attention"
+        assert {k for k in rec.seconds if k.startswith("attention.")} \
+            == names
+        assert rec.exec_walls == [wall]
+        assert rec.direct_h2d_bytes == ex.last_direct_h2d_bytes \
+            == (ex.last_h2d_bytes if locked else 0)
+        assert 0 < sum(rec.seconds[k] for k in names) \
+            <= rec.seconds["attention"]
+    assert ex.last_h2d_bytes > 0
+
+
 def test_nothing_recorded_when_tracing_is_off(monkeypatch):
     """No record, no ``record_function``, and the shared no-op span, when
     neither the executor records spans nor a tracer nor a profiler is
