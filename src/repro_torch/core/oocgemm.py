@@ -17,9 +17,12 @@ zeros of A's dtype); 64-bit operands land on the device in 32 bits.
 no card the caller must pass ``torch_device="cpu"`` (the kernels' plain
 versions).  The host backend takes and returns host data (numpy arrays or
 CPU tensors in, a CPU tensor out); the vmem backend moves its operands to
-the device and returns a device tensor.  With no C the host backend
-returns the zeros the call made and wrote into; a caller's C is copied
-first and never written.
+the device and returns a device tensor.  With no C an out-of-core host
+call without faults makes C's blocks as zeros on the device (the
+schedule's ``fill_c``: no host zero-fill, no H2D of C) and returns the
+uninitialised output its write-backs cover; the in-core, vmem and
+fault-armed paths run into zeros the call makes (``gemm.zero_c``).  A
+caller's C is copied first and never written.
 
 ``faults=``/``fault_policy=`` (host backend) arm fault injection on the
 executor (``repro_torch.fault``): transfer faults retry, compute faults
@@ -48,9 +51,9 @@ a prepared ``runtime``; it returns C as a row-sharded DTensor.
 
 Each call is one ``obs.call`` (``gemm``, ``syrk``): when the runtime's
 executor records spans, or a tracer is active, its host work is recorded
-by span (``gemm.intake``, ``gemm.plan``, ``gemm.zero_c`` with no C or
-``gemm.clone_c`` with a caller's, ``gemm.execute``, ``gemm.drift``;
-``syrk.*`` likewise) on ``get_observability().calls``.
+by span (``gemm.intake``, ``gemm.plan``, ``gemm.zero_c`` where zeros are
+made on the host or ``gemm.clone_c`` with a caller's C, ``gemm.execute``,
+``gemm.drift``; ``syrk.*`` likewise) on ``get_observability().calls``.
 """
 
 from __future__ import annotations
@@ -337,7 +340,8 @@ def ooc_gemm(
     if C is None:
         beta = 0.0
         if in_core or backend != "host":
-            # else HostOocRuntime makes them and runs into them, uncopied
+            # else HostOocRuntime makes C: on the device (fill_c) or, with
+            # faults armed, as host zeros it runs into, uncopied
             C = zeros_c("gemm", (M, N), A)
 
     if in_core:
@@ -354,9 +358,11 @@ def ooc_gemm(
         else:
             part = plan_gemm_partition(M, N, K, budget_bytes, bpe)
         if backend == "host":
+            # a fault-armed run keeps the reference's schedule, the ops its
+            # fault plan and recovery counters are held to
             sched = plib.build_gemm_schedule(
                 part, nstreams=nstreams, nbuf=nbuf, traversal=traversal,
-                evict=evict)
+                evict=evict, fill_c=C is None and faults is None)
             if validate:
                 validate_schedule(sched)
     if backend == "host":

@@ -76,6 +76,11 @@ class StreamedOperand:
             GEMM's B slice is a 2-deep ping-pong regardless of pipeline depth.
       inout: read-modify-write operand (GEMM's C): its transfer must wait for
             the previous occupant's *write-back*, not just its last read.
+      fill: the operand's host values are never read (a beta = 0 C that the
+            entry point makes itself): each block starts as zeros made on
+            the device by a zero-byte COMPUTE op ``Z(x[..])`` that carries
+            the block's :class:`SliceRef` and takes the H2D's place, waits
+            and landing event.  Off in every reference-equal schedule.
     """
 
     name: str
@@ -85,6 +90,7 @@ class StreamedOperand:
     bytes_of: Callable[[int], int]
     nbuf: Optional[int] = None
     inout: bool = False
+    fill: bool = False
 
 
 @dataclasses.dataclass(frozen=True)
@@ -347,10 +353,13 @@ def compile_pipeline(
         s_xfer = b.transfer_stream(s)
 
         # -- H2D: bring in each operand block unless it is still resident
+        # (a fill operand's block is made on the device instead, moving
+        # nothing)
         for x in spec.operands:
             blk = x.block_of(s)
             cache = caches[x.name]
-            slot, hit, evict_waits = cache.access(s, blk, x.bytes_of(blk))
+            moved = 0 if x.fill else x.bytes_of(blk)
+            slot, hit, evict_waits = cache.access(s, blk, moved)
             slot_of[x.name] = slot
             if hit:
                 continue  # resident from an earlier step: no transfer
@@ -361,14 +370,15 @@ def compile_pipeline(
             suffix = "" if inc == 0 else f"@{inc}"
             landing = b.event(f"r{x.name}[{blk}]{suffix}")
             cache.set_landing(blk, landing)
+            head = "Z" if x.fill else "S"
             b.issue(
-                kind=OpKind.H2D,
-                tag=f"S({x.name.lower()}[{blk}]){suffix}",
+                kind=OpKind.COMPUTE if x.fill else OpKind.H2D,
+                tag=f"{head}({x.name.lower()}[{blk}]){suffix}",
                 stream=s_xfer,
                 waits=evict_waits,
                 records=landing,
                 buffers_written=((x.name, slot),),
-                bytes=x.bytes_of(blk),
+                bytes=moved,
                 payload=x.slice_of(blk),
             )
 
@@ -469,7 +479,8 @@ def _block_accessors(part: GemmPartition):
 def _gemm_identity_operands(part: GemmPartition, traversal: str,
                             band: Optional[int],
                             a_name: str, a_slice, a_bytes,
-                            b_name: str, b_slice, b_bytes):
+                            b_name: str, b_slice, b_bytes,
+                            fill_c: bool = False):
     """Shared GEMM/SYRK operand construction with *identity* block ids.
 
     The A role is keyed by block row ``i``, the B role by block column ``j``
@@ -501,7 +512,7 @@ def _gemm_identity_operands(part: GemmPartition, traversal: str,
             cols=part.block_cols(cid // part.h)),
         bytes_of=lambda cid: part.block_rows(cid % part.h)[1]
         * part.block_cols(cid // part.h)[1] * bpe,
-        inout=True,
+        inout=True, fill=fill_c,
     )
 
     def flops(s):
@@ -516,7 +527,8 @@ def gemm_pipeline_spec(part: GemmPartition,
                        write_back: bool = True,
                        traversal: str = "col",
                        band: Optional[int] = None,
-                       reuse: bool = True) -> PipelineSpec:
+                       reuse: bool = True,
+                       fill_c: bool = False) -> PipelineSpec:
     """The paper's MMOOC pipeline as a spec.
 
     Stage set per C block (i, j), idx = j*h + i (column-major so each B slice
@@ -535,6 +547,11 @@ def gemm_pipeline_spec(part: GemmPartition,
     "blocked" traversal's row bands).  ``reuse=False`` reproduces the seed
     compiler's per-step ids — every A/C recurrence re-transfers — and is the
     naive baseline ``benchmarks/bench_reuse.py`` measures against.
+
+    ``fill_c=True`` makes C write-only (a beta = 0 output that the caller
+    never sees before the run): each S(c_ij) becomes Z(c_ij), a zero-fill
+    of the block's buffer on the device with S(c_ij)'s stream, waits and
+    landing event, and no transfer (:attr:`StreamedOperand.fill`).
     """
     bpe = part.bytes_per_el
 
@@ -547,6 +564,7 @@ def gemm_pipeline_spec(part: GemmPartition,
             "B",
             lambda j: SliceRef("B", j, cols=part.block_cols(j)),
             lambda j: part.K * part.block_cols(j)[1] * bpe,
+            fill_c=fill_c,
         )
     else:
         if traversal != "col":
@@ -570,7 +588,7 @@ def gemm_pipeline_spec(part: GemmPartition,
             slice_of=lambda blk: SliceRef("C", blk, rows=rows(blk),
                                           cols=cols(blk)),
             bytes_of=lambda blk: rows(blk)[1] * cols(blk)[1] * bpe,
-            inout=True,
+            inout=True, fill=fill_c,
         )
     return PipelineSpec(
         name="gemm",
@@ -1246,10 +1264,13 @@ def build_gemm_schedule(
     device: Optional[Device] = None,
     traversal: str = "col",
     evict: str = "lru",
+    fill_c: bool = False,
 ) -> Schedule:
-    """Emit the MMOOC schedule of libhclooc Fig. 2 for ``part``."""
+    """Emit the MMOOC schedule of libhclooc Fig. 2 for ``part``;
+    ``fill_c`` makes C's blocks on the device (:func:`gemm_pipeline_spec`).
+    """
     spec = gemm_pipeline_spec(part, write_back=write_back,
-                              traversal=traversal, band=nbuf)
+                              traversal=traversal, band=nbuf, fill_c=fill_c)
     return compile_pipeline(spec, nstreams=nstreams, nbuf=nbuf,
                             device=device, evict=evict)
 

@@ -186,6 +186,13 @@ def _host_output(entry: str, C, shape: Tuple[int, int],
         return C.clone()
 
 
+def _fills(sched: Schedule, name: str) -> bool:
+    """Whether ``sched`` makes operand ``name``'s blocks on the device
+    (fill ops) instead of copying them from the host."""
+    return any(op.kind == OpKind.COMPUTE and isinstance(op.payload, SliceRef)
+               and op.payload.operand == name for op in sched.ops)
+
+
 def device_tensor(x, torch_device: torch.device) -> torch.Tensor:
     """An operand as a contiguous tensor on ``torch_device`` in its
     compute dtype."""
@@ -562,6 +569,10 @@ class ScheduleExecutor:
     straight from the operand, with no staging, fill or wait.  Operands the
     run also writes (``outputs``) always stage, so that no later write-back
     lands under a copy still reading the host.
+    A fill op (a COMPUTE op whose payload is a :class:`SliceRef`, ``Z(..)``:
+    :attr:`~repro_torch.core.pipeline.StreamedOperand.fill`) sizes and
+    binds its block's view as a landing would and zero-fills it on its
+    op's stream, reading nothing from the host.
     D2H copies the device block into
     pinned staging, records an event, and the host stores staging into the
     destination slice only after that event, at the reference's flush
@@ -597,7 +608,9 @@ class ScheduleExecutor:
     ``last_h2d_bytes``/``last_d2h_bytes`` count the bytes of the transfer
     ops performed in the most recent :meth:`run` (they equal
     ``schedule_stats``), and ``last_direct_h2d_bytes`` those of its H2D
-    ops that took the direct path; ``last_wall_seconds`` brackets the run,
+    ops that took the direct path, and ``last_fill_bytes`` those of the
+    blocks its fill ops made on the device; ``last_wall_seconds`` brackets
+    the run,
     ending when the run's streams have drained (the calling thread's current
     stream and the engine streams, not the whole device: another thread
     may run another executor on the same card).  A run that raises drains
@@ -673,6 +686,7 @@ class ScheduleExecutor:
         self.last_completion_order: List[int] = []
         self.last_h2d_bytes = 0
         self.last_direct_h2d_bytes = 0
+        self.last_fill_bytes = 0
         self.last_d2h_bytes = 0
         self.last_wall_seconds = 0.0
         self.last_stage_seconds = 0.0
@@ -713,12 +727,12 @@ class ScheduleExecutor:
 
     def _allocate(self, sched: Schedule, st: ExecState
                   ) -> Dict[Hashable, torch.Tensor]:
-        """One flat device buffer per H2D-landed parity key, sized for the
-        largest block the key ever holds."""
+        """One flat device buffer per parity key that an H2D lands in or a
+        fill op makes, sized for the largest block the key ever holds."""
         need: Dict[Hashable, Tuple[int, torch.dtype]] = {}
         for op in sched.ops:
             ref = op.payload
-            if op.kind != OpKind.H2D or not isinstance(ref, SliceRef):
+            if op.kind == OpKind.D2H or not isinstance(ref, SliceRef):
                 continue
             src = _take(st.host(ref.operand), ref)
             key = op.buffers_written[0]
@@ -798,6 +812,7 @@ class ScheduleExecutor:
         self.last_completion_order = []
         self.last_h2d_bytes = 0
         self.last_direct_h2d_bytes = 0
+        self.last_fill_bytes = 0
         self.last_d2h_bytes = 0
         self.last_stage_seconds = 0.0
         self.last_stage_wait_seconds = 0.0
@@ -935,6 +950,24 @@ class ScheduleExecutor:
             ev.record()
             h2d_copied[key] = ev
 
+        def exec_fill(op: Op, ref: SliceRef) -> None:
+            # a block made on the device: S(c_ij)'s landing point, buffer
+            # and view, but zeros in place of the host's values
+            key = op.buffers_written[0]
+            if key in pending:           # the previous occupant lands now
+                flush_retrying(key)
+            if log is not None:
+                log.reset(key)
+                log.before_write(key)
+            like = _take(st.host(ref.operand), ref)
+            view = flat[key][:like.numel()].view(like.shape)
+            st.bufs[key] = view
+            if log is not None:
+                log.mark_clean(key)
+            self.last_fill_bytes += view.numel() * view.element_size()
+            device_work()
+            view.zero_()
+
         def exec_d2h(i: int, op: Op, ref) -> None:
             self.last_d2h_bytes += op.bytes
             if isinstance(ref, BlockRef):  # finalize handler
@@ -964,6 +997,9 @@ class ScheduleExecutor:
                 flush_retrying(key)
 
         def exec_compute(i: int, op: Op, ref: BlockRef) -> None:
+            if isinstance(ref, SliceRef):
+                exec_fill(op, ref)
+                return
             if log is not None:
                 for k in op.buffers_written:
                     log.before_write(k)
@@ -976,7 +1012,7 @@ class ScheduleExecutor:
                 exec_h2d(op, ref)
             elif op.kind == OpKind.COMPUTE:
                 exec_compute(i, op, ref)
-                if log is not None:
+                if log is not None and isinstance(ref, BlockRef):
                     log.record(op, ref)
             else:
                 exec_d2h(i, op, ref)
@@ -1024,7 +1060,7 @@ class ScheduleExecutor:
                     op.kind == OpKind.COMPUTE
                     and len(op.buffers_written) == 1
                     and op.buffers_written[0] in log.clean
-                    and ref.kernel in REPLAYABLE_KERNELS)
+                    and getattr(ref, "kernel", None) in REPLAYABLE_KERNELS)
                 if op.kind == OpKind.COMPUTE:
                     exec_compute(i, op, ref)
                     for k in op.buffers_written:
@@ -1100,14 +1136,15 @@ class ScheduleExecutor:
         self.last_wall_seconds = time.perf_counter() - t_run0
         self.last_handler_seconds = dict(st.seconds)
         obs.add_exec_run(self.last_wall_seconds, self.last_land_seconds,
-                         self.last_direct_h2d_bytes)
+                         self.last_direct_h2d_bytes, self.last_fill_bytes)
         raise_on_info(st.statuses)
         if obs.metrics.enabled:
             obs.record_executor_run(
                 sched, self.last_wall_seconds,
                 self.last_h2d_bytes, self.last_d2h_bytes,
                 spans=self.last_spans if trace else None,
-                direct_h2d_bytes=self.last_direct_h2d_bytes)
+                direct_h2d_bytes=self.last_direct_h2d_bytes,
+                fill_bytes=self.last_fill_bytes)
         if tracer is not None and trace and self.last_spans:
             tracer.add_flat_spans(
                 self.trace_group
@@ -1378,8 +1415,11 @@ class HostOocRuntime(OocRuntime):
     (``tier_bytes("HBM")``).  ``torch_device`` is the torch device; an
     ``executor`` brings its own.  Host operands stay on the host: numpy
     arrays or CPU tensors in, a CPU tensor out.  ``gemm``/``syrk`` with
-    ``C=None`` (β = 0) run into zeros of their own and return them; a
-    caller's C is copied and never written.
+    ``C=None`` (β = 0) return an output of their own; a caller's C is
+    copied and never written.  A GEMM whose schedule makes C's blocks on
+    the device (``fill_c``, what ``gemm`` builds with no C and no faults)
+    runs into an uninitialised output that its write-backs cover; any
+    other runs into zeros (``<entry>.zero_c``).
     """
 
     def __init__(self, device: Optional[Device] = None,
@@ -1402,10 +1442,18 @@ class HostOocRuntime(OocRuntime):
              schedule: Optional[Schedule] = None,
              faults=None, policy=None) -> torch.Tensor:
         sched = schedule or plib.build_gemm_schedule(
-            part, nstreams=nstreams, nbuf=nbuf
-        )
+            part, nstreams=nstreams, nbuf=nbuf,
+            fill_c=C is None and faults is None)
         A, B = host_tensor(A), host_tensor(B)
-        out = _host_output("gemm", C, (A.shape[0], B.shape[1]), A)
+        shape = (A.shape[0], B.shape[1])
+        if not _fills(sched, "C"):
+            out = _host_output("gemm", C, shape, A)
+        elif C is not None:
+            raise ValueError("the schedule makes C's blocks on the device "
+                             "(fill_c) and cannot take a caller's C")
+        else:
+            # write-only: every element lands from the device
+            out = torch.empty(shape, dtype=A.dtype)
         with get_observability().span("gemm.execute"):
             self.executor.run(
                 sched,

@@ -96,11 +96,12 @@ class CallRecord:
     own host copies wrote, ``exec_walls`` (each executor run's
     ``last_wall_seconds``, appended as the run ends),
     ``direct_h2d_bytes`` (its executor runs' H2D bytes copied straight
-    from page-locked operands, ``last_direct_h2d_bytes``) and ``ok``
-    (False when the call raised)."""
+    from page-locked operands, ``last_direct_h2d_bytes``), ``fill_bytes``
+    (the bytes of the blocks its runs made as zeros on the device,
+    ``last_fill_bytes``) and ``ok`` (False when the call raised)."""
 
     __slots__ = ("entry", "seconds", "copy_bytes", "exec_walls",
-                 "direct_h2d_bytes", "ok")
+                 "direct_h2d_bytes", "fill_bytes", "ok")
 
     def __init__(self, entry: str):
         self.entry = entry
@@ -108,6 +109,7 @@ class CallRecord:
         self.copy_bytes = 0
         self.exec_walls: List[float] = []
         self.direct_h2d_bytes = 0
+        self.fill_bytes = 0
         self.ok = False
 
     def add(self, name: str, seconds: float, copy_bytes: int = 0) -> None:
@@ -257,16 +259,18 @@ class Observability:
         return _Call(self, entry)
 
     def add_exec_run(self, wall_seconds: float, land_seconds: float,
-                     direct_h2d_bytes: int = 0) -> None:
+                     direct_h2d_bytes: int = 0, fill_bytes: int = 0) -> None:
         """An executor run that ended on this thread: its wall joins the
         open call record's ``exec_walls``, its write-back landing joins its
         seconds as ``executor.land``, its direct H2D bytes its
-        ``direct_h2d_bytes``.  Without an open record, nothing."""
+        ``direct_h2d_bytes``, its filled bytes its ``fill_bytes``.  Without
+        an open record, nothing."""
         rec = getattr(self._local, "call", None)
         if rec is not None:
             rec.exec_walls.append(wall_seconds)
             rec.add("executor.land", land_seconds)
             rec.direct_h2d_bytes += direct_h2d_bytes
+            rec.fill_bytes += fill_bytes
 
     def instant(self, name: str, cat: str = "fault", **args) -> None:
         """A zero-duration trace marker when tracing is active, else a free
@@ -279,11 +283,14 @@ class Observability:
     def record_executor_run(self, sched, wall_seconds: float,
                             h2d_bytes: int, d2h_bytes: int,
                             spans: Optional[List[FlatSpan]] = None,
-                            direct_h2d_bytes: int = 0) -> None:
+                            direct_h2d_bytes: int = 0,
+                            fill_bytes: int = 0) -> None:
         """Publish one :meth:`ScheduleExecutor.run`'s aggregates; its H2D
         bytes copied straight from page-locked operands, where there are
-        any, as ``repro_executor_direct_h2d_bytes`` (a run that staged
-        every copy publishes what the reference's run does)."""
+        any, as ``repro_executor_direct_h2d_bytes``, and the bytes of the
+        blocks its fill ops made on the device, where there are any, as
+        ``repro_executor_fill_bytes`` (a run that staged every copy and
+        filled nothing publishes what the reference's run does)."""
         if not self.metrics.enabled:
             return
         kernel = sched.meta.get("kernel", "unknown")
@@ -298,6 +305,10 @@ class Observability:
             m.counter("repro_executor_direct_h2d_bytes",
                       "bytes moved host->device straight from page-locked "
                       "operands").inc(direct_h2d_bytes, kernel=kernel)
+        if fill_bytes:
+            m.counter("repro_executor_fill_bytes",
+                      "bytes of blocks made as zeros on the device in place "
+                      "of an H2D").inc(fill_bytes, kernel=kernel)
         m.counter("repro_executor_flops_total",
                   "modeled flops of executed compute ops").inc(
                       sched.total_flops(), kernel=kernel)

@@ -246,6 +246,46 @@ def test_host_path_stays_within_working_set(card):
                                rtol=1e-4, atol=1e-4)
 
 
+@pytest.mark.parametrize("mode", T.ScheduleExecutor.MODES)
+def test_gemm_c_made_on_card_equals_streamed_c_bitwise(card, mode):
+    """A no-C out-of-core GEMM (ragged, at least 2 x 2 blocks) whose C
+    blocks are zero-filled on the card equals the reference-equal schedule,
+    which copies host zeros in, bit for bit on the same executor; it moves
+    M·N·4 fewer H2D bytes and stages nothing for C (one ``executor.stage``
+    range for each A or B copy alone)."""
+    M, N, K = 1000, 900, 256
+    A, B, _ = _inputs(17, M, N, K)
+    budget = (A.nbytes + B.nbytes + M * N * 4) // 4
+    part = T.plan_gemm_partition(M, N, K, budget, 4)
+    assert part.h > 1 and part.w > 1 and M % part.bm and N % part.bn
+    ex = T.ScheduleExecutor(mode=mode)
+    ctx = {"alpha": 1.0, "beta": 0.0}
+    runs = {}
+    for fill in (False, True):
+        sched = T.build_gemm_schedule(part, fill_c=fill)
+        out = torch.zeros(M, N) if not fill \
+            else torch.full((M, N), float("nan"))
+        with torch.profiler.profile(
+                activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
+            ex.run(sched, {"A": A, "B": B}, {"C": out}, ctx)
+        stages = sum(e.name == "executor.stage" for e in prof.events())
+        assert stages == sum(op.kind == T.OpKind.H2D for op in sched.ops)
+        assert ex.last_h2d_bytes == T.schedule_stats(sched)["h2d_bytes"]
+        runs[fill] = (out, ex.last_h2d_bytes, ex.last_fill_bytes, stages)
+    (ref, ref_h2d, ref_fill, ref_stages), (out, h2d, filled, stages) = (
+        runs[False], runs[True])
+    assert torch.equal(out, ref)
+    assert ref_h2d - h2d == M * N * 4
+    assert (ref_fill, filled) == (0, M * N * 4)
+    assert ref_stages - stages == part.nblocks
+    got = T.ooc_gemm(A, B, budget_bytes=budget,
+                     runtime=T.HostOocRuntime(T.Device("HBM", 0, budget),
+                                              executor=ex))
+    assert torch.equal(got, ref) and ex.last_fill_bytes == M * N * 4
+    np.testing.assert_allclose(ref.numpy(), A.astype(np.float64) @ B,
+                               rtol=1e-4, atol=1e-4)
+
+
 @pytest.mark.parametrize("backend", ["host", "vmem"])
 def test_syrk_matches_in_core_bitwise(card, backend):
     rng = np.random.default_rng(13)

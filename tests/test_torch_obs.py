@@ -398,8 +398,10 @@ def _spd(n=192, seed=3):
 
 def _call(entry, ex, tmp_path=None):
     """One out-of-core call of ``entry`` on executor ``ex`` (CPU); the
-    tuned GEMM plans through a fresh tuner under ``tmp_path``, and
-    ``gemm-with-c`` adds the caller's C at β = 1."""
+    tuned GEMM plans through a fresh tuner under ``tmp_path``,
+    ``gemm-with-c`` adds the caller's C at β = 1, and ``gemm-in-core``
+    is the same GEMM under a budget that holds it (its zeros made on the
+    host, no executor run)."""
     from repro_torch.core import Device, HostOocRuntime, ooc_cholesky, \
         ooc_gemm
 
@@ -409,6 +411,8 @@ def _call(entry, ex, tmp_path=None):
                             executor=ex)
     A, B, C, _ = _seeded_gemm()
     budget = (A.nbytes + B.nbytes + A.shape[0] * B.shape[1] * 4) // 3
+    if entry == "gemm-in-core":
+        budget = 1 << 30
     kw = {}
     if entry == "gemm-with-c":
         kw = dict(C=C, beta=1.0)
@@ -422,35 +426,39 @@ def _call(entry, ex, tmp_path=None):
                                            executor=ex), **kw)
 
 
+# entry -> (its spans, bytes its host copies write, bytes its runs fill on
+# the device): a no-C GEMM makes C's blocks on the device, not on the host
 CALL_SPANS = {
-    "gemm": ({"gemm.intake", "gemm.zero_c", "gemm.plan", "gemm.execute"},
+    "gemm": ({"gemm.intake", "gemm.plan", "gemm.execute"}, 0,
              256 * 256 * 4),
-    "gemm-tuned": ({"gemm.intake", "gemm.zero_c", "gemm.plan",
-                    "gemm.execute", "gemm.drift"}, 256 * 256 * 4),
+    "gemm-tuned": ({"gemm.intake", "gemm.plan", "gemm.execute",
+                    "gemm.drift"}, 0, 256 * 256 * 4),
     "gemm-with-c": ({"gemm.intake", "gemm.plan", "gemm.clone_c",
-                     "gemm.execute"}, 256 * 256 * 4),
+                     "gemm.execute"}, 256 * 256 * 4, 0),
     "cholesky": ({"cholesky.intake", "cholesky.plan", "cholesky.clone_a",
                   "cholesky.execute", "cholesky.tril"},
-                 192 * 192 * 4 + 192 * 191 // 2 * 4),
+                 192 * 192 * 4 + 192 * 191 // 2 * 4, 0),
 }
 
 
 @pytest.mark.parametrize("entry", sorted(CALL_SPANS))
 def test_entry_point_call_appends_one_record(entry, tmp_path):
     """An executor that records spans makes each call append one completed
-    record: the table's spans, the executor's wall, the copies' bytes, and
-    the entry point's own spans within the call's own seconds."""
+    record: the table's spans, the executor's wall, the copies' bytes, the
+    bytes filled on the device, and the entry point's own spans within the
+    call's own seconds."""
     obs = get_observability()
     ex = ScheduleExecutor(record_spans=True, torch_device="cpu")
     _call(entry, ex, tmp_path)
     (rec,) = obs.calls
-    names, copied = CALL_SPANS[entry]
+    names, copied, filled = CALL_SPANS[entry]
     assert rec.ok and rec.entry == entry.split("-")[0]
     assert {k for k in rec.seconds
             if k.startswith(rec.entry + ".")} == names
     assert rec.exec_walls == [ex.last_wall_seconds]
     assert rec.seconds["executor.land"] == ex.last_land_seconds > 0
     assert rec.copy_bytes == copied
+    assert rec.fill_bytes == ex.last_fill_bytes == filled
     assert 0 < sum(rec.seconds[k] for k in names) <= rec.seconds[rec.entry]
     assert "calls" not in json.dumps(obs.snapshot())
 
@@ -514,38 +522,46 @@ def test_nothing_recorded_when_tracing_is_off(monkeypatch):
 
 def test_profiler_sees_spans_around_their_operators():
     """Under ``torch.profiler`` the spans are ``record_function`` ranges:
-    ``gemm.zero_c`` encloses the zero-fill's ``aten::zeros`` and
-    ``aten::fill_``, and each landing is an ``executor.land``."""
+    each landing of the out-of-core call is an ``executor.land``, and the
+    in-core call's ``gemm.zero_c`` (the one GEMM that still zero-fills C
+    on the host) encloses the zero-fill's ``aten::zeros`` and
+    ``aten::fill_``."""
     import torch
 
     ex = ScheduleExecutor(torch_device="cpu")
     with torch.profiler.profile(
             activities=[torch.profiler.ProfilerActivity.CPU]) as prof:
         _call("gemm", ex)
+        _call("gemm-in-core", ex)
     events = [(e.name(), e.start_ns(), e.start_ns() + e.duration_ns())
               for e in prof.profiler.kineto_results.events()]
     (zero,) = [e for e in events if e[0] == "gemm.zero_c"]
     inside = {n for n, s, t in events if zero[1] <= s and t <= zero[2]}
     assert {"aten::zeros", "aten::fill_"} <= inside
     names = [n for n, _, _ in events]
-    assert names.count("gemm") == 1
+    assert names.count("gemm") == 2
     assert names.count("executor.land") > 0
     assert len(get_observability().calls) == 0
 
 
 def test_tracer_nests_entry_spans_under_the_call():
+    """Each call's entry spans are children of its call span; the in-core
+    call's ``gemm.zero_c`` carries its copy's bytes."""
     obs = get_observability()
     tr = obs.start_trace("calls")
     _call("gemm", ScheduleExecutor(torch_device="cpu"))
+    _call("gemm-in-core", ScheduleExecutor(torch_device="cpu"))
     spans = tr.spans()
-    (call,) = [s for s in spans if s.name == "gemm"]
-    inner = [s for s in spans if s.name.startswith("gemm.")]
+    ooc, in_core = [s for s in spans if s.name == "gemm"]
+    inner = [s for s in spans if s.name.startswith("gemm.")
+             and s.parent_id == ooc.span_id]
     assert {s.name for s in inner} == CALL_SPANS["gemm"][0]
-    assert all(s.parent_id == call.span_id for s in inner)
-    assert dict(next(s for s in inner if s.name == "gemm.zero_c").args)[
-        "copy_bytes"] == str(256 * 256 * 4)
-    (rec,) = obs.calls
-    assert rec.ok and rec.entry == "gemm"
+    zero = [s for s in spans if s.name == "gemm.zero_c"]
+    assert [s.parent_id for s in zero] == [in_core.span_id]
+    assert dict(zero[0].args)["copy_bytes"] == str(256 * 256 * 4)
+    assert {s.parent_id for s in spans if s.name.startswith("gemm.")} \
+        == {ooc.span_id, in_core.span_id}
+    assert [(r.ok, r.entry) for r in obs.calls] == [(True, "gemm")] * 2
 
 
 def test_land_seconds_reset_between_runs(monkeypatch):

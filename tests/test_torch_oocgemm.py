@@ -382,18 +382,24 @@ def _host_call(entry, C=None, alpha=1.0, beta=0.0, ex=None, **kw):
 
 @pytest.mark.parametrize("entry", ["gemm", "syrk"])
 def test_host_call_without_c_runs_into_its_own_zeros(entry):
-    """With no C the call returns the zeros it made, written by the run and
-    never copied (a ``.zero_c`` span and no ``.clone_c``), bit for bit the
-    call with explicit zeros at β = 0."""
+    """With no C the call returns an output of its own, never copied (no
+    ``.clone_c``), bit for bit the call with explicit zeros at β = 0.  The
+    GEMM's C blocks start as zeros made on the device (no ``.zero_c``, no
+    copy, its fill bytes counted); the SYRK runs into host zeros
+    (``.zero_c``)."""
     want = _host_call(entry, np.zeros((256, 256), np.float32))
     ex = T.ScheduleExecutor(record_spans=True, torch_device=CPU)
     got = _host_call(entry, ex=ex)
     assert torch.equal(got, want)
     rec = get_observability().calls[-1]
     spans = set(rec.seconds)
-    assert {f"{entry}.zero_c", f"{entry}.execute"} <= spans
+    assert f"{entry}.execute" in spans
     assert f"{entry}.clone_c" not in spans
-    assert rec.copy_bytes == got.numel() * 4
+    on_card = entry == "gemm"
+    assert (f"{entry}.zero_c" in spans) == (not on_card)
+    assert rec.copy_bytes == (0 if on_card else got.numel() * 4)
+    assert rec.fill_bytes == ex.last_fill_bytes \
+        == (got.numel() * 4 if on_card else 0)
 
 
 @pytest.mark.parametrize("C_type", ["numpy", "tensor"])
@@ -436,3 +442,169 @@ def test_oom_ladder_without_c_returns_the_clean_bits():
     out = _host_call("gemm", faults=oom_at_first_compute, fault_policy=pol)
     assert [d.action for d in pol.degrades] == ["halve_nbuf"]
     assert torch.equal(out, clean)
+
+
+# ------------------------------------ a β = 0 C made on the device (fill_c)
+def test_gemm_without_c_makes_c_on_the_device():
+    """An out-of-core no-C host GEMM over ragged edge blocks: the schedule
+    fills C's blocks on the device, the output is bit for bit the
+    reference-equal path (S(c_ij) copies of host zeros), the H2D bytes are
+    ``schedule_stats``' and M·N·4 below that path's, and the fill bytes,
+    M·N·4, reach the call record and ``repro_executor_fill_bytes``."""
+    M, N, K = 300, 260, 96
+    A, B, _ = _problem(81, M, N, K)
+    budget = (A.nbytes + B.nbytes + M * N * 4) // 4
+    part = T.plan_gemm_partition(M, N, K, budget, 4)
+    assert M % part.bm and N % part.bn and part.h > 1 and part.w > 1
+    ref_ex = T.ScheduleExecutor(torch_device=CPU)
+    want = torch.zeros(M, N)
+    ref_sched = T.build_gemm_schedule(part)
+    ref_ex.run(ref_sched, {"A": A, "B": B}, {"C": want},
+               {"alpha": 1.0, "beta": 0.0})
+    obs = get_observability()
+    obs.reset().enable(metrics=True)
+    try:
+        ex = T.ScheduleExecutor(record_spans=True, torch_device=CPU)
+        got = T.ooc_gemm(A, B, budget_bytes=budget,
+                         runtime=T.HostOocRuntime(T.Device("HBM", 0, budget),
+                                                  executor=ex))
+        assert torch.equal(got, want)
+        stats = T.schedule_stats(T.build_gemm_schedule(part, fill_c=True))
+        assert ex.last_h2d_bytes == stats["h2d_bytes"] \
+            == ref_ex.last_h2d_bytes - M * N * 4
+        assert ex.last_d2h_bytes == stats["d2h_bytes"] \
+            == ref_ex.last_d2h_bytes
+        assert ex.last_fill_bytes == M * N * 4
+        assert ref_ex.last_fill_bytes == 0
+        (rec,) = obs.calls
+        assert rec.fill_bytes == M * N * 4 and rec.copy_bytes == 0
+        assert obs.metrics.get("repro_executor_fill_bytes").value(
+            kernel="gemm") == M * N * 4
+    finally:
+        obs.reset().disable()
+    np.testing.assert_allclose(
+        got.numpy(), np.asarray(R.ooc_gemm(A, B, budget_bytes=budget)),
+        rtol=1e-4, atol=1e-4)
+
+
+def _c_transfers(sched):
+    """(S(c_ij) H2D ops, fill ops) of C in ``sched``."""
+    ops = [op for op in sched.ops if getattr(op.payload, "operand", None)
+           == "C" and op.kind != T.OpKind.D2H]
+    return ([op for op in ops if op.kind == T.OpKind.H2D],
+            [op for op in ops if op.kind == T.OpKind.COMPUTE])
+
+
+@pytest.mark.parametrize("path", ["callers_c", "faults", "syrk", "in_core"])
+def test_other_paths_still_stream_c(path, monkeypatch):
+    """Everything but the no-C, host, out-of-core, fault-free GEMM keeps
+    the reference-equal path: a caller's C, an armed fault plan, a SYRK
+    (each streams C's blocks, S(c_ij), and fills none) and the in-core
+    call (host zeros, no executor run)."""
+    from repro_torch.fault import FaultPlan, FaultPolicy
+
+    want = _host_call("syrk" if path == "syrk" else "gemm",
+                      np.zeros((256, 256), np.float32))
+    runs = []
+    real_run = T.ScheduleExecutor.run
+
+    def run(self, sched, *a, **kw):
+        runs.append(sched)
+        st = real_run(self, sched, *a, **kw)
+        assert self.last_fill_bytes == 0
+        return st
+
+    monkeypatch.setattr(T.ScheduleExecutor, "run", run)
+    ex = T.ScheduleExecutor(record_spans=True, torch_device=CPU)
+    if path == "callers_c":
+        out = _host_call("gemm", np.zeros((256, 256), np.float32), ex=ex)
+    elif path == "faults":
+        out = _host_call("gemm", ex=ex, faults=FaultPlan(specs=()),
+                         fault_policy=FaultPolicy(sleep=lambda s: None))
+    elif path == "syrk":
+        out = _host_call("syrk", ex=ex)
+    else:
+        A, B, _ = _problem(21, 256, 256, 128)
+        big = 1 << 30
+        out = T.ooc_gemm(A, B, budget_bytes=big, runtime=T.HostOocRuntime(
+            T.Device("HBM", 0, big), executor=ex))
+    assert torch.equal(out, want)
+    rec = get_observability().calls[-1]
+    assert rec.fill_bytes == 0
+    if path == "in_core":
+        assert not runs and "gemm.zero_c" in rec.seconds
+        return
+    (sched,) = runs
+    copied, filled = _c_transfers(sched)
+    assert copied and not filled
+
+
+def test_executor_fills_every_element_of_a_nan_output():
+    """The fill schedule run into an output full of NaN leaves none: each
+    element is written by a write-back, in both modes, and every block of
+    C is a fill op that the run counts."""
+    M, N, K = 300, 260, 96
+    A, B, _ = _problem(82, M, N, K)
+    part = T.plan_gemm_partition(M, N, K, (A.nbytes + B.nbytes + M * N * 4)
+                                 // 4, 4)
+    sched = T.build_gemm_schedule(part, fill_c=True)
+    copied, filled = _c_transfers(sched)
+    assert not copied and len(filled) == part.nblocks
+    want = torch.zeros(M, N)
+    T.ScheduleExecutor(torch_device=CPU).run(
+        T.build_gemm_schedule(part), {"A": A, "B": B}, {"C": want},
+        {"alpha": 1.0, "beta": 0.0})
+    for mode in T.ScheduleExecutor.MODES:
+        out = torch.full((M, N), float("nan"))
+        ex = T.ScheduleExecutor(mode=mode, torch_device=CPU)
+        ex.run(sched, {"A": A, "B": B}, {"C": out},
+               {"alpha": 1.0, "beta": 0.0})
+        assert not out.isnan().any()
+        assert torch.equal(out, want)
+        assert ex.last_fill_bytes == M * N * 4
+        assert ex.last_h2d_bytes == T.schedule_stats(sched)["h2d_bytes"]
+
+
+def test_fill_schedule_replays_from_its_zeros():
+    """Armed by hand on a fill schedule, the executor takes a C block's
+    clean point from its fill: a corrupted DGEMM is replayed onto the
+    block's zeros and the result is the clean run's, bit for bit; a
+    corrupted fill is not replayable."""
+    from repro_torch.fault import (ComputeFault, FaultPlan, FaultPolicy,
+                                   FaultSpec)
+
+    M, N, K = 300, 260, 96
+    A, B, _ = _problem(84, M, N, K)
+    part = T.plan_gemm_partition(M, N, K, (A.nbytes + B.nbytes + M * N * 4)
+                                 // 4, 4)
+    sched = T.build_gemm_schedule(part, fill_c=True)
+    ctx = {"alpha": 1.0, "beta": 0.0}
+    want = torch.zeros(M, N)
+    T.ScheduleExecutor(torch_device=CPU).run(sched, {"A": A, "B": B},
+                                             {"C": want}, ctx)
+    tags = [op.tag for op in sched.ops]
+    dgemm = [i for i, t in enumerate(tags) if t.startswith("DGEMM")][3]
+    fill = [i for i, t in enumerate(tags) if t.startswith("Z(")][2]
+    pol = FaultPolicy(sleep=lambda s: None)
+    ex = T.ScheduleExecutor(torch_device=CPU)
+    out = torch.full((M, N), float("nan"))
+    ex.run(sched, {"A": A, "B": B}, {"C": out}, ctx, policy=pol,
+           faults=FaultPlan(specs=(FaultSpec(op=dgemm, cls="compute_nan"),)))
+    assert torch.equal(out, want)
+    assert ex.last_fault_stats["recovered_replay"] == 1
+    with pytest.raises(ComputeFault, match="not replayable"):
+        ex.run(sched, {"A": A, "B": B}, {"C": torch.empty(M, N)}, ctx,
+               policy=pol, faults=FaultPlan(specs=(
+                   FaultSpec(op=fill, cls="compute_nan"),)))
+
+
+def test_fill_schedule_refuses_a_callers_c():
+    """A schedule that makes C on the device ignores C's values, so the
+    runtime refuses a caller's C with it."""
+    A, B, C = _problem(83, 256, 256, 128)
+    budget = (A.nbytes + B.nbytes + C.nbytes) // 4
+    part = T.plan_gemm_partition(256, 256, 128, budget, 4)
+    rt = T.HostOocRuntime(T.Device("HBM", 0, budget), torch_device=CPU)
+    with pytest.raises(ValueError, match="fill_c"):
+        rt.gemm(A, B, C, 1.0, 0.0, part,
+                schedule=T.build_gemm_schedule(part, fill_c=True))

@@ -72,6 +72,69 @@ def test_gemm_syrk_schedules_identical(nstreams, nbuf, traversal, evict):
                               T.build_syrk_schedule(ts, **kw))
 
 
+def _gemm_schedule(mod, part, reuse, traversal, nstreams, nbuf, **kw):
+    """The GEMM schedule through the spec, so ``reuse`` can be chosen."""
+    spec = mod.gemm_pipeline_spec(part, traversal=traversal, band=nbuf,
+                                  reuse=reuse, **kw)
+    return mod.compile_pipeline(spec, nstreams=nstreams, nbuf=nbuf)
+
+
+# (reuse, traversal): reuse=False fixes the paper's column-major order
+FILL_CASES = [(True, "col"), (True, "blocked"), (False, "col")]
+
+
+@pytest.mark.parametrize("nbuf", [1, 2, 3])
+@pytest.mark.parametrize("nstreams", [1, 2])
+@pytest.mark.parametrize("reuse,traversal", FILL_CASES)
+def test_fill_c_replaces_each_c_transfer_and_nothing_else(
+        reuse, traversal, nstreams, nbuf):
+    """``fill_c`` off: the reference's schedule.  On: the reference's
+    schedule with each S(c_ij) H2D replaced by a zero-byte fill op Z(c_ij)
+    on the same stream, with the same waits, landing event, buffer and
+    slice; every other op equal; ``schedule_stats`` H2D lower by exactly
+    M·N·4 and D2H equal; and in the executable plan each fill keeps an
+    edge to the write-back of the buffer's previous occupant."""
+    for M, N, K, frac in SHAPES + [(300, 260, 96, 4)]:
+        rp, tp = _parts(M, N, K, frac)
+        args = (reuse, traversal, nstreams, nbuf)
+        ref = _gemm_schedule(R, rp, *args)
+        _assert_same_schedule(ref, _gemm_schedule(T, tp, *args,
+                                                  fill_c=False))
+        port = _gemm_schedule(T, tp, *args, fill_c=True)
+        T.validate_schedule(port)
+        assert len(port.ops) == len(ref.ops)
+        fills = []
+        for i, (r, p) in enumerate(zip(ref.ops, port.ops)):
+            rk, pk = op_key(r), op_key(p)
+            if r.kind.name == "H2D" and r.payload.operand == "C":
+                fills.append(i)
+                assert p.kind == T.OpKind.COMPUTE
+                assert p.tag == "Z" + r.tag[1:]
+                # stream, waits, records, buffers read and written; slice
+                assert pk[2:7] == rk[2:7] and pk[9] == rk[9]
+                assert (p.bytes, p.flops) == (0, 0)
+            else:
+                assert pk == rk, i
+        assert len(fills) == tp.nblocks
+        rs, ps = R.schedule_stats(ref), T.schedule_stats(port)
+        assert rs["h2d_bytes"] - ps["h2d_bytes"] == M * N * 4
+        assert ps["d2h_bytes"] == rs["d2h_bytes"] == M * N * 4
+        assert {k: v for k, v in ps.items() if k != "h2d_bytes"} \
+            == {k: v for k, v in rs.items() if k != "h2d_bytes"}
+        plan = T.compile_executable(port)
+        evicting = 0
+        for i in fills:
+            key = port.ops[i].buffers_written[0]
+            prev = [j for j in range(i) if port.ops[j].kind.name == "D2H"
+                    and port.ops[j].buffers_read == (key,)]
+            if prev:
+                evicting += 1
+                assert prev[-1] in plan.preds[i], (i, prev[-1])
+                assert plan.engine_of[i] != plan.engine_of[prev[-1]]
+        assert evicting == len(fills) - len(
+            {port.ops[i].buffers_written[0] for i in fills})
+
+
 @pytest.mark.parametrize("M,N,K,frac", SHAPES)
 def test_vendor_schedule_identical(M, N, K, frac):
     rp, tp = _parts(M, N, K, frac)
